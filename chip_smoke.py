@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one CUDA card.
+"""Drive the PyTorch port's serving and training paths on one CUDA card.
 
     python3 chip_smoke.py
 
-Phases, each printing one line (any failure raises and exits non-zero):
+Phases, each printing lines tagged with its name (any failure raises and
+exits non-zero; nothing is caught):
 
 1. device   - require CUDA; print ``nvidia-smi`` name and power limit.
 2. build    - compile the CUDA kernels from ``mamba_unet_torch/csrc``.
@@ -18,6 +19,20 @@ Phases, each printing one line (any failure raises and exits non-zero):
               through ``cli.test.infer_volume`` at batch 24, fp32 and bf16,
               with PyTorch's TF32 defaults restored; the kernel must launch
               14 times per served forward.
+6. kernel_bwd - the training kernels (state-saving forward: y and cs;
+              backward: all seven gradients) against their plain versions
+              at the four stage shapes, batch 2, fp32 and bf16 inputs; then
+              both timed at batch 24 and their outputs compared again.
+7. grad_parity - full-width Mamba-UNet, batch 2 at 224², fp32 with TF32
+              off: loss and every parameter's gradient of one
+              ``supervised_ce_dice`` backward on the card against a CPU copy.
+8. training - ``Trainer.fit`` with the ``Loader`` on in-memory phantom
+              slices (native 256x216, RandomGenerator to 224²), bs24, bf16
+              autocast, drop_path 0.2, poly-SGD at 0.01, 20 iterations with
+              one eval; 14 state-saving forward and 14 backward launches per
+              step, 14 serving launches per eval forward; step ms, slices/s,
+              peak memory, losses, and a short ``torch.profiler`` breakdown
+              (full table in ``build/train_profile.txt``).
 
 Then one JSON line with the kernel table, and the last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -49,6 +64,22 @@ MIN_ARGMAX_AGREEMENT = 0.999
 # an H100 (0.06 of logits up to 4.6; 99.4 % argmax agreement)
 BF16_LOGIT_TOL = 0.25
 BF16_MIN_ARGMAX_AGREEMENT = 0.98
+# training kernels vs plain: 1e-4 of the reference's max abs for outputs
+# per element, 1e-3 for dA/dD/ddelta_bias (sums over batch and time); a bf16
+# gradient may also differ by one bf16 rounding step (utils/compare.py)
+GRAD_KERNEL_TOL, GRAD_SUM_TOL = 1e-4, 1e-3
+SUMMED = ("A", "D", "delta_bias")
+# full model, one backward, card vs CPU, fp32 with TF32 off: every
+# parameter's gradient within 1e-3 of its own max abs; the loss within 1e-5
+MODEL_GRAD_TOL, LOSS_TOL = 1e-3, 1e-5
+TRAIN_BATCH, TRAIN_ITERS, TRAIN_EVAL_AT, TRAIN_WARMUP = 24, 20, 12, 3
+PATCH, NATIVE = 224, (256, 216)  # model input and phantom slice sizes
+# the least time of a scan call: device memory at 3.35 TB/s, fp32 FLOPs
+# outside the tensor cores at 67 TFLOP/s (H100 SXM data sheet), and the
+# special-function unit's exp2/log/reciprocal results at 16 per clock per SM
+# (CUDA C++ guide, compute capability 9.0) x 132 SMs x 1.98 GHz boost
+HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
+SFU_PER_S = 16 * 132 * 1.98e9
 
 
 def log(phase: str, **fields) -> None:
@@ -103,6 +134,322 @@ def check_kernel(torch, got, want, **where) -> float:
     return err
 
 
+def scan_bound(kind: str, bsz: int, L: int, dg: int, itemsize: int,
+               n: int = 16):
+    """(least ms, "bytes" or "operations") of one scan call of ``kind``
+    (fwd, fwd_states, bwd): each input read once, each output written once;
+    per (direction, step, channel, state) the forward needs 1 exp and ~6
+    FLOPs, the backward 1 exp (a_t = exp(dt A), which the recompute of the
+    states and the reverse scan can share) and ~20 FLOPs; softplus/sigmoid
+    add 2 (fwd) and 5 (bwd) special-function results per (direction, step,
+    channel)."""
+    trip = bsz * 4 * L * dg                          # (dir, step, channel)
+    io_in = (bsz * 2 * L * dg + bsz * 4 * L * dg + 2 * bsz * 4 * L * n) * (
+        itemsize)
+    params = 4 * dg * (n + 2) * 4
+    cs = bsz * 4 * (-(-L // 16)) * n * dg * 4
+    y = bsz * 2 * L * dg * 4
+    if kind == "bwd":
+        nbytes = 2 * io_in + 2 * params + cs + y     # + gy in, grads out
+        exps, flops = trip * (n + 5), trip * n * 20
+    else:
+        nbytes = io_in + params + y + (cs if kind == "fwd_states" else 0)
+        exps, flops = trip * (n + 2), trip * n * 6
+    mem_s = nbytes / HBM_BYTES_PER_S
+    ops_s = max(exps / SFU_PER_S, flops / FP32_FLOP_PER_S)
+    return 1e3 * max(mem_s, ops_s), ("bytes" if mem_s >= ops_s
+                                     else "operations")
+
+
+def timed_once(torch, fn):
+    """(ms of one call, its output), by CUDA events."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def check_training_kernels(torch, args, gy, **where):
+    """State-saving forward and backward against their plain versions on
+    the same inputs; returns ({"fwd_states": max abs error of y and cs,
+    "bwd": of the gradients}, ms of the plain forward, ms of the plain
+    backward), each plain version timed once."""
+    from mamba_unet_torch.ops.selective_scan_bidir import (
+        ARG_NAMES,
+        selective_scan_bidir_bwd,
+        selective_scan_bidir_bwd_ref,
+        selective_scan_bidir_fwd_states,
+        selective_scan_bidir_states_ref,
+    )
+    from mamba_unet_torch.utils.compare import assert_close_to_max
+
+    at = " ".join(f"{k}={v}" for k, v in where.items())
+    y, cs = selective_scan_bidir_fwd_states(*args)
+    plain_fwd, (y_ref, cs_ref) = timed_once(
+        torch, lambda: selective_scan_bidir_states_ref(*args))
+    errs = {"y": assert_close_to_max(y, y_ref, GRAD_KERNEL_TOL, f"y at {at}"),
+            "cs": assert_close_to_max(cs, cs_ref, GRAD_KERNEL_TOL,
+                                      f"cs at {at}")}
+    del y_ref, cs_ref
+    got = selective_scan_bidir_bwd(*args, cs, gy)
+    plain_bwd, want = timed_once(
+        torch, lambda: selective_scan_bidir_bwd_ref(*args, gy))
+    for name, g, w in zip(ARG_NAMES, got, want):
+        rel = GRAD_SUM_TOL if name in SUMMED else GRAD_KERNEL_TOL
+        errs["d" + name] = assert_close_to_max(g, w, rel, f"d{name} at {at}")
+    log("kernel_bwd", **where, **{k: f"{v:.2e}" for k, v in errs.items()},
+        ok=True)
+    worst = {"fwd_states": max(errs["y"], errs["cs"]),
+             "bwd": max(v for k, v in errs.items() if k[0] == "d")}
+    return worst, plain_fwd, plain_bwd
+
+
+def kernel_bwd_phase(torch, dev):
+    """Phase 6; returns {kernel: (max_err, ms per train step, plain ms per
+    train step, bound ms per train step, bound_by)} for the state-saving
+    forward and the backward (fp32 inputs)."""
+    from mamba_unet_torch.ops.selective_scan_bidir import (
+        selective_scan_bidir_bwd,
+        selective_scan_bidir_fwd_states,
+    )
+
+    max_err = {"fwd_states": 0.0, "bwd": 0.0}
+
+    def note(errs):
+        for kind, err in errs.items():
+            max_err[kind] = max(max_err[kind], err)
+
+    for L, dg, _ in STAGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = scan_inputs(torch, 2, L, dg, dtype, dev, seed=L + 1)
+            gy = torch.randn(2, 2, L, dg, generator=torch.Generator()
+                             .manual_seed(L)).to(dev)
+            errs, _, _ = check_training_kernels(
+                torch, args, gy, L=L, dg=dg, batch=2,
+                dtype=str(dtype).split(".")[-1])
+            note(errs)
+    tot = {k: [0.0, 0.0, 0.0] for k in ("fwd_states", "bwd")}
+    bound_by = {}
+    for L, dg, calls in STAGES:
+        row = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype).split(".")[-1]
+            args = scan_inputs(torch, TRAIN_BATCH, L, dg, dtype, dev, 0)
+            gy = torch.randn(TRAIN_BATCH, 2, L, dg, generator=torch
+                             .Generator().manual_seed(1)).to(dev)
+            fwd_ms, (y, cs) = cuda_ms(
+                torch, lambda: selective_scan_bidir_fwd_states(*args), 20)
+            bwd_ms, _ = cuda_ms(
+                torch, lambda: selective_scan_bidir_bwd(*args, cs, gy), 20)
+            del y, cs
+            # the kernels are deterministic (no atomics): these outputs are
+            # the timed calls' outputs
+            errs, plain_fwd, plain_bwd = check_training_kernels(
+                torch, args, gy, L=L, dg=dg, batch=TRAIN_BATCH, dtype=tag)
+            note(errs)
+            row[tag] = (fwd_ms, bwd_ms, plain_fwd, plain_bwd)
+            del args, gy
+            torch.cuda.empty_cache()
+        fwd_ms, bwd_ms, plain_fwd, plain_bwd = row["float32"]
+        bf = row["bfloat16"]
+        stage_bound = {}
+        for kind, ms, plain in (("fwd_states", fwd_ms, plain_fwd),
+                                ("bwd", bwd_ms, plain_bwd)):
+            bound, bound_by[kind] = scan_bound(kind, TRAIN_BATCH, L, dg, 4)
+            stage_bound[kind] = bound
+            tot[kind][0] += calls * ms
+            tot[kind][1] += calls * plain
+            tot[kind][2] += calls * bound
+        log("kernel_bwd_time", L=L, dg=dg, batch=TRAIN_BATCH,
+            fwd_states_ms=f"{fwd_ms:.4f}", bwd_ms=f"{bwd_ms:.4f}",
+            plain_fwd_states_ms=f"{plain_fwd:.2f}",
+            plain_bwd_ms=f"{plain_bwd:.2f}",
+            bf16_fwd_states_ms=f"{bf[0]:.4f}", bf16_bwd_ms=f"{bf[1]:.4f}",
+            bf16_plain_fwd_states_ms=f"{bf[2]:.2f}",
+            bf16_plain_bwd_ms=f"{bf[3]:.2f}",
+            bound_fwd_states_ms=f"{stage_bound['fwd_states']:.4f}",
+            bound_bwd_ms=f"{stage_bound['bwd']:.4f}")
+    for kind, (ms, plain, bound) in tot.items():
+        log("kernel_bwd_time", kernel=kind, per_step_ms=f"{ms:.4f}",
+            plain_per_step_ms=f"{plain:.2f}", bound_per_step_ms=f"{bound:.4f}",
+            calls=SS2D_PER_FORWARD)
+    return {kind: (max_err[kind], *tot[kind], bound_by[kind])
+            for kind in tot}
+
+
+def grad_parity_phase(torch, dev):
+    """Phase 7: one full-width backward on the card against a CPU copy."""
+    from mamba_unet_torch.models.vssm import MambaUnet
+    from mamba_unet_torch.objectives import supervised_ce_dice
+
+    gen = torch.Generator().manual_seed(2)
+    cpu_model = MambaUnet(num_classes=4, drop_path_rate=0.0,
+                          generator=torch.Generator().manual_seed(0))
+    model = MambaUnet(num_classes=4, drop_path_rate=0.0, device=dev)
+    model.load_state_dict(cpu_model.state_dict())
+    x = torch.randn(2, PATCH, PATCH, 1, generator=gen)
+    label = torch.randint(0, 4, (2, PATCH, PATCH), generator=gen)
+    losses, grads, secs = {}, {}, {}
+    for tag, m in (("gpu", model), ("cpu", cpu_model)):
+        d = next(m.parameters()).device
+        t0 = time.perf_counter()
+        loss = supervised_ce_dice(m.train()(x.to(d)), label.to(d))
+        loss.backward()
+        losses[tag] = loss.item()
+        grads[tag] = {k: p.grad.cpu() for k, p in m.named_parameters()}
+        secs[tag] = time.perf_counter() - t0
+    worst, worst_key = 0.0, None
+    for k, want in grads["cpu"].items():
+        scale = want.abs().max().item()
+        rel = (grads["gpu"][k] - want).abs().max().item() / max(scale, 1e-30)
+        if not math.isfinite(rel) or rel > worst:
+            worst, worst_key = rel, k
+    loss_err = abs(losses["gpu"] - losses["cpu"]) / abs(losses["cpu"])
+    log("grad_parity", params=len(grads["cpu"]), loss_gpu=losses["gpu"],
+        loss_cpu=losses["cpu"], loss_rel_err=f"{loss_err:.2e}",
+        worst_grad_rel_err=f"{worst:.2e}", worst_param=worst_key,
+        tol=MODEL_GRAD_TOL, gpu_s=f"{secs['gpu']:.2f}",
+        cpu_s=f"{secs['cpu']:.2f}")
+    if not (worst <= MODEL_GRAD_TOL and loss_err <= LOSS_TOL):
+        raise AssertionError(f"card gradients disagree with the CPU: worst "
+                             f"{worst} at {worst_key}, loss rel err "
+                             f"{loss_err}")
+
+
+def training_phase(torch, dev):
+    """Phase 8; returns the launch counts of the training run."""
+    from mamba_unet_torch.data.acdc import SliceDataset
+    from mamba_unet_torch.data.augment import RandomGenerator
+    from mamba_unet_torch.data.loader import Loader
+    from mamba_unet_torch.data.sampler import EpochShuffleSampler
+    from mamba_unet_torch.data.synthetic import phantom_acdc
+    from mamba_unet_torch.models.vssm import MambaUnet
+    from mamba_unet_torch.ops import selective_scan_bidir as ssb
+    from mamba_unet_torch.train import TrainConfig, Trainer
+
+    kernels = (ssb.selective_scan_bidir, ssb.selective_scan_bidir_fwd_states,
+               ssb.selective_scan_bidir_bwd)
+    splits = phantom_acdc(8, 8, 2, 0, *NATIVE, seed=0)
+    cfg = TrainConfig(base_lr=0.01, max_iterations=TRAIN_ITERS,
+                      batch_size=TRAIN_BATCH, patch_size=(PATCH, PATCH),
+                      num_classes=4, eval_every=TRAIN_EVAL_AT,
+                      log_every=1, seed=1337, bf16=True)
+    model = MambaUnet(num_classes=4, drop_path_rate=0.2,
+                      generator=torch.Generator().manual_seed(1337))
+    trainer = Trainer(model, cfg, device=dev)
+    before = {k: v.detach().clone() for k, v in
+              trainer.model.state_dict().items()}
+    train_ds = SliceDataset.from_samples(
+        splits["train"], transform=RandomGenerator((PATCH, PATCH),
+                                                   seed=1337))
+    loader = Loader(train_ds, EpochShuffleSampler(len(train_ds), TRAIN_BATCH,
+                                                  seed=1337), device=dev)
+    marks = []  # (time, counts) synchronised before each batch is handed out
+
+    def counted(batches):
+        for batch in batches:
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(),
+                          tuple(k.launches for k in kernels)))
+            yield batch
+
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    result = trainer.fit(counted(loader), splits["val"])
+    launches = tuple(k.launches for k in kernels)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    losses = [h["loss"] for h in result["history"] if "loss" in h]
+    dice = [h["val_dice"] for h in result["history"] if "val_dice" in h]
+    if result["iterations"] != TRAIN_ITERS or len(losses) != TRAIN_ITERS:
+        raise AssertionError(f"fit ran {result['iterations']} iterations, "
+                             f"logged {len(losses)} losses")
+    if not all(math.isfinite(v) for v in losses) or len(dice) != 1:
+        raise AssertionError(f"losses {losses}, evals {dice}")
+    changed = sum(not torch.equal(v, trainer.model.state_dict()[k])
+                  for k, v in before.items())
+    n_val_slices = sum(len(v["image"]) for v in splits["val"])
+    eval_fwd = math.ceil(n_val_slices / cfg.eval_batch_size)
+    step_ms = []
+    for i in range(1, len(marks)):
+        (t0, c0), (t1, c1) = marks[i - 1], marks[i]
+        d = [b - a for a, b in zip(c0, c1)]
+        evaled = i == TRAIN_EVAL_AT
+        want = [SS2D_PER_FORWARD * eval_fwd if evaled else 0,
+                SS2D_PER_FORWARD, SS2D_PER_FORWARD]
+        if d != want:
+            raise AssertionError(f"step {i}: launches (serve, fwd_states, "
+                                 f"bwd) {d}, expected {want}")
+        if i > TRAIN_WARMUP and not evaled:
+            step_ms.append(1e3 * (t1 - t0))
+    step_ms.sort()
+    med = step_ms[len(step_ms) // 2]
+    log("training", iterations=result["iterations"], batch=TRAIN_BATCH,
+        patch=f"{PATCH}x{PATCH}", native="x".join(map(str, NATIVE)),
+        dtype="bf16", drop_path=0.2,
+        launches_serve_fwd_states_bwd=launches,
+        params_changed=f"{changed}/{len(before)}", val_dice=f"{dice[0]:.4f}",
+        eval_forwards=eval_fwd)
+    log("training", losses=" ".join(f"{v:.4f}" for v in losses))
+    log("training", step_ms_median=f"{med:.2f}",
+        step_ms_min=f"{step_ms[0]:.2f}", step_ms_max=f"{step_ms[-1]:.2f}",
+        steps_timed=len(step_ms),
+        slices_per_s=f"{TRAIN_BATCH / med * 1e3:.1f}",
+        peak_mem_gb=f"{peak_gb:.2f}")
+    if changed < 0.99 * len(before):
+        raise AssertionError(f"only {changed}/{len(before)} tensors changed")
+    profile_steps(torch, trainer, loader)
+    return launches
+
+
+def profile_steps(torch, trainer, loader, steps=3):
+    """Device time by kernel over ``steps`` train steps (torch.profiler);
+    prints the largest and writes the table to build/."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = []
+    for batch in loader:
+        batches.append(batch)
+        if len(batches) == steps:
+            break
+    trainer.train_step(batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((us / 1e3 / steps, e.count / steps, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    out = ROOT / "build"
+    out.mkdir(exist_ok=True)
+    (out / "train_profile.txt").write_text(
+        f"ms per step, launches per step, kernel ({steps} steps, wall "
+        f"{wall_ms:.2f} ms/step, device busy {busy:.2f} ms/step)\n"
+        + "\n".join(f"{ms:9.3f} {n:7.1f}  {k}" for ms, n, k in rows))
+    log("profile", steps=steps, wall_ms_per_step=f"{wall_ms:.2f}",
+        device_ms_per_step=f"{busy:.2f}",
+        busy_share=f"{busy / wall_ms:.3f}" if rows else "not measured")
+    for ms, n, key in rows[:12]:
+        log("profile", ms_per_step=f"{ms:.3f}", launches_per_step=f"{n:.0f}",
+            kernel=key[:90].replace(" ", "_"))
+
+
 def main() -> int:
     import torch
 
@@ -125,9 +472,9 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    log("device", name=repr(name), count=count, torch=torch.__version__,
+    log("device", name=repr(device_name), count=count, torch=torch.__version__,
         cuda=torch.version.cuda)
     tf32_defaults = (torch.backends.cuda.matmul.allow_tf32,
                      torch.backends.cudnn.allow_tf32)
@@ -168,6 +515,7 @@ def main() -> int:
         plain_ms_fwd += calls * plain
         log("kernel_time", L=L, dg=dg, batch=SERVE_BATCH, ms=f"{ms:.4f}",
             plain_ms=f"{plain:.2f}", speedup=f"{plain / ms:.1f}x",
+            bound_ms=f"{scan_bound('fwd', SERVE_BATCH, L, dg, 4)[0]:.4f}",
             bf16_ms=f"{times['bfloat16'][0]:.4f}",
             bf16_plain_ms=f"{times['bfloat16'][1]:.2f}")
     log("kernel_time", per_forward_ms=f"{ms_fwd:.4f}",
@@ -255,18 +603,42 @@ def main() -> int:
             volume_latency_ms=f"{1e3 * sum(lat) / len(lat):.1f}",
             volume_slices_per_s=f"{10 * len(lat) / sum(lat):.1f}")
 
-    print(json.dumps({"kernels": [{
-        "name": "selective_scan_bidir_fwd",
-        "route": "cuda",
-        "source": "mamba_unet_torch/csrc/selective_scan_bidir_fwd.cu",
-        "replaces": ("mamba_unet_tpu/ops/selective_scan_persistent.py:130, "
-                     "mamba_unet_tpu/ops/selective_scan_pallas.py:229"),
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms_fwd,
-        "plain_ms": plain_ms_fwd,
-    }]}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    # --- 6-8. the training path
+    train_kernels = kernel_bwd_phase(torch, dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grad_parity_phase(torch, dev)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32_defaults
+    del model, fns
+    torch.cuda.empty_cache()
+    _, train_fwd, train_bwd = training_phase(torch, dev)
+
+    serve_bound = sum(calls * scan_bound("fwd", SERVE_BATCH, L, dg, 4)[0]
+                      for L, dg, calls in STAGES)
+    pallas = "mamba_unet_tpu/ops/selective_scan_pallas.py"
+    rows = [dict(name="selective_scan_bidir_fwd", launches=launches,
+                 max_abs_err=max_err, ms=ms_fwd, plain_ms=plain_ms_fwd,
+                 bound_ms=serve_bound,
+                 bound_by=scan_bound("fwd", SERVE_BATCH, 3136, 192, 4)[1],
+                 source="mamba_unet_torch/csrc/selective_scan_bidir_fwd.cu",
+                 replaces=("mamba_unet_tpu/ops/selective_scan_persistent.py"
+                           f":130, {pallas}:229"))]
+    for kernel, kind, n, src, where in (
+            ("selective_scan_bidir_fwd_states", "fwd_states", train_fwd,
+             "selective_scan_bidir_fwd.cu", f"{pallas}:238"),
+            ("selective_scan_bidir_bwd", "bwd", train_bwd,
+             "selective_scan_bidir_bwd.cu", f"{pallas}:318")):
+        err, ms, plain, bound, by = train_kernels[kind]
+        rows.append(dict(name=kernel, launches=n, max_abs_err=err, ms=ms,
+                         plain_ms=plain, bound_ms=bound, bound_by=by,
+                         source=f"mamba_unet_torch/csrc/{src}",
+                         replaces=where))
+    # no single PyTorch call computes the selective scan
+    print(json.dumps({"kernels": [dict(route="cuda", library_ms=None, **r)
+                                  for r in rows]}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": device_name,
                                              "count": count}}), flush=True)
     return 0
 

@@ -8,7 +8,10 @@ The per-volume body is :func:`infer_volume`, which ``chip_smoke.py`` drives
 too; it is ``eval.inference.test_single_volume`` with the CLI's metrics.
 
     python -m mamba_unet_torch.cli.test --root_path ../data/ACDC \
-        --checkpoint model.pth --device cuda
+        --checkpoint model.pth
+
+``--device`` defaults to ``cuda`` and raises without a card; ``--device
+cpu`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -20,7 +23,6 @@ import sys
 from typing import Callable, Sequence
 
 import numpy as np
-import torch
 
 from mamba_unet_torch.eval.inference import test_single_volume
 from mamba_unet_torch.eval.metrics import dice_hd95_asd
@@ -37,8 +39,8 @@ def build_parser():
     p.add_argument("--checkpoint", type=str, default=None,
                    help="torch.save'd state_dict; default: seed-0 weights")
     p.add_argument("--split", type=str, default="test", choices=["val", "test"])
-    p.add_argument("--device", type=str,
-                   default="cuda" if torch.cuda.is_available() else "cpu")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
     p.add_argument("--write_pred_key", type=str, default=None,
                    help="write predictions back into the case h5 under this key")
     return p
@@ -59,10 +61,12 @@ def infer_volume(image: np.ndarray, label: np.ndarray,
 def run_inference(args) -> dict:
     from mamba_unet_torch.data.acdc import VolumeDataset
     from mamba_unet_torch.utils.checkpoint import load_model_snapshot
+    from mamba_unet_torch.utils.device import require_device
     from mamba_unet_torch.utils.export import make_predict_fn
 
     model = load_model_snapshot(args.model, args.num_classes, 1,
-                                args.checkpoint, device=args.device)
+                                args.checkpoint,
+                                device=require_device(args.device))
     predict = make_predict_fn(model)
 
     ds = VolumeDataset(args.root_path, args.split)

@@ -5,7 +5,9 @@
 //     (through persistent_scan_bidir; the TPU's stage-0 serving scan), and
 //   * mamba_unet_tpu/ops/selective_scan_pallas.py::_fwd_kernel in bidir mode
 //     (through selective_scan_pallas_bidir(merge_pairs=True); stages 1-3),
-//     y output only. Its chunk-entry states feed only the backward.
+//     y output, and
+//   * the same _fwd_kernel's chunk-entry state output `cs` (save_cs), which
+//     only the backward (selective_scan_bidir_bwd.cu) reads.
 //
 // Math, per direction g in {0,1,2,3}; m = g % 2 is the data stream and
 // directions g >= 2 run over it in reversed time:
@@ -15,6 +17,13 @@
 //   out[b,m,t,d] = y_m[t] + y_{m+2}[t]          (both in data order)
 // The state x (N = 16) and all arithmetic are fp32; inputs are fp32 or bf16
 // and the output is fp32.
+//
+// With a non-null `cs` (the training forward) each thread also writes its 16
+// fp32 states at every kStateChunk-th step of both directions, in scan
+// order: cs[b, g, c, n, d] = the state entering scan step c * kStateChunk of
+// direction g (zero for c = 0). A reversed direction's scan step k is data
+// step L - 1 - k. The serving call passes null and compiles without the
+// stores (a template flag), so serving pays nothing for the option.
 //
 // What bounds it on an H100. At stage 0 of the served model (bs24, L=3136,
 // dg=192, fp32) one call reads about 0.39 GB of distinct input (u2 0.12,
@@ -50,6 +59,8 @@ namespace {
 constexpr int kN = 16;        // d_state
 constexpr int kThreads = 64;  // channels per block, one thread each
 constexpr int kChunk = 32;    // time steps staged in shared memory per pass
+constexpr int kStateChunk = 16;  // scan steps between saved states (= bwd)
+static_assert(kChunk % kStateChunk == 0, "a state chunk is inside a chunk");
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
@@ -61,13 +72,14 @@ __device__ __forceinline__ float softplus(float x) {
   return x > 20.f ? x : log1pf(expf(x));
 }
 
-template <typename T>
+template <typename T, bool kSave>
 __global__ void __launch_bounds__(kThreads)
 bidir_fwd_kernel(const T* __restrict__ u2, const T* __restrict__ delta4,
                  const T* __restrict__ B4, const T* __restrict__ C4,
                  const float* __restrict__ A, const float* __restrict__ D,
                  const float* __restrict__ delta_bias,
-                 float* __restrict__ out, int L, int dg) {
+                 float* __restrict__ out, float* __restrict__ cs, int L,
+                 int dg) {
   __shared__ float s_u[kChunk][kThreads];
   __shared__ float s_delta[kChunk][kThreads];
   __shared__ float s_y[kChunk][kThreads];
@@ -79,6 +91,7 @@ bidir_fwd_kernel(const T* __restrict__ u2, const T* __restrict__ delta4,
   const int m = blockIdx.y;  // data stream: 0 = row-major, 1 = column-major
   const int b = blockIdx.z;
   const bool active = d < dg;
+  const int n_states = (L + kStateChunk - 1) / kStateChunk;
 
   const size_t stream = (size_t)(b * 2 + m) * L * dg;
   const T* u_s = u2 + stream;
@@ -91,6 +104,8 @@ bidir_fwd_kernel(const T* __restrict__ u2, const T* __restrict__ delta4,
     const T* delta_s = delta4 + dir * dg;
     const T* B_s = B4 + dir * kN;
     const T* C_s = C4 + dir * kN;
+    float* cs_g = kSave ? cs + (size_t)(b * 4 + g) * n_states * kN * dg + d
+                        : nullptr;
 
     float a2[kN], x[kN];
     float skip = 0.f, bias = 0.f;
@@ -129,6 +144,11 @@ bidir_fwd_kernel(const T* __restrict__ u2, const T* __restrict__ delta4,
 #pragma unroll 4
         for (int i = 0; i < len; ++i) {
           const int s = r == 0 ? i : len - 1 - i;
+          if (kSave && i % kStateChunk == 0) {  // c0 is a multiple too
+            float* dst = cs_g + (size_t)((c0 + i) / kStateChunk) * kN * dg;
+#pragma unroll
+            for (int n = 0; n < kN; ++n) dst[(size_t)n * dg] = x[n];
+          }
           const float uu = s_u[s][tid];
           const float dt = softplus(s_delta[s][tid] + bias);
           const float du = dt * uu;
@@ -150,35 +170,38 @@ bidir_fwd_kernel(const T* __restrict__ u2, const T* __restrict__ delta4,
 template <typename T>
 cudaError_t launch(const void* u2, const void* delta4, const void* B4,
                    const void* C4, const void* A, const void* D,
-                   const void* delta_bias, void* out, int batch, int L,
-                   int dg, cudaStream_t stream) {
+                   const void* delta_bias, void* out, void* cs, int batch,
+                   int L, int dg, cudaStream_t stream) {
   const dim3 grid((dg + kThreads - 1) / kThreads, 2, batch);
-  bidir_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(
+  auto kernel = cs ? bidir_fwd_kernel<T, true> : bidir_fwd_kernel<T, false>;
+  kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(u2), static_cast<const T*>(delta4),
       static_cast<const T*>(B4), static_cast<const T*>(C4),
       static_cast<const float*>(A), static_cast<const float*>(D),
-      static_cast<const float*>(delta_bias), static_cast<float*>(out), L, dg);
+      static_cast<const float*>(delta_bias), static_cast<float*>(out),
+      static_cast<float*>(cs), L, dg);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// Pointers are contiguous device buffers laid out as documented above.
+// Pointers are contiguous device buffers laid out as documented above; `cs`
+// is null (serving) or (batch, 4, ceil(L / 16), 16, dg) fp32 (training).
 extern "C" int selective_scan_bidir_fwd(const void* u2, const void* delta4,
                                         const void* B4, const void* C4,
                                         const void* A, const void* D,
                                         const void* delta_bias, void* out,
-                                        int batch, int L, int dg, int n,
-                                        int is_bf16, void* stream) {
+                                        void* cs, int batch, int L, int dg,
+                                        int n, int is_bf16, void* stream) {
   if (n != kN || batch <= 0 || batch > 65535 || L <= 0 || dg <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? launch<__nv_bfloat16>(u2, delta4, B4, C4, A, D, delta_bias,
-                                      out, batch, L, dg, s)
-              : launch<float>(u2, delta4, B4, C4, A, D, delta_bias, out,
+                                      out, cs, batch, L, dg, s)
+              : launch<float>(u2, delta4, B4, C4, A, D, delta_bias, out, cs,
                               batch, L, dg, s);
   return static_cast<int>(err);
 }

@@ -1,7 +1,8 @@
 """Volume inference: per-slice order-0 resize, batched forward, argmax.
 
 Copied from ``mamba_unet_tpu/eval/inference.py`` (``_zoom0``,
-``_predict_batched``, ``test_single_volume``), not imported: any import from
+``_predict_batched``, ``test_single_volume``, ``evaluate_slice_volumes``),
+not imported: any import from
 ``mamba_unet_tpu`` runs its ``data`` package, which imports ``jax``, and the
 machine that serves the port has no ``jax``. ``_zoom0`` here is scipy only
 (the JAX package may use its native resize, which matches scipy exactly).
@@ -86,3 +87,46 @@ def test_single_volume(
                for i in range(1, classes)]
     return (metrics, out) if return_pred else metrics
 
+
+def evaluate_slice_volumes(
+    volumes,
+    predict_fn: Callable[[np.ndarray], np.ndarray],
+    classes: int,
+    patch_size: Sequence[int] = (256, 256),
+    batch_size: int = 16,
+) -> np.ndarray:
+    """Batched whole-val-set slice inference (the trainer's eval).
+
+    All volumes' slices are resized on the host, concatenated and streamed
+    through ``predict_fn`` in ``batch_size`` chunks, so only the one global
+    tail is padded. Per slice: order-0 zoom to the patch size, argmax, zoom
+    back, metrics at native resolution. ``volumes`` is an iterable of dicts
+    with (Z, H, W) ``image``/``label``. Returns (cases, classes-1, 2)
+    [dice, hd95].
+    """
+    vols = [(np.asarray(v["image"]), np.asarray(v["label"])) for v in volumes]
+    ps = tuple(patch_size)
+
+    all_slices, spans = [], []
+    for image, _ in vols:
+        z, x, y = image.shape
+        start = len(all_slices)
+        if (x, y) != ps:
+            all_slices.extend(_zoom0(image[i], ps) for i in range(z))
+        else:
+            all_slices.extend(image)
+        spans.append((start, len(all_slices), (x, y)))
+
+    inp = np.asarray(all_slices, np.float32)[..., None]  # (N, ps, ps, 1)
+    out = _predict_batched(inp, predict_fn, batch_size)
+
+    metrics = []
+    for (start, stop, (x, y)), (_, label) in zip(spans, vols):
+        pred = out[start:stop]
+        if (x, y) != ps:
+            pred = np.stack([_zoom0(p, (x, y)) for p in pred])
+        metrics.append([
+            calculate_metric_percase(pred == i, label == i)
+            for i in range(1, classes)
+        ])
+    return np.asarray(metrics)

@@ -2,7 +2,9 @@
 
 Port of ``mamba_unet_tpu/nn/layers.py``. Initializers draw on the CPU from
 an explicit ``torch.Generator`` and copy into the parameter, so one seed
-gives the same weights on every device.
+gives the same weights on every device. ``DropPath`` draws its masks from
+a generator its owner (the trainer) hands it with
+:func:`set_drop_path_generator`, never from the global one.
 """
 
 from __future__ import annotations
@@ -59,16 +61,33 @@ def linear(in_features: int, out_features: int, bias: bool, device,
 class DropPath(nn.Module):
     """Per-sample stochastic depth: drops the whole residual branch with
     probability ``rate`` in training and rescales by 1/keep. Identity in
-    eval mode."""
+    eval mode. In training the mask comes from ``self.generator``, a
+    ``torch.Generator`` on the input's device that
+    :func:`set_drop_path_generator` sets; there is no default."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
+        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
+        if self.generator is None:
+            raise RuntimeError("DropPath in training needs a generator: "
+                               "set_drop_path_generator(model, generator)")
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, device=x.device) < keep
+        mask = torch.rand(shape, device=x.device,
+                          generator=self.generator) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def set_drop_path_generator(model: nn.Module,
+                            generator: Optional[torch.Generator]) -> int:
+    """Hand ``generator`` to every ``DropPath`` in ``model``; returns how
+    many there are."""
+    paths = [m for m in model.modules() if isinstance(m, DropPath)]
+    for m in paths:
+        m.generator = generator
+    return len(paths)

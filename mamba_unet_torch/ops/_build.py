@@ -1,10 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``mamba_unet_torch/csrc/`` have a plain C interface. At
-first use they are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library under ``build/mamba_unet_torch/`` at the repository root, named by a
-hash of the sources (an edited source builds anew), and loaded with
-``ctypes``. A missing ``nvcc`` or a failed build raises with the compiler's
+first use each is compiled with its own ``nvcc`` for ``sm_90a``, all at
+once, and the objects are linked into one shared library under
+``build/mamba_unet_torch/`` at the repository root, named by a hash of the
+sources (an edited source builds anew), and loaded with ``ctypes``. A missing ``nvcc`` or a failed build raises with the compiler's
 output; nothing falls back.
 """
 
@@ -23,13 +23,18 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "mamba_unet_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> argtypes; every entry returns cudaError_t as an int.
 _SIGNATURES = {
-    # u2, delta4, B4, C4, A, D, delta_bias, out, batch, L, dg, n, is_bf16, stream
-    "selective_scan_bidir_fwd": [_P] * 8 + [_I] * 5 + [_P],
+    # u2, delta4, B4, C4, A, D, delta_bias, out, cs (or null),
+    # batch, L, dg, n, is_bf16, stream
+    "selective_scan_bidir_fwd": [_P] * 9 + [_I] * 5 + [_P],
+    # u2, delta4, B4, C4, A, D, delta_bias, cs, gy,
+    # du2, ddelta4, dB_part, dC_part, dA_part, dD_part, ddb_part,
+    # batch, L, dg, n, is_bf16, stream
+    "selective_scan_bidir_bwd": [_P] * 16 + [_I] * 5 + [_P],
 }
 
 
@@ -58,25 +63,40 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands all at once; raise with the output of any that
+    fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists."""
-    sources = _sources()
     lib = BUILD_DIR / f"libkernels-{_source_hash()}.so"
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name and rename, so a concurrent or cut-off
-    # build never leaves a partial library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
+    # build in a temporary directory and rename the library into place, so
+    # a concurrent or cut-off build never leaves a partial library under
+    # the final name
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        nvcc = _nvcc()
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(_sources(), objs)])
+        out = Path(tmp) / lib.name
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(out),
+               *map(str, objs)]])
+        os.replace(out, lib)
     return lib
 
 

@@ -1,0 +1,235 @@
+"""The Trainer: the fully-supervised train step and the loop around it.
+
+Port of ``TrainConfig``, ``fully_supervised_loss`` and ``Trainer`` from
+``mamba_unet_tpu/train/trainer.py``, with the same protocol:
+
+* poly LR per iteration (the optimizer's scheduler, ``train/optim.py``),
+* eval every ``eval_every`` iterations on the val volumes (order-0 zoom
+  slice inference through the no-grad serving scan), tracking the mean
+  Dice over classes 1..C-1,
+* a best-Dice checkpoint (the model's ``state_dict``) with its high-water
+  mark in a sidecar, a periodic checkpoint every ``ckpt_every``
+  iterations, and resume from the newest periodic one.
+
+The trainer owns the model, the optimizer and its schedule, the step and
+the ``torch.Generator`` that ``DropPath`` draws from. That generator is
+reseeded from (seed, step) before every step, as the JAX trainer folds the
+step into its key, so a resumed run draws the same masks. With
+``bf16=True`` the forward and the loss run under bf16 autocast; weights,
+gradients and the optimizer stay fp32, and the scan keeps an fp32 state.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from mamba_unet_torch.eval.inference import evaluate_slice_volumes
+from mamba_unet_torch.nn.layers import set_drop_path_generator
+from mamba_unet_torch.objectives import supervised_ce_dice
+from mamba_unet_torch.train.optim import poly_sgd
+from mamba_unet_torch.utils.checkpoint import (
+    latest_step,
+    load_best_marks,
+    restore_checkpoint,
+    save_best_marks,
+    save_checkpoint,
+)
+from mamba_unet_torch.utils.device import require_device
+from mamba_unet_torch.utils.export import make_predict_fn
+
+log = logging.getLogger("mamba_unet_torch")
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    base_lr: float = 0.01
+    max_iterations: int = 10_000
+    batch_size: int = 24
+    patch_size: Tuple[int, int] = (256, 256)
+    num_classes: int = 4
+    eval_every: int = 200
+    ckpt_every: int = 3000
+    eval_batch_size: int = 16
+    seed: int = 1337
+    snapshot_dir: Optional[str] = None
+    log_every: int = 50
+    resume: bool = False
+    # k microbatches per optimizer update: each is run forward and backward
+    # on its own (activation memory scales with batch_size / k) and the
+    # gradient is the mean over them; the Dice term becomes per-microbatch
+    grad_accum_steps: int = 1
+    # bf16 autocast for the forward and the loss (the JAX package builds
+    # its model with dtype=bfloat16 instead)
+    bf16: bool = False
+
+
+def fully_supervised_loss(model: nn.Module, batch: Dict[str, torch.Tensor]
+                          ) -> Tuple[torch.Tensor, Dict]:
+    """0.5 * (CE + Dice) on the whole batch; a multi-head model trains on
+    its main head."""
+    logits = model(batch["image"])
+    if isinstance(logits, (tuple, list)):
+        logits = logits[0]
+    loss = supervised_ce_dice(logits, batch["label"])
+    return loss, {"loss_total": loss.detach()}
+
+
+def _step_seed(seed: int, step: int) -> int:
+    """A 63-bit seed mixed from (seed, step)."""
+    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+    return int(state[0]) >> 1
+
+
+OptimizerFactory = Callable[[Any], Tuple[torch.optim.Optimizer, Any]]
+
+
+class Trainer:
+    def __init__(self, model: nn.Module, config: TrainConfig,
+                 make_optimizer: Optional[OptimizerFactory] = None,
+                 device="cuda"):
+        """``make_optimizer(params) -> (optimizer, scheduler)``, by default
+        :func:`poly_sgd` at ``config.base_lr`` over
+        ``config.max_iterations``. The model moves to ``device``, which is
+        the card unless the caller asks for the CPU."""
+        cfg = self.config = config
+        k = cfg.grad_accum_steps
+        if k < 1 or cfg.batch_size % k:
+            raise ValueError(f"batch_size={cfg.batch_size} is not divisible "
+                             f"by grad_accum_steps={k}")
+        self.device = require_device(device)
+        self.model = model.to(self.device).train()
+        if make_optimizer is None:
+            def make_optimizer(params):
+                return poly_sgd(params, cfg.base_lr, cfg.max_iterations)
+        self.optimizer, self.scheduler = make_optimizer(
+            self.model.parameters())
+        self.step = 0
+        self.generator = torch.Generator(device=self.device)
+        set_drop_path_generator(self.model, self.generator)
+
+    # --- one step --------------------------------------------------------
+    def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        """One optimizer update on ``batch`` (``image`` (B, H, W, C) float,
+        ``label`` (B, H, W) int). Returns the logs, as device tensors where
+        they come from the device (reading them synchronises)."""
+        cfg = self.config
+        self.model.train()
+        self.generator.manual_seed(_step_seed(cfg.seed, self.step))
+        image = batch["image"].to(self.device, non_blocking=True).float()
+        label = batch["label"].to(self.device, non_blocking=True).long()
+        k = cfg.grad_accum_steps
+        self.optimizer.zero_grad(set_to_none=True)
+        losses = []
+        for img, lab in zip(image.chunk(k), label.chunk(k)):
+            with torch.autocast(self.device.type, torch.bfloat16,
+                                enabled=cfg.bf16):
+                loss, logs = fully_supervised_loss(
+                    self.model, {"image": img, "label": lab})
+            (loss / k).backward()
+            losses.append(logs["loss_total"])
+        self.optimizer.step()
+        self.scheduler.step()
+        self.step += 1
+        return {"loss_total": torch.stack(losses).mean(),
+                "lr": self.scheduler.get_last_lr()[0]}
+
+    # --- eval -------------------------------------------------------------
+    def predict_fn(self) -> Callable:
+        """(B, ps, ps, 1) fp32 -> logits, no grad, in eval mode: the serving
+        scan kernel (bf16 autocast when training in bf16)."""
+        return make_predict_fn(self.model,
+                               torch.bfloat16 if self.config.bf16 else None)
+
+    def evaluate(self, val_dataset, detailed: bool = False):
+        """Mean Dice over val volumes x foreground classes; with
+        ``detailed`` also the per-class (dice, hd95) means."""
+        cfg = self.config
+        try:
+            arr = evaluate_slice_volumes(
+                (val_dataset[i] for i in range(len(val_dataset))),
+                self.predict_fn(), cfg.num_classes,
+                patch_size=cfg.patch_size, batch_size=cfg.eval_batch_size,
+            )  # (cases, classes-1, 2)
+        finally:
+            self.model.train()
+        mean_dice = float(arr[:, :, 0].mean())
+        if detailed:
+            return mean_dice, arr.mean(axis=0)
+        return mean_dice
+
+    # --- checkpoints --------------------------------------------------------
+    def _periodic_tree(self) -> Dict[str, Any]:
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict(),
+                "step": self.step}
+
+    def try_resume(self) -> int:
+        """Restore the newest periodic checkpoint of ``snapshot_dir`` (model,
+        optimizer, schedule, step) when ``resume``; returns the step, or 0
+        when there is none."""
+        cfg = self.config
+        if not (cfg.resume and cfg.snapshot_dir):
+            return 0
+        step = latest_step(cfg.snapshot_dir)
+        if step is None:
+            return 0
+        tree = restore_checkpoint(cfg.snapshot_dir, step,
+                                  map_location=self.device)
+        self.model.load_state_dict(tree["model"])
+        self.optimizer.load_state_dict(tree["optimizer"])
+        self.scheduler.load_state_dict(tree["scheduler"])
+        self.step = int(tree["step"])
+        log.info("resumed from %s @ step %d", cfg.snapshot_dir, self.step)
+        return self.step
+
+    def _load_best_mark(self) -> float:
+        """The best Dice so far from the sidecar (0.0 when absent), so a
+        resumed run cannot overwrite a better ``best_*`` checkpoint."""
+        if not self.config.snapshot_dir:
+            return 0.0
+        return float(load_best_marks(self.config.snapshot_dir).get("best",
+                                                                   0.0))
+
+    # --- the loop -----------------------------------------------------------
+    def fit(self, train_loader, val_dataset=None) -> Dict[str, Any]:
+        cfg = self.config
+        history = []
+        it0 = self.try_resume()
+        # the mark loads whenever resume is asked for, not only when a
+        # periodic checkpoint exists: a run killed after a best save but
+        # before its first periodic save must keep its best
+        best_dice = self._load_best_mark() if cfg.resume else 0.0
+        t0 = time.time()
+        for batch in train_loader:
+            if self.step >= cfg.max_iterations:
+                break
+            logs = self.train_step(batch)
+            it = self.step
+            if it % cfg.log_every == 0 or it == 1:
+                loss = float(logs["loss_total"])
+                log.info("iter %d loss %.4f lr %.5f (%.1f it/s)", it, loss,
+                         logs["lr"], (it - it0) / (time.time() - t0))
+                history.append({"iter": it, "loss": loss})
+            if val_dataset is not None and it % cfg.eval_every == 0:
+                dice, _ = self.evaluate(val_dataset, detailed=True)
+                log.info("iter %d val mean dice %.4f (best %.4f)", it, dice,
+                         best_dice)
+                history.append({"iter": it, "val_dice": dice})
+                if dice > best_dice:
+                    best_dice = dice
+                    if cfg.snapshot_dir:
+                        save_checkpoint(cfg.snapshot_dir, it,
+                                        self.model.state_dict(), name="best")
+                        save_best_marks(cfg.snapshot_dir, {"best": best_dice})
+            if cfg.snapshot_dir and it % cfg.ckpt_every == 0:
+                save_checkpoint(cfg.snapshot_dir, it, self._periodic_tree())
+        return {"best_dice": best_dice, "iterations": self.step,
+                "history": history}

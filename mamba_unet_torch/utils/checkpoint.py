@@ -1,16 +1,92 @@
-"""Model snapshots: build a net by name and load its weights.
+"""Checkpoints and model snapshots.
 
-Port of ``load_model_snapshot`` from ``mamba_unet_tpu/utils/checkpoint.py``
-(the shared load of the test CLI and serving). Where the JAX package restores
-an orbax directory, the port loads a ``torch.save``d ``state_dict``.
+Port of ``save_checkpoint``, ``latest_step``, ``restore_checkpoint``,
+``save_best_marks``, ``load_best_marks`` and ``load_model_snapshot`` from
+``mamba_unet_tpu/utils/checkpoint.py``. Where the JAX package writes an
+orbax directory, the port writes one ``torch.save`` file, under the same
+``{directory}/{name}_{step}`` name, and reads it back with
+``torch.load(weights_only=True)``. The trainer saves a model's
+``state_dict`` as ``best_{step}`` (so the test CLI's ``--checkpoint`` loads
+it as it is) and ``{"model", "optimizer", "scheduler", "step"}`` as the
+periodic ``state_{step}`` it resumes from.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import json
+import os
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+
+
+def save_checkpoint(directory: str, step: int, tree: Any,
+                    name: str = "state") -> str:
+    """Save ``tree`` as {directory}/{name}_{step}, atomically (write to a
+    temporary name, then rename). Returns the path."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.abspath(os.path.join(directory, f"{name}_{step}"))
+    tmp = path + ".tmp"
+    torch.save(tree, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def latest_step(directory: str, name: str = "state") -> Optional[int]:
+    """The largest step of a {name}_{step} entry in ``directory``, or None."""
+    if not os.path.isdir(directory):
+        return None
+    steps = []
+    for entry in os.listdir(directory):
+        if entry.startswith(f"{name}_"):
+            try:
+                steps.append(int(entry.rsplit("_", 1)[1]))
+            except ValueError:
+                pass
+    return max(steps) if steps else None
+
+
+def restore_checkpoint(directory: str, step: int, name: str = "state",
+                       map_location=None) -> Any:
+    """Load the tree saved as {directory}/{name}_{step}."""
+    path = os.path.abspath(os.path.join(directory, f"{name}_{step}"))
+    return torch.load(path, map_location=map_location, weights_only=True)
+
+
+_BEST_MARKS_FILE = "best_marks.json"
+
+
+def save_best_marks(directory: str, marks: Dict[str, float]) -> str:
+    """Merge ``marks`` into {directory}/best_marks.json, atomically.
+
+    The sidecar keeps each best-metric high-water mark (keyed by the best
+    checkpoint's name) across kill-and-resume, so a resumed run cannot
+    overwrite a better ``best_*`` checkpoint."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, _BEST_MARKS_FILE)
+    merged = load_best_marks(directory)
+    merged.update({k: float(v) for k, v in marks.items()})
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(merged, f, indent=1, sort_keys=True)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    return path
+
+
+def load_best_marks(directory: str) -> Dict[str, float]:
+    """Read the best-marks sidecar; {} when absent or unreadable."""
+    path = os.path.join(directory, _BEST_MARKS_FILE)
+    try:
+        with open(path) as f:
+            got = json.load(f)
+        return {str(k): float(v) for k, v in got.items()}
+    except (OSError, ValueError, TypeError, AttributeError):
+        # TypeError: non-numeric values; AttributeError: the top level is
+        # not an object. Both count as unreadable.
+        return {}
 
 
 def load_model_snapshot(

@@ -1,12 +1,17 @@
-"""The port's CUDA kernel on a card (marker ``cuda``; skipped without one).
+"""The port's CUDA kernels on a card (marker ``cuda``; skipped without one).
 
 This file imports no JAX, so it also runs where only the port is installed:
 
     python -m pytest --noconftest tests/test_torch_kernel.py -m cuda
 
-(``--noconftest`` because ``tests/conftest.py`` imports JAX.) The kernel is
-held against its plain PyTorch version on the same card at 1e-4: both read
-the same values, only the fp32 summation order differs.
+(``--noconftest`` because ``tests/conftest.py`` imports JAX.) Each kernel is
+held against its plain PyTorch version on the same card: both read the same
+values, only the fp32 summation order differs. The serving forward is held
+at 1e-4. The training kernels are held at 1e-4 of the reference's max abs
+for per-element outputs and 1e-3 for dA/dD/ddelta_bias, which sum over
+batch and time; a bf16 gradient may also differ by one bf16 rounding step,
+since both versions round an fp32 sum to bf16 (``utils/compare.py``, the
+rule ``chip_smoke.py`` applies too).
 """
 
 import pytest
@@ -14,9 +19,19 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from mamba_unet_torch.ops.selective_scan_bidir import (  # noqa: E402
+    ARG_NAMES,
     selective_scan_bidir,
+    selective_scan_bidir_bwd,
+    selective_scan_bidir_bwd_ref,
+    selective_scan_bidir_fwd_states,
     selective_scan_bidir_ref,
+    selective_scan_bidir_states_ref,
 )
+from mamba_unet_torch.utils.compare import assert_close_to_max  # noqa: E402
+
+# (L, dg) of SS2D's scan at the four stages of the 224² model
+STAGES = [(3136, 192), (784, 384), (196, 768), (49, 1536)]
+SUMMED = ("A", "D", "delta_bias")  # gradients summed over batch and time
 
 
 @pytest.fixture
@@ -84,3 +99,49 @@ def test_ss2d_on_card_matches_cpu(cuda):
         got = m.to(cuda)(x.to(cuda)).cpu()
     assert selective_scan_bidir.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L,dg", [(50, 40), (64, 64), (7, 130)] + STAGES)
+def test_training_kernels_match_plain_versions(cuda, dtype, L, dg):
+    """The state-saving forward (y and cs) and the backward (all seven
+    gradients), at ragged shapes and the four stage shapes, batch 2."""
+    args = [a.to(cuda) for a in _args(2, L, dg, seed=L + dg)]
+    for i in (0, 1, 3, 4):
+        args[i] = args[i].to(getattr(torch, dtype))
+    before = (selective_scan_bidir_fwd_states.launches,
+              selective_scan_bidir_bwd.launches)
+    y, cs = selective_scan_bidir_fwd_states(*args)
+    y_ref, cs_ref = selective_scan_bidir_states_ref(*args)
+    assert_close_to_max(y, y_ref, 1e-4, "y")
+    assert_close_to_max(cs, cs_ref, 1e-4, "cs")
+    gy = torch.randn(y.shape, generator=torch.Generator().manual_seed(3)
+                     ).to(cuda)
+    got = selective_scan_bidir_bwd(*args, cs, gy)
+    torch.cuda.synchronize()
+    assert (selective_scan_bidir_fwd_states.launches,
+            selective_scan_bidir_bwd.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    want = selective_scan_bidir_bwd_ref(*args, gy)
+    for name, g, w in zip(ARG_NAMES, got, want):
+        assert_close_to_max(g, w, 1e-3 if name in SUMMED else 1e-4,
+                            f"d{name}")
+
+
+@pytest.mark.cuda
+def test_autograd_on_card_matches_cpu(cuda):
+    """``loss.backward()`` through ``selective_scan_bidir``: the training
+    kernels on the card against the plain versions on the CPU."""
+    cpu_args = _args(2, 50, 40, seed=5)
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [a.to(dev).clone().requires_grad_() for a in cpu_args]
+        before = selective_scan_bidir.launches
+        out = selective_scan_bidir(*leaves)
+        (out * out.detach().sin()).sum().backward()
+        assert selective_scan_bidir.launches == before  # not the serving one
+        grads[str(dev)] = [t.grad.cpu() for t in leaves]
+    for name, g, w in zip(ARG_NAMES, grads[str(cuda)], grads["cpu"]):
+        assert_close_to_max(g, w, 1e-3 if name in SUMMED else 1e-4,
+                            f"d{name}")

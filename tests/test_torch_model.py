@@ -30,6 +30,17 @@ from mamba_unet_tpu.ops import selective_scan_persistent as ssper  # noqa: E402
 from mamba_unet_tpu.utils.convert import torch_key_for  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this file runs: the suite runs several
+    workers on a few cores, and torch's default of one thread per core
+    oversubscribed them (a 3 s test took minutes under that load)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def toy():
     """The toy JAX model, its weights, an input, and the port model holding
@@ -118,7 +129,7 @@ def test_cli_runs_on_synthetic_h5(tmp_path):
                                n_test_cases=2, size=40)
     args = tcli.build_parser().parse_args([
         "--root_path", root, "--patch_size", "32", "32",
-        "--write_pred_key", "pred_port"])
+        "--write_pred_key", "pred_port", "--device", "cpu"])
     out = tcli.run_inference(args)
     assert out["per_case"].shape == (2, 3, 3)
     assert np.isfinite(out["mean"]).all()
@@ -126,4 +137,5 @@ def test_cli_runs_on_synthetic_h5(tmp_path):
 
     with h5py.File(f"{root}/data/test_patient000.h5") as f:
         assert f["pred_port"].shape == (3, 32, 32)
-    assert tcli.main(["--root_path", root, "--patch_size", "32", "32"]) == 0
+    assert tcli.main(["--root_path", root, "--patch_size", "32", "32",
+                      "--device", "cpu"]) == 0

@@ -101,6 +101,9 @@ def test_drop_path_identity_in_eval():
     dp = DropPath(0.5)
     x = torch.randn(64, 3, 3, 2)
     assert torch.equal(dp.eval()(x), x)
+    with pytest.raises(RuntimeError):  # training draws need a generator
+        dp.train()(x)
+    dp.generator = torch.Generator().manual_seed(0)
     y = dp.train()(x)
     kept = (y != 0).flatten(1).all(1)
     torch.testing.assert_close(y[kept], 2 * x[kept])

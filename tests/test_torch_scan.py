@@ -178,7 +178,8 @@ def test_port_imports_no_jax():
         "'mamba_unet_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'mamba_unet_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'h5py', "
+        "'mamba_unet_tpu'))\n"
         "assert not bad, bad\n"
         "print(len([k for k in sys.modules if k.startswith('mamba_unet_torch')]))\n"
     )
