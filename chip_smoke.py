@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one CUDA card.
+"""Drive the PyTorch port's serving and training paths on one CUDA card:
+Mamba-UNet serving and training, then Mamba-LM serving.
 
     python3 chip_smoke.py
 
@@ -33,6 +34,22 @@ exits non-zero; nothing is caught):
               step, 14 serving launches per eval forward; step ms, slices/s,
               peak memory, losses, and a short ``torch.profiler`` breakdown
               (full table in ``build/train_profile.txt``).
+9. lm_kernel - ``selective_scan_grouped`` (CUDA kernel #3) against its
+              plain version, y and the final state, batch 2, fp32 and bf16,
+              at (G, L, dg) = (1, 1, 1536), (1, 7, 130), (1, 1000, 1536),
+              (4, 257, 192); then timed at the scoring shape (batch 8,
+              L=1024, dg=1536) and the prefill shape (batch 4, L=128, with
+              the final state), outputs compared again.
+10. lm_parity - full-width mamba-130m (vocab 50277, seeded weights),
+              batch 2 x 64 tokens: logits, prefill logits and decode states
+              on the card against a CPU copy, fp32 with TF32 off.
+11. lm_serving - with PyTorch's TF32 defaults: ``LMEvaluator.loglikelihood``
+              on 64 seeded requests (context 100-900 tokens, continuation
+              1-20) at batch 8, 24 kernel launches per scoring forward;
+              greedy ``generate`` of 64 tokens after 4 prompts of 128, 24
+              launches for the prefill and none for the decode steps; each
+              generated token's logit within GREEDY_TOL of its position's
+              maximum in one full forward.
 
 Then one JSON line with the kernel table, and the last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -74,6 +91,27 @@ SUMMED = ("A", "D", "delta_bias")
 MODEL_GRAD_TOL, LOSS_TOL = 1e-3, 1e-5
 TRAIN_BATCH, TRAIN_ITERS, TRAIN_EVAL_AT, TRAIN_WARMUP = 24, 20, 12, 3
 PATCH, NATIVE = 224, (256, 216)  # model input and phantom slice sizes
+# mamba-130m (state-spaces/mamba-130m config.json): d_model 768, 24 layers,
+# d_state 16, RMSNorm, vocab 50277 padded to a multiple of 8; one grouped
+# scan (G = 1, dg = 2 * 768) per layer and forward
+LM_VOCAB, LM_DEPTH, LM_DINNER = 50277, 24, 1536
+# (G, L, dg) of the kernel check at batch 2: one step, ragged L and dg,
+# the full width over a long L, four groups with ragged L and dg
+LM_KERNEL_SHAPES = ((1, 1, 1536), (1, 7, 130), (1, 1000, 1536),
+                    (4, 257, 192))
+# (tag, batch, L, final state) of the timed kernel calls: scoring (the
+# 1024-token bucket at batch 8) and prefill (4 prompts of 128 tokens)
+LM_TIMED = (("scoring", 8, 1024, False), ("prefill", 4, 128, True))
+LM_REQUESTS, LM_SCORE_BATCH = 64, 8
+LM_PROMPTS, LM_PROMPT_LEN, LM_NEW_TOKENS = 4, 128, 64
+# full mamba-130m, card vs CPU, fp32 with TF32 off: 24 scans plus fp32
+# matmuls in another summation order, on logits of magnitude ~2; the
+# decode states within 1e-3 of their own max
+LM_LOGIT_TOL, LM_STATE_TOL = 1e-3, 1e-3
+# greedy tokens (decode path: plain state update) against one full forward
+# (kernel path) on the card with PyTorch's TF32 defaults (cuDNN convolutions
+# in TF32): the chosen token's logit within this of the position's maximum
+GREEDY_TOL = 2e-2
 # the least time of a scan call: device memory at 3.35 TB/s, fp32 FLOPs
 # outside the tensor cores at 67 TFLOP/s (H100 SXM data sheet), and the
 # special-function unit's exp2/log/reciprocal results at 16 per clock per SM
@@ -87,20 +125,22 @@ def log(phase: str, **fields) -> None:
           flush=True)
 
 
-def scan_inputs(torch, bsz, L, dg, dtype, device, seed):
+def scan_inputs(torch, bsz, L, dg, dtype, device, seed, streams=2, dirs=4):
     """Scan operands at the magnitudes of the initialized model: A from the
-    S4D init, delta_bias from the dt init, D = 1."""
+    S4D init, delta_bias from the dt init, D = 1. u has ``streams`` data
+    streams, the rest ``dirs`` directions: 2 and 4 for the bidirectional
+    kernels, G and G for the grouped one."""
     from mamba_unet_torch.nn.ss2d import a_log_init, dt_bias_init
 
     g = torch.Generator().manual_seed(seed)
     n = 16
-    args = [torch.randn(bsz, 2, L, dg, generator=g),
-            0.5 * torch.randn(bsz, 4, L, dg, generator=g),
-            -torch.exp(a_log_init(4 * dg, n)),
-            torch.randn(bsz, 4, L, n, generator=g),
-            torch.randn(bsz, 4, L, n, generator=g),
-            torch.ones(4 * dg),
-            dt_bias_init((4 * dg,), g)]
+    args = [torch.randn(bsz, streams, L, dg, generator=g),
+            0.5 * torch.randn(bsz, dirs, L, dg, generator=g),
+            -torch.exp(a_log_init(dirs * dg, n)),
+            torch.randn(bsz, dirs, L, n, generator=g),
+            torch.randn(bsz, dirs, L, n, generator=g),
+            torch.ones(dirs * dg),
+            dt_bias_init((dirs * dg,), g)]
     args = [a.to(device) for a in args]
     for i in (0, 1, 3, 4):
         args[i] = args[i].to(dtype)
@@ -113,6 +153,22 @@ def cuda_ms(torch, fn, iters):
     fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, out
+
+
+def device_ms(torch, fn, iters):
+    """As :func:`cuda_ms`, but the timed calls queue up behind a ~50 ms
+    sleep on the card, so that a kernel shorter than its launch from the
+    host is timed, not the host's enqueue rate."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # clock cycles
     start.record()
     for _ in range(iters):
         out = fn()
@@ -135,26 +191,36 @@ def check_kernel(torch, got, want, **where) -> float:
 
 
 def scan_bound(kind: str, bsz: int, L: int, dg: int, itemsize: int,
-               n: int = 16):
+               n: int = 16, groups: int = 1, last_state: bool = False):
     """(least ms, "bytes" or "operations") of one scan call of ``kind``
-    (fwd, fwd_states, bwd): each input read once, each output written once;
+    (fwd, fwd_states, bwd: the bidirectional kernels; grouped: the
+    unidirectional one over ``groups`` groups of ``dg`` channels, which
+    writes y in the input dtype and, with ``last_state``, the fp32 final
+    state): each input read once, each output written once;
     per (direction, step, channel, state) the forward needs 1 exp and ~6
     FLOPs, the backward 1 exp (a_t = exp(dt A), which the recompute of the
     states and the reverse scan can share) and ~20 FLOPs; softplus/sigmoid
     add 2 (fwd) and 5 (bwd) special-function results per (direction, step,
     channel)."""
-    trip = bsz * 4 * L * dg                          # (dir, step, channel)
-    io_in = (bsz * 2 * L * dg + bsz * 4 * L * dg + 2 * bsz * 4 * L * n) * (
-        itemsize)
-    params = 4 * dg * (n + 2) * 4
-    cs = bsz * 4 * (-(-L // 16)) * n * dg * 4
-    y = bsz * 2 * L * dg * 4
-    if kind == "bwd":
-        nbytes = 2 * io_in + 2 * params + cs + y     # + gy in, grads out
-        exps, flops = trip * (n + 5), trip * n * 20
-    else:
-        nbytes = io_in + params + y + (cs if kind == "fwd_states" else 0)
+    if kind == "grouped":
+        trip = bsz * groups * L * dg                 # (step, channel)
+        nbytes = ((3 * trip + 2 * bsz * groups * L * n) * itemsize
+                  + groups * dg * (n + 2) * 4
+                  + (bsz * groups * dg * n * 4 if last_state else 0))
         exps, flops = trip * (n + 2), trip * n * 6
+    else:
+        trip = bsz * 4 * L * dg                      # (dir, step, channel)
+        io_in = (bsz * 2 * L * dg + bsz * 4 * L * dg
+                 + 2 * bsz * 4 * L * n) * itemsize
+        params = 4 * dg * (n + 2) * 4
+        cs = bsz * 4 * (-(-L // 16)) * n * dg * 4
+        y = bsz * 2 * L * dg * 4
+        if kind == "bwd":
+            nbytes = 2 * io_in + 2 * params + cs + y  # + gy in, grads out
+            exps, flops = trip * (n + 5), trip * n * 20
+        else:
+            nbytes = io_in + params + y + (cs if kind == "fwd_states" else 0)
+            exps, flops = trip * (n + 2), trip * n * 6
     mem_s = nbytes / HBM_BYTES_PER_S
     ops_s = max(exps / SFU_PER_S, flops / FP32_FLOP_PER_S)
     return 1e3 * max(mem_s, ops_s), ("bytes" if mem_s >= ops_s
@@ -407,23 +473,32 @@ def training_phase(torch, dev):
 
 
 def profile_steps(torch, trainer, loader, steps=3):
-    """Device time by kernel over ``steps`` train steps (torch.profiler);
-    prints the largest and writes the table to build/."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device time by kernel over ``steps`` train steps on pre-loaded
+    batches, after one warm-up step."""
     batches = []
     for batch in loader:
         batches.append(batch)
         if len(batches) == steps:
             break
     trainer.train_step(batches[0])
+    profile_calls(torch, "train", [lambda b=b: trainer.train_step(b)
+                                   for b in batches])
+
+
+def profile_calls(torch, path, calls, top=12):
+    """Device time by kernel over the ``calls`` (torch.profiler), each one
+    step of ``path``; prints the largest and writes the table to
+    build/{path}_profile.txt."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = len(calls)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for batch in batches:
-            trainer.train_step(batch)
+        for call in calls:
+            call()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / steps
     rows = []
@@ -438,19 +513,241 @@ def profile_steps(torch, trainer, loader, steps=3):
     busy = sum(r[0] for r in rows)
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
-    (out / "train_profile.txt").write_text(
+    (out / f"{path}_profile.txt").write_text(
         f"ms per step, launches per step, kernel ({steps} steps, wall "
         f"{wall_ms:.2f} ms/step, device busy {busy:.2f} ms/step)\n"
         + "\n".join(f"{ms:9.3f} {n:7.1f}  {k}" for ms, n, k in rows))
-    log("profile", steps=steps, wall_ms_per_step=f"{wall_ms:.2f}",
+    log("profile", path=path, steps=steps, wall_ms_per_step=f"{wall_ms:.2f}",
         device_ms_per_step=f"{busy:.2f}",
         busy_share=f"{busy / wall_ms:.3f}" if rows else "not measured")
-    for ms, n, key in rows[:12]:
-        log("profile", ms_per_step=f"{ms:.3f}", launches_per_step=f"{n:.0f}",
-            kernel=key[:90].replace(" ", "_"))
+    for ms, n, key in rows[:top]:
+        log("profile", path=path, ms_per_step=f"{ms:.3f}",
+            launches_per_step=f"{n:.0f}", kernel=key[:90].replace(" ", "_"))
+
+
+def lm_kernel_phase(torch, dev):
+    """Phase 9; returns (max abs err, {tag: (ms, plain ms, bound ms,
+    bound_by)}) of the grouped kernel, fp32 inputs at the timed shapes."""
+    from mamba_unet_torch.ops.selective_scan_grouped import (
+        selective_scan_grouped,
+        selective_scan_grouped_ref,
+    )
+    from mamba_unet_torch.utils.compare import assert_close_to_max
+
+    def lm_args(bsz, L, G, dg, dtype, seed):
+        """scan_inputs with A drawn per (channel, state) and D per channel,
+        as a trained checkpoint has them, so that a kernel reading another
+        channel's or group's row disagrees."""
+        args = scan_inputs(torch, bsz, L, dg, dtype, dev, seed, G, G)
+        g = torch.Generator().manual_seed(seed + 1)
+        args[2] = -torch.exp(0.5 * torch.randn(G * dg, 16, generator=g))
+        args[5] = torch.randn(G * dg, generator=g)
+        args[2], args[5] = args[2].to(dev), args[5].to(dev)
+        return args
+
+    def check(args, last_state, out=None, **where):
+        """Hold the kernel's ``out`` (launched here when not given)
+        against the plain version on ``args``."""
+        at = " ".join(f"{k}={v}" for k, v in where.items())
+        if out is None:
+            out = selective_scan_grouped(*args, True, last_state)
+        plain, want = timed_once(
+            torch, lambda: selective_scan_grouped_ref(*args, True,
+                                                      last_state))
+        if not last_state:
+            out, want = (out,), (want,)
+        errs = [assert_close_to_max(g, w, KERNEL_TOL, f"{name} at {at}")
+                for name, g, w in zip(("y", "last_state"), out, want)]
+        log("lm_kernel", **where, max_abs_err=f"{max(errs):.3e}",
+            tol=KERNEL_TOL, ok=True)
+        return max(errs), plain
+
+    max_err = 0.0
+    for G, L, dg in LM_KERNEL_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = lm_args(2, L, G, dg, dtype, L)
+            err, _ = check(args, True, G=G, L=L, dg=dg, batch=2,
+                           dtype=str(dtype).split(".")[-1])
+            max_err = max(max_err, err)
+    times = {}
+    for tag, bsz, L, last_state in LM_TIMED:
+        args = lm_args(bsz, L, 1, LM_DINNER, torch.float32, 0)
+        ms, out = device_ms(torch, lambda: selective_scan_grouped(
+            *args, True, last_state), 20)
+        err, plain = check(args, last_state, out, G=1, L=L, dg=LM_DINNER,
+                           batch=bsz, dtype="float32")
+        max_err = max(max_err, err)
+        bound, by = scan_bound("grouped", bsz, L, LM_DINNER, 4,
+                               last_state=last_state)
+        times[tag] = (ms, plain, bound, by)
+        log("lm_kernel_time", path=tag, batch=bsz, L=L, dg=LM_DINNER,
+            ms=f"{ms:.4f}", plain_ms=f"{plain:.2f}", bound_ms=f"{bound:.4f}",
+            bound_by=by, per_forward_ms=f"{LM_DEPTH * ms:.3f}",
+            calls=LM_DEPTH)
+        del args
+    return max_err, times
+
+
+def lm_parity_phase(torch, dev):
+    """Phase 10: full-width mamba-130m (seeded weights) on the card against
+    a CPU copy, fp32 with TF32 off; returns the card model."""
+    from mamba_unet_torch.models.mamba_lm import MambaLMHeadModel
+    from mamba_unet_torch.utils.compare import assert_close_to_max
+
+    cpu_model = MambaLMHeadModel(
+        LM_VOCAB, generator=torch.Generator().manual_seed(0)).eval()
+    # the init gives every channel the same A_log row and D = 1, a trained
+    # checkpoint a different one in each: perturb them per channel
+    g = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for name, p in cpu_model.named_parameters():
+            if name.endswith(("A_log", ".D")):
+                p.add_(0.5 * torch.randn(p.shape, generator=g))
+    model = MambaLMHeadModel(LM_VOCAB, device=dev).eval()
+    model.load_state_dict(cpu_model.state_dict())
+    ids = torch.randint(0, LM_VOCAB, (2, 64),
+                        generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        got = model(ids.to(dev)).cpu()
+        gpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = cpu_model(ids)
+        cpu_s = time.perf_counter() - t0
+        err = (got - want).abs().max().item()
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        log("lm_parity", shape=tuple(got.shape), params=sum(
+            p.numel() for p in model.parameters()),
+            max_abs_err=f"{err:.3e}", logit_max=f"{want.abs().max():.3f}",
+            argmax_agree=f"{agree:.4f}", tol=LM_LOGIT_TOL,
+            gpu_s=f"{gpu_s:.2f}", cpu_s=f"{cpu_s:.2f}")
+        if got.shape != (2, 64, model.padded_vocab) or not bool(
+                torch.isfinite(got).all()):
+            raise AssertionError(f"bad logits: {tuple(got.shape)}")
+        if err > LM_LOGIT_TOL:
+            raise AssertionError(f"card logits disagree with the CPU: max "
+                                 f"abs err {err}")
+        logits, caches = model.prefill(ids.to(dev))
+        want_logits, want_caches = cpu_model.prefill(ids)
+        err = (logits.cpu() - want_logits).abs().max().item()
+        if err > LM_LOGIT_TOL:
+            raise AssertionError(f"prefill logits disagree: {err}")
+        state_err = 0.0
+        for i, (g, w) in enumerate(zip(caches, want_caches)):
+            for name, gs, ws in zip(("conv", "ssm"), g, w):
+                state_err = max(state_err, assert_close_to_max(
+                    gs.cpu(), ws, LM_STATE_TOL, f"layer {i} {name} state"))
+        log("lm_parity", compare="prefill", logits_max_abs_err=f"{err:.3e}",
+            state_max_abs_err=f"{state_err:.3e}", tol=LM_LOGIT_TOL,
+            state_tol=LM_STATE_TOL)
+    return model
+
+
+def lm_serving_phase(torch, np, dev, model):
+    """Phase 11, with PyTorch's TF32 defaults: scoring through
+    ``LMEvaluator.loglikelihood`` and greedy ``generate``; returns the
+    grouped kernel's launches in the run."""
+    from mamba_unet_torch.eval.lm_eval import LMEvaluator
+    from mamba_unet_torch.models.mamba_lm import generate
+    from mamba_unet_torch.ops import selective_scan_bidir as ssb
+    from mamba_unet_torch.ops.selective_scan_grouped import (
+        selective_scan_grouped,
+    )
+
+    rng = np.random.default_rng(0)
+
+    def tokens(lo, hi):
+        return rng.integers(0, LM_VOCAB, int(rng.integers(lo, hi))).tolist()
+
+    reqs = [(tokens(100, 901), tokens(1, 21)) for _ in range(LM_REQUESTS)]
+    prompts = torch.from_numpy(rng.integers(
+        0, LM_VOCAB, (LM_PROMPTS, LM_PROMPT_LEN)))
+    ev = LMEvaluator(model, batch_size=LM_SCORE_BATCH)
+    ev.loglikelihood(reqs[:LM_SCORE_BATCH])  # first-call set-up (cuBLAS)
+    generate(model, prompts, max_new_tokens=2)
+    torch.cuda.synchronize()
+
+    kernels = (selective_scan_grouped, ssb.selective_scan_bidir,
+               ssb.selective_scan_bidir_fwd_states,
+               ssb.selective_scan_bidir_bwd)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    scores = ev.loglikelihood(reqs)
+    score_s = time.perf_counter() - t0
+    score_launches = selective_scan_grouped.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(model, prompts, max_new_tokens=LM_NEW_TOKENS)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = [k.launches for k in kernels]
+
+    forwards = math.ceil(LM_REQUESTS / LM_SCORE_BATCH)
+    n_tok = sum(len(c) + len(x) for c, x in reqs)
+    n_cont = sum(len(x) for _, x in reqs)
+    log("lm_serving", path="scoring", requests=LM_REQUESTS,
+        batch=LM_SCORE_BATCH, forwards=forwards, launches=score_launches,
+        expected=LM_DEPTH * forwards, seconds=f"{score_s:.3f}",
+        requests_per_s=f"{LM_REQUESTS / score_s:.1f}",
+        tokens_per_s=f"{n_tok / score_s:.0f}",
+        scored_tokens_per_s=f"{n_cont / score_s:.1f}")
+    if score_launches != LM_DEPTH * forwards:
+        raise AssertionError(f"scoring launched the kernel {score_launches} "
+                             f"times, expected {LM_DEPTH} per forward")
+    if not all(math.isfinite(ll) and ll <= 0 for ll, _ in scores):
+        raise AssertionError(f"bad loglikelihoods {scores[:4]}")
+
+    gen_launches = launches[0] - score_launches
+    with torch.inference_mode():
+        prefill_ms, _ = cuda_ms(torch, lambda: model.prefill(prompts.to(dev)),
+                                5)
+    step_ms = (1e3 * gen_s - prefill_ms) / (LM_NEW_TOKENS - 1)
+    log("lm_serving", path="generate", prompts=LM_PROMPTS,
+        prompt_len=LM_PROMPT_LEN, new_tokens=LM_NEW_TOKENS,
+        launches=gen_launches, expected=LM_DEPTH,
+        generate_ms=f"{1e3 * gen_s:.1f}", prefill_ms=f"{prefill_ms:.3f}",
+        decode_step_ms=f"{step_ms:.3f}",
+        tokens_per_s=f"{LM_PROMPTS * LM_NEW_TOKENS / gen_s:.1f}")
+    if gen_launches != LM_DEPTH or any(launches[1:]):
+        raise AssertionError(f"generate launched the grouped kernel "
+                             f"{gen_launches} times (expected {LM_DEPTH}: "
+                             f"one prefill, no decode step), the bidir "
+                             f"kernels {launches[1:]}")
+
+    # greedy consistency: each generated token is its position's argmax in
+    # one full forward, up to GREEDY_TOL
+    if out.shape != (LM_PROMPTS, LM_PROMPT_LEN + LM_NEW_TOKENS):
+        raise AssertionError(f"generated {tuple(out.shape)}")
+    with torch.inference_mode():
+        logits = model(out[:, :-1])[:, LM_PROMPT_LEN - 1:]
+    chosen = logits.gather(-1, out[:, LM_PROMPT_LEN:, None])[..., 0]
+    gap = (logits.max(-1).values - chosen).max().item()
+    log("lm_serving", check="greedy_vs_forward", positions=chosen.numel(),
+        worst_gap=f"{gap:.3e}", tol=GREEDY_TOL,
+        exact_argmax=f"{(chosen == logits.max(-1).values).float().mean():.4f}")
+    if not gap <= GREEDY_TOL:
+        raise AssertionError(f"a greedy token is {gap} below its position's "
+                             f"max logit in the full forward")
+
+    # where the time goes: one scoring forward of the 1024 bucket at batch
+    # 8, and 3 decode steps at batch 4
+    ids = torch.from_numpy(rng.integers(0, LM_VOCAB, (LM_SCORE_BATCH, 1024)))
+    mask = torch.ones_like(ids)
+    with torch.inference_mode():
+        ev._score(ids.to(dev), mask.to(dev))
+        profile_calls(torch, "lm_scoring", [
+            lambda: ev._score(ids.to(dev), mask.to(dev))], top=8)
+        token = out[:, -1].to(dev)
+        _, caches = model.prefill(out.to(dev))
+        model.decode_step(token, caches)
+        profile_calls(torch, "lm_decode", [
+            lambda: model.decode_step(token, caches)] * 3, top=8)
+    return launches[0]
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     # --- 1. device
@@ -614,6 +911,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     _, train_fwd, train_bwd = training_phase(torch, dev)
 
+    # --- 9-11. the Mamba-LM serving path (mamba-130m)
+    lm_err, lm_times = lm_kernel_phase(torch, dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lm_model = lm_parity_phase(torch, dev)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32_defaults
+    lm_launches = lm_serving_phase(torch, np, dev, lm_model)
+
     serve_bound = sum(calls * scan_bound("fwd", SERVE_BATCH, L, dg, 4)[0]
                       for L, dg, calls in STAGES)
     pallas = "mamba_unet_tpu/ops/selective_scan_pallas.py"
@@ -634,6 +940,13 @@ def main() -> int:
                          plain_ms=plain, bound_ms=bound, bound_by=by,
                          source=f"mamba_unet_torch/csrc/{src}",
                          replaces=where))
+    ms, plain, bound, by = lm_times["scoring"]
+    rows.append(dict(name="selective_scan_fwd", launches=lm_launches,
+                     max_abs_err=lm_err, ms=LM_DEPTH * ms,
+                     plain_ms=LM_DEPTH * plain, bound_ms=LM_DEPTH * bound,
+                     bound_by=by,
+                     source="mamba_unet_torch/csrc/selective_scan_fwd.cu",
+                     replaces=f"{pallas}:229 (unidirectional)"))
     # no single PyTorch call computes the selective scan
     print(json.dumps({"kernels": [dict(route="cuda", library_ms=None, **r)
                                   for r in rows]}), flush=True)

@@ -1,1 +1,2 @@
-"""Host-side (numpy/scipy) evaluation: metrics and volume inference."""
+"""Evaluation: host-side (numpy/scipy) metrics and volume inference, and
+the Mamba-LM loglikelihood evaluator."""

@@ -1,1 +1,2 @@
-"""``nn.Module``s of the Mamba-UNet: SS2D mixer, VSS blocks, patch ops."""
+"""``nn.Module``s: the Mamba-UNet's SS2D mixer, VSS blocks and patch ops,
+and the 1-D Mamba mixer and block."""

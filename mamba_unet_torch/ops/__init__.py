@@ -1,1 +1,2 @@
-"""Device ops: the selective scan (kernel + plain version) and cross-scan."""
+"""Device ops: the selective scans (kernels + plain versions), cross-scan,
+causal conv1d and the decode state update."""

@@ -35,6 +35,9 @@ _SIGNATURES = {
     # du2, ddelta4, dB_part, dC_part, dA_part, dD_part, ddb_part,
     # batch, L, dg, n, is_bf16, stream
     "selective_scan_bidir_bwd": [_P] * 16 + [_I] * 5 + [_P],
+    # u, delta, B, C, A, D, delta_bias, y, last_state (or null),
+    # batch, G, L, dg, n, softplus, is_bf16, stream
+    "selective_scan_fwd": [_P] * 9 + [_I] * 7 + [_P],
 }
 
 

@@ -1,22 +1,26 @@
-"""Selective scan (S6) reference: a sequential fp32 loop over time.
+"""Selective scan (S6): the plain fp32 loop and the public dispatcher.
 
-Port of ``mamba_unet_tpu/ops/selective_scan.py::selective_scan_ref`` (with
-its ``_prep``/``_finalize`` semantics). It is the ground truth that the CUDA
-kernel is held against, and the scan that CPU tensors run::
+Port of ``mamba_unet_tpu/ops/selective_scan.py``: ``selective_scan_ref``
+(with its ``_prep``/``_finalize`` semantics) and the public
+:func:`selective_scan`. ``selective_scan_xla`` cuts L into chunks and
+carries the fp32 state across them; a sequential fp32 loop gives the same
+outputs in one piece, so :func:`selective_scan_ref` stands for both::
 
     delta = softplus(delta + delta_bias)            (both optional)
     x_t   = exp(delta_t * A) * x_{t-1} + delta_t * B_t * u_t     (x_0 = 0)
     y_t   = <C_t, x_t> + D * u_t
+    out   = y * silu(z)                             (if z is given)
 
 Shapes (grouped B/C: channel block g of D shares B/C group g)::
 
-    u, delta   : (B, D, L)
-    A          : (D, N)
-    B, C       : (B, G, N, L)   or (B, N, L) for G = 1
+    u, delta, z   : (B, D, L)
+    A             : (D, N)
+    B, C          : (B, G, N, L)   or (B, N, L) for G = 1
     D, delta_bias : (D,) or None
 
 The state and all arithmetic are fp32 whatever the input dtype; the output
-takes the dtype of ``u``.
+takes the dtype of ``u``; the last state, when asked for, is fp32
+(B, D, N).
 """
 
 from __future__ import annotations
@@ -25,6 +29,11 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from mamba_unet_torch.ops.selective_scan_grouped import (
+    selective_scan_grouped,
+    silu_gate,
+)
 
 
 def _canon_bc(x: torch.Tensor) -> torch.Tensor:
@@ -53,10 +62,13 @@ def selective_scan_ref(
     B: torch.Tensor,
     C: torch.Tensor,
     D: Optional[torch.Tensor] = None,
+    z: Optional[torch.Tensor] = None,
     delta_bias: Optional[torch.Tensor] = None,
     delta_softplus: bool = False,
-) -> torch.Tensor:
-    """Sequential reference scan -> (B, D, L) in ``u.dtype``."""
+    return_last_state: bool = False,
+):
+    """Sequential reference scan -> (B, D, L) in ``u.dtype``, and with
+    ``return_last_state`` also the fp32 (B, D, N) state after step L."""
     out_dtype = u.dtype
     u_f, delta_f, A_f, B_f, C_f = _prep(u, delta, A, B, C, delta_bias,
                                         delta_softplus)
@@ -78,4 +90,51 @@ def selective_scan_ref(
     y = torch.stack(ys, dim=-1).reshape(bsz, dim, L)
     if D is not None:
         y = y + u_f * D.float()[None, :, None]
-    return y.to(out_dtype)
+    out = y.to(out_dtype) if z is None else silu_gate(y, z, out_dtype)
+    if return_last_state:
+        return out, x.reshape(bsz, dim, n)
+    return out
+
+
+def selective_scan(
+    u,
+    delta,
+    A,
+    B,
+    C,
+    D=None,
+    z=None,
+    delta_bias=None,
+    delta_softplus: bool = False,
+    return_last_state: bool = False,
+):
+    """The public selective scan on (B, D, L) inputs.
+
+    CPU tensors run :func:`selective_scan_ref`. CUDA tensors go time-major
+    through ``selective_scan_grouped``, which launches the CUDA kernel
+    ``csrc/selective_scan_fwd.cu`` or raises; ``z`` gates its output here,
+    in fp32, as the JAX package's Pallas wrapper does."""
+    if u.device.type == "cpu":
+        return selective_scan_ref(u, delta, A, B, C, D, z, delta_bias,
+                                  delta_softplus, return_last_state)
+    bsz, dim, L = u.shape
+    B, C = _canon_bc(B), _canon_bc(C)
+    G = B.shape[1]
+    dg = dim // G
+    io = torch.bfloat16 if u.dtype == torch.bfloat16 else torch.float32
+
+    def time_major(t, width):  # (B, G*width, L) -> (B, G, L, width)
+        return t.to(io).reshape(bsz, G, width, L).transpose(2, 3).contiguous()
+
+    zeros = torch.zeros(dim, dtype=torch.float32, device=u.device)
+    out = selective_scan_grouped(
+        time_major(u, dg), time_major(delta, dg), A.float().contiguous(),
+        B.to(io).transpose(2, 3).contiguous(),
+        C.to(io).transpose(2, 3).contiguous(),
+        zeros if D is None else D.float().contiguous(),
+        zeros if delta_bias is None else delta_bias.float().contiguous(),
+        delta_softplus, return_last_state)
+    y, last = out if return_last_state else (out, None)
+    y = y.transpose(2, 3).reshape(bsz, dim, L)
+    y = y.to(u.dtype) if z is None else silu_gate(y, z, u.dtype)
+    return (y, last) if return_last_state else y

@@ -1,1 +1,2 @@
-"""Checkpoint conversion, loading and the serving predict function."""
+"""Checkpoint conversion (Mamba-UNet and Mamba-LM), loading and the
+serving predict function."""

@@ -20,6 +20,8 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from mamba_unet_torch.utils.device import require_device
+
 
 def save_checkpoint(directory: str, step: int, tree: Any,
                     name: str = "state") -> str:
@@ -94,9 +96,11 @@ def load_model_snapshot(
     num_classes: int,
     in_ch: int,
     path: Optional[str] = None,
-    device="cpu",
+    device="cuda",
 ) -> nn.Module:
-    """Build ``name`` via ``net_factory`` in eval mode on ``device``.
+    """Build ``name`` via ``net_factory`` in eval mode on ``device``: the
+    card unless the caller asks for the CPU (raises when CUDA is asked for
+    and not available).
 
     ``path=None`` keeps the initialization drawn from a generator seeded
     with 0; otherwise the ``state_dict`` saved at ``path`` is loaded
@@ -104,6 +108,7 @@ def load_model_snapshot(
     weights stay fp32."""
     from mamba_unet_torch.models import net_factory  # lazy: avoid a cycle
 
+    device = require_device(device)
     model = net_factory(name, num_classes=num_classes, in_chans=in_ch,
                         device=device,
                         generator=torch.Generator().manual_seed(0))

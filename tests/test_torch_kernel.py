@@ -11,7 +11,8 @@ at 1e-4. The training kernels are held at 1e-4 of the reference's max abs
 for per-element outputs and 1e-3 for dA/dD/ddelta_bias, which sum over
 batch and time; a bf16 gradient may also differ by one bf16 rounding step,
 since both versions round an fp32 sum to bf16 (``utils/compare.py``, the
-rule ``chip_smoke.py`` applies too).
+rule ``chip_smoke.py`` applies too). The unidirectional grouped forward
+(y and the final state) is held to the same rule at 1e-4.
 """
 
 import pytest
@@ -145,3 +146,133 @@ def test_autograd_on_card_matches_cpu(cuda):
     for name, g, w in zip(ARG_NAMES, grads[str(cuda)], grads["cpu"]):
         assert_close_to_max(g, w, 1e-3 if name in SUMMED else 1e-4,
                             f"d{name}")
+
+
+def _grouped_args(bsz, G, L, dg, dtype, n=16, seed=0):
+    """A and D differ in every channel (and A in every state), so that a
+    kernel reading the wrong channel's or group's row disagrees."""
+    g = torch.Generator().manual_seed(seed)
+    args = [torch.randn(bsz, G, L, dg, generator=g),
+            0.5 * torch.randn(bsz, G, L, dg, generator=g),
+            -torch.exp(0.5 * torch.randn(G * dg, n, generator=g)),
+            torch.randn(bsz, G, L, n, generator=g),
+            torch.randn(bsz, G, L, n, generator=g),
+            torch.randn(G * dg, generator=g),
+            torch.empty(G * dg).uniform_(-6, -2, generator=g)]
+    for i in (0, 1, 3, 4):
+        args[i] = args[i].to(getattr(torch, dtype))
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G,L,dg", [(1, 50, 40), (1, 7, 130), (4, 257, 192),
+                                    (1, 1000, 1536)])
+def test_grouped_kernel_matches_plain_version(cuda, dtype, G, L, dg):
+    """Kernel #3 and its final state: ragged L and dg, G = 4 groups, bf16
+    and the mamba-130m width; the same rule as the training kernels."""
+    from mamba_unet_torch.ops.selective_scan_grouped import (
+        selective_scan_grouped,
+        selective_scan_grouped_ref,
+    )
+
+    args = [a.to(cuda) for a in _grouped_args(2, G, L, dg, dtype, seed=L)]
+    before = selective_scan_grouped.launches
+    y, last = selective_scan_grouped(*args, True, True)
+    torch.cuda.synchronize()
+    assert selective_scan_grouped.launches == before + 1
+    y_ref, last_ref = selective_scan_grouped_ref(*args, True, True)
+    assert_close_to_max(y, y_ref, 1e-4, "y")
+    assert_close_to_max(last, last_ref, 1e-4, "last state")
+    only_y = selective_scan_grouped(*args, True, False)
+    assert torch.equal(only_y, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["noncontiguous", "mixed_devices", "d_state"])
+def test_grouped_kernel_wrapper_raises_instead_of_falling_back(cuda, bad):
+    from mamba_unet_torch.ops.selective_scan_grouped import (
+        selective_scan_grouped,
+    )
+
+    n = 8 if bad == "d_state" else 16
+    args = [a.to(cuda) for a in _grouped_args(1, 1, 16, 32, "float32", n=n)]
+    if bad == "noncontiguous":
+        args[0] = args[0].transpose(2, 3).contiguous().transpose(2, 3)
+    elif bad == "mixed_devices":
+        args[5] = args[5].cpu()
+    before = selective_scan_grouped.launches
+    with pytest.raises(ValueError):
+        selective_scan_grouped(*args)
+    assert selective_scan_grouped.launches == before
+
+
+@pytest.mark.cuda
+def test_mamba_lm_on_card_matches_cpu(cuda):
+    """A toy LM's logits, prefill and decode step on the card against the
+    same weights on the CPU: one kernel launch per layer in a forward and
+    in a prefill, none in a decode step."""
+    from mamba_unet_torch.models.mamba_lm import MambaLMHeadModel
+    from mamba_unet_torch.ops.selective_scan_grouped import (
+        selective_scan_grouped,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = MambaLMHeadModel(100, 32, 2,
+                           generator=torch.Generator().manual_seed(0)).eval()
+    card = MambaLMHeadModel(100, 32, 2, device=cuda).eval()
+    card.load_state_dict(cpu.state_dict())
+    ids = torch.randint(0, 100, (2, 37),
+                        generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        before = selective_scan_grouped.launches
+        got = card(ids.to(cuda))
+        assert selective_scan_grouped.launches == before + 2
+        torch.testing.assert_close(got.cpu(), cpu(ids), rtol=1e-4, atol=1e-4)
+        logits, caches = card.prefill(ids.to(cuda))
+        want, want_caches = cpu.prefill(ids)
+        assert selective_scan_grouped.launches == before + 4
+        torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-4)
+        for g, w in zip(caches, want_caches):
+            for gs, ws in zip(g, w):
+                torch.testing.assert_close(gs.cpu(), ws, rtol=1e-4,
+                                           atol=1e-4)
+        token = torch.tensor([5, 99])
+        logits, _ = card.decode_step(token.to(cuda), caches)
+        assert selective_scan_grouped.launches == before + 4
+        torch.testing.assert_close(logits.cpu(),
+                                   cpu.decode_step(token, want_caches)[0],
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_selective_scan_dispatcher_on_card_matches_cpu(cuda):
+    """The public (B, D, L) ``selective_scan`` with grouped B/C, z and the
+    last state: the kernel on the card against the plain loop on the CPU
+    (fp32: with bf16 the card rounds y before the z gate, as the JAX
+    package's kernel path does, and the plain loop after it)."""
+    from mamba_unet_torch.ops.selective_scan import selective_scan
+    from mamba_unet_torch.ops.selective_scan_grouped import (
+        selective_scan_grouped,
+    )
+
+    g = torch.Generator().manual_seed(7)
+    bsz, G, dg, L, n = 2, 2, 40, 33, 16
+    args = [torch.randn(bsz, G * dg, L, generator=g),
+            0.5 * torch.randn(bsz, G * dg, L, generator=g),
+            -torch.exp(0.5 * torch.randn(G * dg, n, generator=g)),
+            torch.randn(bsz, G, n, L, generator=g),
+            torch.randn(bsz, G, n, L, generator=g),
+            torch.randn(G * dg, generator=g),
+            torch.randn(bsz, G * dg, L, generator=g),
+            torch.empty(G * dg).uniform_(-6, -2, generator=g)]
+    want_y, want_last = selective_scan(*args, delta_softplus=True,
+                                       return_last_state=True)
+    before = selective_scan_grouped.launches
+    y, last = selective_scan(*(a.to(cuda) for a in args),
+                             delta_softplus=True, return_last_state=True)
+    torch.cuda.synchronize()
+    assert selective_scan_grouped.launches == before + 1
+    assert_close_to_max(y.cpu(), want_y, 1e-4, "y")
+    assert_close_to_max(last.cpu(), want_last, 1e-4, "last state")

@@ -106,18 +106,18 @@ def test_snapshot_roundtrip_and_registry(tmp_path):
     with pytest.raises(KeyError):
         net_factory("no_such_net")
 
-    full = load_model_snapshot("ViM_seg", 4, 1)  # seed 0, full width
+    full = load_model_snapshot("ViM_seg", 4, 1, device="cpu")  # seed 0, full width
     assert not full.training
     path = tmp_path / "m.pth"
     saved = {k: v + 0.5 for k, v in full.state_dict().items()}
     torch.save(saved, path)
-    loaded = load_model_snapshot("ViM_seg", 4, 1, str(path))
+    loaded = load_model_snapshot("ViM_seg", 4, 1, str(path), device="cpu")
     for (ka, va), (kb, vb) in zip(saved.items(),
                                   loaded.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
     torch.save(a.state_dict(), path)
     with pytest.raises(RuntimeError):  # a toy state_dict into the full net
-        load_model_snapshot("ViM_seg", 4, 1, str(path))
+        load_model_snapshot("ViM_seg", 4, 1, str(path), device="cpu")
 
 
 def test_cli_runs_on_synthetic_h5(tmp_path):

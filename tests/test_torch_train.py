@@ -377,7 +377,8 @@ def test_train_cli_synthetic_on_cpu(tmp_path):
     names = sorted(p.name for p in snap.iterdir())
     assert "state_2" in names and "state_4" in names
     assert "best_4" in names and "best_marks.json" in names
-    model = load_model_snapshot("ViM_seg", 4, 1, str(snap / "best_4"))
+    model = load_model_snapshot("ViM_seg", 4, 1, str(snap / "best_4"),
+                                device="cpu")
     assert not model.training
     with pytest.raises(NotImplementedError):
         train_cli.main(["--method", "mean_teacher", "--device", "cpu"])
