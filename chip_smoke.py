@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths on one CUDA card:
-Mamba-UNet serving and training, then Mamba-LM serving.
+Mamba-UNet serving and training, Mamba-LM serving, then Mamba-UNet training
+on SS2D's time-major branch and the 1-D Mamba stack's gradients.
 
     python3 chip_smoke.py
 
@@ -26,14 +27,15 @@ exits non-zero; nothing is caught):
               both timed at batch 24 and their outputs compared again.
 7. grad_parity - full-width Mamba-UNet, batch 2 at 224², fp32 with TF32
               off: loss and every parameter's gradient of one
-              ``supervised_ce_dice`` backward on the card against a CPU copy.
+              ``supervised_ce_dice`` backward on the card against a CPU copy;
+              14 state-saving forward and 14 backward launches.
 8. training - ``Trainer.fit`` with the ``Loader`` on in-memory phantom
               slices (native 256x216, RandomGenerator to 224²), bs24, bf16
               autocast, drop_path 0.2, poly-SGD at 0.01, 20 iterations with
               one eval; 14 state-saving forward and 14 backward launches per
               step, 14 serving launches per eval forward; step ms, slices/s,
-              peak memory, losses, and a short ``torch.profiler`` breakdown
-              (full table in ``build/train_profile.txt``).
+              peak memory, a falling loss, and a short ``torch.profiler``
+              breakdown (full table in ``build/train_profile.txt``).
 9. lm_kernel - ``selective_scan_grouped`` (CUDA kernel #3) against its
               plain version, y and the final state, batch 2, fp32 and bf16,
               at (G, L, dg) = (1, 1, 1536), (1, 7, 130), (1, 1000, 1536),
@@ -50,6 +52,25 @@ exits non-zero; nothing is caught):
               launches for the prefill and none for the decode steps; each
               generated token's logit within GREEDY_TOL of its position's
               maximum in one full forward.
+12. tm_kernel - the grouped training kernels (state-saving forward: y and
+              cs; backward: all seven gradients) against their plain
+              versions, batch 2, fp32 and bf16, at the four SS2D stage
+              shapes with G = 4 and at (G, L, dg) = (1, 1000, 1536),
+              (1, 7, 130); then timed at bs24 per stage shape and at the
+              mamba-130m shape (batch 8, L=1024, dg=1536), the timed calls'
+              outputs compared again.
+13. tm_grad_parity - phase 7 through ``MambaUnet(scan_impl="tm")``: loss
+              and every gradient card vs CPU, 14 + 14 grouped launches;
+              then the same weights' logits on the card through the tm and
+              the bidir branch.
+14. tm_training - phase 8 with ``scan_impl="tm"``: per step 14 grouped
+              state-saving forward and 14 backward launches and no
+              bidirectional one, 14 grouped serving launches per eval
+              forward; a falling loss; step ms, slices/s, peak memory and a
+              profile (``build/train_tm_profile.txt``).
+15. lm_grad - full-width mamba-130m, batch 2 x 128 tokens, fp32 with TF32
+              off: next-token cross-entropy and every parameter's gradient
+              card vs CPU, 24 + 24 grouped launches.
 
 Then one JSON line with the kernel table, and the last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -103,6 +124,13 @@ LM_KERNEL_SHAPES = ((1, 1, 1536), (1, 7, 130), (1, 1000, 1536),
 # 1024-token bucket at batch 8) and prefill (4 prompts of 128 tokens)
 LM_TIMED = (("scoring", 8, 1024, False), ("prefill", 4, 128, True))
 LM_REQUESTS, LM_SCORE_BATCH = 64, 8
+# (G, L, dg) of the grouped training kernels' check at batch 2: the four
+# SS2D stage shapes of the tm branch (G = 4), the mamba-130m width over a
+# long L, and a ragged L and dg with a partial last 16-step chunk
+TM_KERNEL_SHAPES = tuple((4, L, dg) for L, dg, _ in STAGES) + (
+    (1, 1000, 1536), (1, 7, 130))
+LM_TRAIN_SHAPE = (8, 1024)  # (batch, L) of the timed mamba-130m-shape call
+LM_GRAD_BATCH, LM_GRAD_LEN = 2, 128  # phase 15's tokens
 LM_PROMPTS, LM_PROMPT_LEN, LM_NEW_TOKENS = 4, 128, 64
 # full mamba-130m, card vs CPU, fp32 with TF32 off: 24 scans plus fp32
 # matmuls in another summation order, on logits of magnitude ~2; the
@@ -193,21 +221,29 @@ def check_kernel(torch, got, want, **where) -> float:
 def scan_bound(kind: str, bsz: int, L: int, dg: int, itemsize: int,
                n: int = 16, groups: int = 1, last_state: bool = False):
     """(least ms, "bytes" or "operations") of one scan call of ``kind``
-    (fwd, fwd_states, bwd: the bidirectional kernels; grouped: the
-    unidirectional one over ``groups`` groups of ``dg`` channels, which
-    writes y in the input dtype and, with ``last_state``, the fp32 final
+    (fwd, fwd_states, bwd: the bidirectional kernels; grouped,
+    grouped_fwd_states, grouped_bwd: the unidirectional ones over ``groups``
+    groups of ``dg`` channels, whose y, gy, du, ddelta, dB and dC are in the
+    input dtype; ``last_state`` adds the serving forward's fp32 final
     state): each input read once, each output written once;
     per (direction, step, channel, state) the forward needs 1 exp and ~6
     FLOPs, the backward 1 exp (a_t = exp(dt A), which the recompute of the
     states and the reverse scan can share) and ~20 FLOPs; softplus/sigmoid
     add 2 (fwd) and 5 (bwd) special-function results per (direction, step,
     channel)."""
-    if kind == "grouped":
+    if kind.startswith("grouped"):
         trip = bsz * groups * L * dg                 # (step, channel)
-        nbytes = ((3 * trip + 2 * bsz * groups * L * n) * itemsize
-                  + groups * dg * (n + 2) * 4
-                  + (bsz * groups * dg * n * 4 if last_state else 0))
-        exps, flops = trip * (n + 2), trip * n * 6
+        io_in = (2 * trip + 2 * bsz * groups * L * n) * itemsize  # u,Δ,B,C
+        params = groups * dg * (n + 2) * 4                        # A, D, bias
+        cs = bsz * groups * (-(-L // 16)) * n * dg * 4
+        if kind == "grouped_bwd":  # + cs, gy in; gradients of all out
+            nbytes = 2 * io_in + 2 * params + cs + trip * itemsize
+            exps, flops = trip * (n + 5), trip * n * 20
+        else:
+            nbytes = (io_in + params + trip * itemsize
+                      + (cs if kind == "grouped_fwd_states" else 0)
+                      + (bsz * groups * dg * n * 4 if last_state else 0))
+            exps, flops = trip * (n + 2), trip * n * 6
     else:
         trip = bsz * 4 * L * dg                      # (dir, step, channel)
         io_in = (bsz * 2 * L * dg + bsz * 4 * L * dg
@@ -238,36 +274,46 @@ def timed_once(torch, fn):
     return start.elapsed_time(end), out
 
 
-def check_training_kernels(torch, args, gy, **where):
-    """State-saving forward and backward against their plain versions on
-    the same inputs; returns ({"fwd_states": max abs error of y and cs,
-    "bwd": of the gradients}, ms of the plain forward, ms of the plain
-    backward), each plain version timed once."""
-    from mamba_unet_torch.ops.selective_scan_bidir import (
-        ARG_NAMES,
-        selective_scan_bidir_bwd,
-        selective_scan_bidir_bwd_ref,
-        selective_scan_bidir_fwd_states,
-        selective_scan_bidir_states_ref,
-    )
+def training_kernels(grouped: bool):
+    """(state-saving forward, its plain version, backward, its plain
+    version, operand names) of the bidirectional or the grouped scan."""
+    if grouped:
+        from mamba_unet_torch.ops import selective_scan_grouped as m
+        return (m.selective_scan_grouped_fwd_states,
+                m.selective_scan_grouped_states_ref,
+                m.selective_scan_grouped_bwd,
+                m.selective_scan_grouped_bwd_ref, m.ARG_NAMES)
+    from mamba_unet_torch.ops import selective_scan_bidir as m
+    return (m.selective_scan_bidir_fwd_states,
+            m.selective_scan_bidir_states_ref, m.selective_scan_bidir_bwd,
+            m.selective_scan_bidir_bwd_ref, m.ARG_NAMES)
+
+
+def check_training_kernels(torch, args, gy, phase="kernel_bwd",
+                           grouped=False, **where):
+    """State-saving forward and backward (bidirectional, or grouped with
+    ``grouped``) against their plain versions on the same inputs; returns
+    ({"fwd_states": max abs error of y and cs, "bwd": of the gradients}, ms
+    of the plain forward, ms of the plain backward), each plain version
+    timed once."""
     from mamba_unet_torch.utils.compare import assert_close_to_max
 
+    fwd_states, states_ref, bwd, bwd_ref, arg_names = training_kernels(
+        grouped)
     at = " ".join(f"{k}={v}" for k, v in where.items())
-    y, cs = selective_scan_bidir_fwd_states(*args)
+    y, cs = fwd_states(*args)
     plain_fwd, (y_ref, cs_ref) = timed_once(
-        torch, lambda: selective_scan_bidir_states_ref(*args))
+        torch, lambda: states_ref(*args))
     errs = {"y": assert_close_to_max(y, y_ref, GRAD_KERNEL_TOL, f"y at {at}"),
             "cs": assert_close_to_max(cs, cs_ref, GRAD_KERNEL_TOL,
                                       f"cs at {at}")}
     del y_ref, cs_ref
-    got = selective_scan_bidir_bwd(*args, cs, gy)
-    plain_bwd, want = timed_once(
-        torch, lambda: selective_scan_bidir_bwd_ref(*args, gy))
-    for name, g, w in zip(ARG_NAMES, got, want):
+    got = bwd(*args, cs, gy)
+    plain_bwd, want = timed_once(torch, lambda: bwd_ref(*args, gy))
+    for name, g, w in zip(arg_names, got, want):
         rel = GRAD_SUM_TOL if name in SUMMED else GRAD_KERNEL_TOL
         errs["d" + name] = assert_close_to_max(g, w, rel, f"d{name} at {at}")
-    log("kernel_bwd", **where, **{k: f"{v:.2e}" for k, v in errs.items()},
-        ok=True)
+    log(phase, **where, **{k: f"{v:.2e}" for k, v in errs.items()}, ok=True)
     worst = {"fwd_states": max(errs["y"], errs["cs"]),
              "bwd": max(v for k, v in errs.items() if k[0] == "d")}
     return worst, plain_fwd, plain_bwd
@@ -346,27 +392,56 @@ def kernel_bwd_phase(torch, dev):
             for kind in tot}
 
 
-def grad_parity_phase(torch, dev):
-    """Phase 7: one full-width backward on the card against a CPU copy."""
+def scan_kernels(scan_impl: str):
+    """((serving, state-saving forward, backward) wrappers that SS2D's
+    ``scan_impl`` branch launches, the same three of the other branch)."""
+    from mamba_unet_torch.ops import selective_scan_bidir as ssb
+    from mamba_unet_torch.ops import selective_scan_grouped as ssg
+
+    bidir = (ssb.selective_scan_bidir, ssb.selective_scan_bidir_fwd_states,
+             ssb.selective_scan_bidir_bwd)
+    grouped = (ssg.selective_scan_grouped,
+               ssg.selective_scan_grouped_fwd_states,
+               ssg.selective_scan_grouped_bwd)
+    return (grouped, bidir) if scan_impl == "tm" else (bidir, grouped)
+
+
+def grad_parity_phase(torch, dev, scan_impl="auto"):
+    """Phases 7 and 13: one full-width backward on the card against a CPU
+    copy, through SS2D's ``scan_impl`` branch (14 state-saving forward and
+    14 backward launches of its kernels, none of the other branch's);
+    returns the card model."""
     from mamba_unet_torch.models.vssm import MambaUnet
     from mamba_unet_torch.objectives import supervised_ce_dice
 
+    phase = "grad_parity" if scan_impl == "auto" else f"{scan_impl}_grad_parity"
+    kernels, others = scan_kernels(scan_impl)
     gen = torch.Generator().manual_seed(2)
     cpu_model = MambaUnet(num_classes=4, drop_path_rate=0.0,
+                          scan_impl=scan_impl,
                           generator=torch.Generator().manual_seed(0))
-    model = MambaUnet(num_classes=4, drop_path_rate=0.0, device=dev)
+    model = MambaUnet(num_classes=4, drop_path_rate=0.0, scan_impl=scan_impl,
+                      device=dev)
     model.load_state_dict(cpu_model.state_dict())
     x = torch.randn(2, PATCH, PATCH, 1, generator=gen)
     label = torch.randint(0, 4, (2, PATCH, PATCH), generator=gen)
     losses, grads, secs = {}, {}, {}
     for tag, m in (("gpu", model), ("cpu", cpu_model)):
         d = next(m.parameters()).device
+        before = [k.launches for k in kernels + others]
         t0 = time.perf_counter()
         loss = supervised_ce_dice(m.train()(x.to(d)), label.to(d))
         loss.backward()
         losses[tag] = loss.item()
         grads[tag] = {k: p.grad.cpu() for k, p in m.named_parameters()}
         secs[tag] = time.perf_counter() - t0
+        if tag == "gpu":
+            launched = [k.launches - b
+                        for k, b in zip(kernels + others, before)]
+            if launched != [0, SS2D_PER_FORWARD, SS2D_PER_FORWARD, 0, 0, 0]:
+                raise AssertionError(f"one backward launched {launched} "
+                                     f"(serve, fwd_states, bwd of the "
+                                     f"{scan_impl} branch, then the other)")
     worst, worst_key = 0.0, None
     for k, want in grads["cpu"].items():
         scale = want.abs().max().item()
@@ -374,7 +449,7 @@ def grad_parity_phase(torch, dev):
         if not math.isfinite(rel) or rel > worst:
             worst, worst_key = rel, k
     loss_err = abs(losses["gpu"] - losses["cpu"]) / abs(losses["cpu"])
-    log("grad_parity", params=len(grads["cpu"]), loss_gpu=losses["gpu"],
+    log(phase, params=len(grads["cpu"]), loss_gpu=losses["gpu"],
         loss_cpu=losses["cpu"], loss_rel_err=f"{loss_err:.2e}",
         worst_grad_rel_err=f"{worst:.2e}", worst_param=worst_key,
         tol=MODEL_GRAD_TOL, gpu_s=f"{secs['gpu']:.2f}",
@@ -383,27 +458,54 @@ def grad_parity_phase(torch, dev):
         raise AssertionError(f"card gradients disagree with the CPU: worst "
                              f"{worst} at {worst_key}, loss rel err "
                              f"{loss_err}")
+    return model
 
 
-def training_phase(torch, dev):
-    """Phase 8; returns the launch counts of the training run."""
+def tm_logits_phase(torch, dev, model):
+    """Phase 13, second half: the same weights give the same logits on the
+    card through SS2D's tm branch (grouped serving kernel) and its bidir
+    branch (bidirectional serving kernel)."""
+    from mamba_unet_torch.models.vssm import MambaUnet
+
+    (grouped, _, _), (bidir, _, _) = scan_kernels("tm")
+    other = MambaUnet(num_classes=4, drop_path_rate=0.0, device=dev)
+    other.load_state_dict(model.state_dict())
+    x = torch.randn(2, PATCH, PATCH, 1,
+                    generator=torch.Generator().manual_seed(3)).to(dev)
+    before = (grouped.launches, bidir.launches)
+    with torch.inference_mode():
+        tm = model.eval()(x).cpu()
+        bi = other.eval()(x).cpu()
+    launched = (grouped.launches - before[0], bidir.launches - before[1])
+    err = (tm - bi).abs().max().item()
+    log("tm_grad_parity", compare="tm_vs_bidir_logits",
+        max_abs_err=f"{err:.3e}", logit_max=f"{bi.abs().max():.3f}",
+        tol=LOGIT_TOL, launches_grouped_bidir=launched)
+    if launched != (SS2D_PER_FORWARD, SS2D_PER_FORWARD):
+        raise AssertionError(f"serving launches {launched}")
+    if not torch.isfinite(tm).all() or err > LOGIT_TOL:
+        raise AssertionError(f"tm logits differ from bidir logits: {err}")
+
+
+def training_phase(torch, dev, scan_impl="auto"):
+    """Phases 8 and 14; returns the launch counts (serve, fwd_states, bwd)
+    of the ``scan_impl`` branch's kernels in the training run."""
     from mamba_unet_torch.data.acdc import SliceDataset
     from mamba_unet_torch.data.augment import RandomGenerator
     from mamba_unet_torch.data.loader import Loader
     from mamba_unet_torch.data.sampler import EpochShuffleSampler
     from mamba_unet_torch.data.synthetic import phantom_acdc
     from mamba_unet_torch.models.vssm import MambaUnet
-    from mamba_unet_torch.ops import selective_scan_bidir as ssb
     from mamba_unet_torch.train import TrainConfig, Trainer
 
-    kernels = (ssb.selective_scan_bidir, ssb.selective_scan_bidir_fwd_states,
-               ssb.selective_scan_bidir_bwd)
+    phase = "training" if scan_impl == "auto" else f"{scan_impl}_training"
+    kernels, others = scan_kernels(scan_impl)
     splits = phantom_acdc(8, 8, 2, 0, *NATIVE, seed=0)
     cfg = TrainConfig(base_lr=0.01, max_iterations=TRAIN_ITERS,
                       batch_size=TRAIN_BATCH, patch_size=(PATCH, PATCH),
                       num_classes=4, eval_every=TRAIN_EVAL_AT,
                       log_every=1, seed=1337, bf16=True)
-    model = MambaUnet(num_classes=4, drop_path_rate=0.2,
+    model = MambaUnet(num_classes=4, drop_path_rate=0.2, scan_impl=scan_impl,
                       generator=torch.Generator().manual_seed(1337))
     trainer = Trainer(model, cfg, device=dev)
     before = {k: v.detach().clone() for k, v in
@@ -419,11 +521,11 @@ def training_phase(torch, dev):
         for batch in batches:
             torch.cuda.synchronize()
             marks.append((time.perf_counter(),
-                          tuple(k.launches for k in kernels)))
+                          tuple(k.launches for k in kernels + others)))
             yield batch
 
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels:
+    for k in kernels + others:
         k.launches = 0
     result = trainer.fit(counted(loader), splits["val"])
     launches = tuple(k.launches for k in kernels)
@@ -436,6 +538,8 @@ def training_phase(torch, dev):
                              f"logged {len(losses)} losses")
     if not all(math.isfinite(v) for v in losses) or len(dice) != 1:
         raise AssertionError(f"losses {losses}, evals {dice}")
+    if not sum(losses[-5:]) < sum(losses[:5]):
+        raise AssertionError(f"the loss did not fall: {losses}")
     changed = sum(not torch.equal(v, trainer.model.state_dict()[k])
                   for k, v in before.items())
     n_val_slices = sum(len(v["image"]) for v in splits["val"])
@@ -446,43 +550,45 @@ def training_phase(torch, dev):
         d = [b - a for a, b in zip(c0, c1)]
         evaled = i == TRAIN_EVAL_AT
         want = [SS2D_PER_FORWARD * eval_fwd if evaled else 0,
-                SS2D_PER_FORWARD, SS2D_PER_FORWARD]
+                SS2D_PER_FORWARD, SS2D_PER_FORWARD, 0, 0, 0]
         if d != want:
             raise AssertionError(f"step {i}: launches (serve, fwd_states, "
-                                 f"bwd) {d}, expected {want}")
+                                 f"bwd of the {scan_impl} branch, then the "
+                                 f"other) {d}, expected {want}")
         if i > TRAIN_WARMUP and not evaled:
             step_ms.append(1e3 * (t1 - t0))
     step_ms.sort()
     med = step_ms[len(step_ms) // 2]
-    log("training", iterations=result["iterations"], batch=TRAIN_BATCH,
+    log(phase, iterations=result["iterations"], batch=TRAIN_BATCH,
         patch=f"{PATCH}x{PATCH}", native="x".join(map(str, NATIVE)),
-        dtype="bf16", drop_path=0.2,
+        dtype="bf16", drop_path=0.2, scan_impl=scan_impl,
         launches_serve_fwd_states_bwd=launches,
         params_changed=f"{changed}/{len(before)}", val_dice=f"{dice[0]:.4f}",
         eval_forwards=eval_fwd)
-    log("training", losses=" ".join(f"{v:.4f}" for v in losses))
-    log("training", step_ms_median=f"{med:.2f}",
+    log(phase, losses=" ".join(f"{v:.4f}" for v in losses))
+    log(phase, step_ms_median=f"{med:.2f}",
         step_ms_min=f"{step_ms[0]:.2f}", step_ms_max=f"{step_ms[-1]:.2f}",
         steps_timed=len(step_ms),
         slices_per_s=f"{TRAIN_BATCH / med * 1e3:.1f}",
         peak_mem_gb=f"{peak_gb:.2f}")
     if changed < 0.99 * len(before):
         raise AssertionError(f"only {changed}/{len(before)} tensors changed")
-    profile_steps(torch, trainer, loader)
+    profile_steps(torch, trainer, loader,
+                  "train" if scan_impl == "auto" else f"train_{scan_impl}")
     return launches
 
 
-def profile_steps(torch, trainer, loader, steps=3):
+def profile_steps(torch, trainer, loader, path, steps=3):
     """Device time by kernel over ``steps`` train steps on pre-loaded
-    batches, after one warm-up step."""
+    batches, after one warm-up step (``[profile] path=...``)."""
     batches = []
     for batch in loader:
         batches.append(batch)
         if len(batches) == steps:
             break
     trainer.train_step(batches[0])
-    profile_calls(torch, "train", [lambda b=b: trainer.train_step(b)
-                                   for b in batches])
+    profile_calls(torch, path, [lambda b=b: trainer.train_step(b)
+                                for b in batches])
 
 
 def profile_calls(torch, path, calls, top=12):
@@ -525,6 +631,18 @@ def profile_calls(torch, path, calls, top=12):
             launches_per_step=f"{n:.0f}", kernel=key[:90].replace(" ", "_"))
 
 
+def grouped_args(torch, bsz, L, G, dg, dtype, dev, seed):
+    """scan_inputs of the grouped scan, with A drawn per (channel, state) and
+    D per channel, as a trained checkpoint has them, so that a kernel
+    reading another channel's or group's row disagrees."""
+    args = scan_inputs(torch, bsz, L, dg, dtype, dev, seed, G, G)
+    g = torch.Generator().manual_seed(seed + 1)
+    args[2] = -torch.exp(0.5 * torch.randn(G * dg, 16, generator=g))
+    args[5] = torch.randn(G * dg, generator=g)
+    args[2], args[5] = args[2].to(dev), args[5].to(dev)
+    return args
+
+
 def lm_kernel_phase(torch, dev):
     """Phase 9; returns (max abs err, {tag: (ms, plain ms, bound ms,
     bound_by)}) of the grouped kernel, fp32 inputs at the timed shapes."""
@@ -533,17 +651,6 @@ def lm_kernel_phase(torch, dev):
         selective_scan_grouped_ref,
     )
     from mamba_unet_torch.utils.compare import assert_close_to_max
-
-    def lm_args(bsz, L, G, dg, dtype, seed):
-        """scan_inputs with A drawn per (channel, state) and D per channel,
-        as a trained checkpoint has them, so that a kernel reading another
-        channel's or group's row disagrees."""
-        args = scan_inputs(torch, bsz, L, dg, dtype, dev, seed, G, G)
-        g = torch.Generator().manual_seed(seed + 1)
-        args[2] = -torch.exp(0.5 * torch.randn(G * dg, 16, generator=g))
-        args[5] = torch.randn(G * dg, generator=g)
-        args[2], args[5] = args[2].to(dev), args[5].to(dev)
-        return args
 
     def check(args, last_state, out=None, **where):
         """Hold the kernel's ``out`` (launched here when not given)
@@ -565,13 +672,14 @@ def lm_kernel_phase(torch, dev):
     max_err = 0.0
     for G, L, dg in LM_KERNEL_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            args = lm_args(2, L, G, dg, dtype, L)
+            args = grouped_args(torch, 2, L, G, dg, dtype, dev, L)
             err, _ = check(args, True, G=G, L=L, dg=dg, batch=2,
                            dtype=str(dtype).split(".")[-1])
             max_err = max(max_err, err)
     times = {}
     for tag, bsz, L, last_state in LM_TIMED:
-        args = lm_args(bsz, L, 1, LM_DINNER, torch.float32, 0)
+        args = grouped_args(torch, bsz, L, 1, LM_DINNER, torch.float32, dev,
+                            0)
         ms, out = device_ms(torch, lambda: selective_scan_grouped(
             *args, True, last_state), 20)
         err, plain = check(args, last_state, out, G=1, L=L, dg=LM_DINNER,
@@ -588,23 +696,32 @@ def lm_kernel_phase(torch, dev):
     return max_err, times
 
 
-def lm_parity_phase(torch, dev):
-    """Phase 10: full-width mamba-130m (seeded weights) on the card against
-    a CPU copy, fp32 with TF32 off; returns the card model."""
+def seeded_lm(torch, dev):
+    """Full-width mamba-130m with seeded weights, on the CPU and a copy on
+    the card. The init gives every channel the same A_log row and D = 1, a
+    trained checkpoint a different one in each: they are perturbed per
+    channel."""
     from mamba_unet_torch.models.mamba_lm import MambaLMHeadModel
-    from mamba_unet_torch.utils.compare import assert_close_to_max
 
-    cpu_model = MambaLMHeadModel(
-        LM_VOCAB, generator=torch.Generator().manual_seed(0)).eval()
-    # the init gives every channel the same A_log row and D = 1, a trained
-    # checkpoint a different one in each: perturb them per channel
+    cpu_model = MambaLMHeadModel(LM_VOCAB,
+                                 generator=torch.Generator().manual_seed(0))
     g = torch.Generator().manual_seed(2)
     with torch.no_grad():
         for name, p in cpu_model.named_parameters():
             if name.endswith(("A_log", ".D")):
                 p.add_(0.5 * torch.randn(p.shape, generator=g))
-    model = MambaLMHeadModel(LM_VOCAB, device=dev).eval()
+    model = MambaLMHeadModel(LM_VOCAB, device=dev)
     model.load_state_dict(cpu_model.state_dict())
+    return cpu_model, model
+
+
+def lm_parity_phase(torch, dev):
+    """Phase 10: full-width mamba-130m (seeded weights) on the card against
+    a CPU copy, fp32 with TF32 off; returns the card model."""
+    from mamba_unet_torch.utils.compare import assert_close_to_max
+
+    cpu_model, model = seeded_lm(torch, dev)
+    cpu_model.eval(), model.eval()
     ids = torch.randint(0, LM_VOCAB, (2, 64),
                         generator=torch.Generator().manual_seed(1))
     with torch.inference_mode():
@@ -744,6 +861,143 @@ def lm_serving_phase(torch, np, dev, model):
         profile_calls(torch, "lm_decode", [
             lambda: model.decode_step(token, caches)] * 3, top=8)
     return launches[0]
+
+
+def tm_kernel_phase(torch, dev):
+    """Phase 12; returns {kernel: (max_err, ms per train step, plain ms per
+    train step, bound ms per train step, bound_by)} of the grouped
+    state-saving forward and backward, fp32 inputs at bs24, summed over the
+    14 SS2D calls of the tm branch."""
+    fwd_states, _, bwd, _, _ = training_kernels(grouped=True)
+    max_err = {"fwd_states": 0.0, "bwd": 0.0}
+
+    def check(args, gy, **where):
+        errs, plain_fwd, plain_bwd = check_training_kernels(
+            torch, args, gy, "tm_kernel", True, **where)
+        for kind, err in errs.items():
+            max_err[kind] = max(max_err[kind], err)
+        return plain_fwd, plain_bwd
+
+    def cotangent(args, seed):
+        return torch.randn(args[0].shape, generator=torch.Generator()
+                           .manual_seed(seed)).to(dev, args[0].dtype)
+
+    for G, L, dg in TM_KERNEL_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = grouped_args(torch, 2, L, G, dg, dtype, dev, L + dg)
+            check(args, cotangent(args, L), G=G, L=L, dg=dg, batch=2,
+                  dtype=str(dtype).split(".")[-1])
+
+    def timed(bsz, G, L, dg, dtype):
+        """(fwd_states ms, bwd ms, plain fwd ms, plain bwd ms); the timed
+        calls' outputs are held against the plain versions (the kernels
+        are deterministic: no atomics)."""
+        args = grouped_args(torch, bsz, L, G, dg, dtype, dev, 0)
+        gy = cotangent(args, 1)
+        fwd_ms, (y, cs) = device_ms(torch, lambda: fwd_states(*args), 20)
+        bwd_ms, _ = device_ms(torch, lambda: bwd(*args, cs, gy), 20)
+        del y, cs
+        plain = check(args, gy, G=G, L=L, dg=dg, batch=bsz,
+                      dtype=str(dtype).split(".")[-1])
+        del args, gy
+        torch.cuda.empty_cache()
+        return (fwd_ms, bwd_ms, *plain)
+
+    tot = {k: [0.0, 0.0, 0.0] for k in ("fwd_states", "bwd")}
+    bound_by = {}
+    for L, dg, calls in STAGES:
+        fwd_ms, bwd_ms, plain_fwd, plain_bwd = timed(TRAIN_BATCH, 4, L, dg,
+                                                     torch.float32)
+        bf = timed(TRAIN_BATCH, 4, L, dg, torch.bfloat16)
+        stage_bound = {}
+        for kind, ms, plain in (("fwd_states", fwd_ms, plain_fwd),
+                                ("bwd", bwd_ms, plain_bwd)):
+            bound, bound_by[kind] = scan_bound(f"grouped_{kind}", TRAIN_BATCH,
+                                               L, dg, 4, groups=4)
+            stage_bound[kind] = bound
+            tot[kind][0] += calls * ms
+            tot[kind][1] += calls * plain
+            tot[kind][2] += calls * bound
+        log("tm_kernel_time", L=L, dg=dg, G=4, batch=TRAIN_BATCH,
+            fwd_states_ms=f"{fwd_ms:.4f}", bwd_ms=f"{bwd_ms:.4f}",
+            plain_fwd_states_ms=f"{plain_fwd:.2f}",
+            plain_bwd_ms=f"{plain_bwd:.2f}",
+            bf16_fwd_states_ms=f"{bf[0]:.4f}", bf16_bwd_ms=f"{bf[1]:.4f}",
+            bf16_bound_fwd_states_ms=f"""{scan_bound(
+                "grouped_fwd_states", TRAIN_BATCH, L, dg, 2, groups=4)[0]:.4f}""",
+            bf16_bound_bwd_ms=f"""{scan_bound(
+                "grouped_bwd", TRAIN_BATCH, L, dg, 2, groups=4)[0]:.4f}""",
+            bound_fwd_states_ms=f"{stage_bound['fwd_states']:.4f}",
+            bound_bwd_ms=f"{stage_bound['bwd']:.4f}")
+    for kind, (ms, plain, bound) in tot.items():
+        log("tm_kernel_time", kernel=kind, per_step_ms=f"{ms:.4f}",
+            plain_per_step_ms=f"{plain:.2f}", bound_per_step_ms=f"{bound:.4f}",
+            calls=SS2D_PER_FORWARD)
+    bsz, L = LM_TRAIN_SHAPE
+    fwd_ms, bwd_ms, plain_fwd, plain_bwd = timed(bsz, 1, L, LM_DINNER,
+                                                 torch.float32)
+    log("tm_kernel_time", path="lm", batch=bsz, L=L, dg=LM_DINNER,
+        fwd_states_ms=f"{fwd_ms:.4f}", bwd_ms=f"{bwd_ms:.4f}",
+        plain_fwd_states_ms=f"{plain_fwd:.2f}",
+        plain_bwd_ms=f"{plain_bwd:.2f}",
+        bound_fwd_states_ms=f"""{scan_bound(
+            "grouped_fwd_states", bsz, L, LM_DINNER, 4)[0]:.4f}""",
+        bound_bwd_ms=f"{scan_bound('grouped_bwd', bsz, L, LM_DINNER, 4)[0]:.4f}",
+        calls_per_step=LM_DEPTH)
+    return {kind: (max_err[kind], *tot[kind], bound_by[kind])
+            for kind in tot}
+
+
+def lm_grad_phase(torch, dev):
+    """Phase 15: full-width mamba-130m, next-token cross-entropy and every
+    parameter's gradient on the card against a CPU copy, fp32 with TF32
+    off; 24 grouped state-saving forward and 24 backward launches."""
+    import torch.nn.functional as F
+
+    (serve, fwd_states, bwd), others = scan_kernels("tm")
+    cpu_model, model = seeded_lm(torch, dev)
+    ids = torch.randint(0, LM_VOCAB, (LM_GRAD_BATCH, LM_GRAD_LEN),
+                        generator=torch.Generator().manual_seed(4))
+    losses, grads, secs, launched = {}, {}, {}, {}
+    for tag, m in (("gpu", model), ("cpu", cpu_model)):
+        d = next(m.parameters()).device
+        x = ids.to(d)
+        before = [k.launches for k in (serve, fwd_states, bwd) + others]
+        t0 = time.perf_counter()
+        logits = m(x)[:, :-1]
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               x[:, 1:].reshape(-1))
+        loss.backward()
+        losses[tag] = loss.item()
+        secs[tag] = time.perf_counter() - t0
+        launched[tag] = [k.launches - b for k, b in
+                         zip((serve, fwd_states, bwd) + others, before)]
+        grads[tag] = {k: p.grad for k, p in m.named_parameters()}
+    worst, worst_key = 0.0, None
+    for k, want in grads["cpu"].items():
+        got = grads["gpu"][k]
+        if got is None:
+            raise AssertionError(f"{k} got no gradient on the card")
+        rel = (got.cpu() - want).abs().max().item() / max(
+            want.abs().max().item(), 1e-30)
+        if not math.isfinite(rel) or rel > worst:
+            worst, worst_key = rel, k
+    loss_err = abs(losses["gpu"] - losses["cpu"]) / abs(losses["cpu"])
+    log("lm_grad", batch=LM_GRAD_BATCH, tokens=LM_GRAD_LEN,
+        params=len(grads["cpu"]), launches_serve_fwd_states_bwd=tuple(
+            launched["gpu"][:3]), loss_gpu=losses["gpu"],
+        loss_cpu=losses["cpu"], loss_rel_err=f"{loss_err:.2e}",
+        worst_grad_rel_err=f"{worst:.2e}", worst_param=worst_key,
+        tol=MODEL_GRAD_TOL, gpu_s=f"{secs['gpu']:.2f}",
+        cpu_s=f"{secs['cpu']:.2f}")
+    if launched["gpu"] != [0, LM_DEPTH, LM_DEPTH, 0, 0, 0] or any(
+            launched["cpu"]):
+        raise AssertionError(f"launches (grouped serve, fwd_states, bwd, "
+                             f"then the bidirectional three): {launched}")
+    if not (worst <= MODEL_GRAD_TOL and loss_err <= LOSS_TOL):
+        raise AssertionError(f"card gradients disagree with the CPU: worst "
+                             f"{worst} at {worst_key}, loss rel err "
+                             f"{loss_err}")
 
 
 def main() -> int:
@@ -919,6 +1173,24 @@ def main() -> int:
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32_defaults
     lm_launches = lm_serving_phase(torch, np, dev, lm_model)
+    del lm_model
+    torch.cuda.empty_cache()
+
+    # --- 12-15. Mamba-UNet training on SS2D's time-major branch, and the
+    # gradients of the 1-D Mamba stack (mamba-130m)
+    tm_kernels = tm_kernel_phase(torch, dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tm_logits_phase(torch, dev, grad_parity_phase(torch, dev, "tm"))
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32_defaults
+    torch.cuda.empty_cache()
+    _, tm_fwd, tm_bwd = training_phase(torch, dev, "tm")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lm_grad_phase(torch, dev)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32_defaults
 
     serve_bound = sum(calls * scan_bound("fwd", SERVE_BATCH, L, dg, 4)[0]
                       for L, dg, calls in STAGES)
@@ -947,6 +1219,17 @@ def main() -> int:
                      bound_by=by,
                      source="mamba_unet_torch/csrc/selective_scan_fwd.cu",
                      replaces=f"{pallas}:229 (unidirectional)"))
+    for kernel, kind, n, src, where in (
+            ("selective_scan_fwd_states", "fwd_states", tm_fwd,
+             "selective_scan_fwd.cu",
+             f"{pallas}:229 (unidirectional, save_cs: _scan_core_fwd :586)"),
+            ("selective_scan_bwd", "bwd", tm_bwd, "selective_scan_bwd.cu",
+             f"{pallas}:318 (unidirectional: _scan_core_bwd :701)")):
+        err, ms, plain, bound, by = tm_kernels[kind]
+        rows.append(dict(name=kernel, launches=n, max_abs_err=err, ms=ms,
+                         plain_ms=plain, bound_ms=bound, bound_by=by,
+                         source=f"mamba_unet_torch/csrc/{src}",
+                         replaces=where))
     # no single PyTorch call computes the selective scan
     print(json.dumps({"kernels": [dict(route="cuda", library_ms=None, **r)
                                   for r in rows]}), flush=True)

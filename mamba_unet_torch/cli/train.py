@@ -6,9 +6,14 @@ path plus ``--device`` (default ``cuda``; it raises when there is no card
 rather than run on the CPU). Other methods raise "not ported yet".
 ``--synthetic`` trains on in-memory phantom slices
 (``data.synthetic.phantom_acdc``) instead of writing an h5 set.
+``--scan_impl`` picks SS2D's scan branch: ``auto``/``bidir`` (the
+bidirectional kernels) or ``tm``/``pallas`` (the time-major grouped ones);
+``xla`` and ``folded`` are not ported yet.
 
     python -m mamba_unet_torch.cli.train --root_path ../data/ACDC \\
         --patch_size 224 224 --batch_size 24 --bf16 --snapshot_dir snap
+    python -m mamba_unet_torch.cli.train --model ViM_seg --scan_impl tm \\
+        --bf16 --patch_size 224 224 --batch_size 24
     python -m mamba_unet_torch.cli.train --synthetic --device cpu \\
         --patch_size 32 32 --batch_size 4 --max_iterations 4 --eval_every 2
 """
@@ -54,6 +59,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="microbatches per optimizer update")
     p.add_argument("--bf16", action="store_true",
                    help="bf16 autocast compute (weights stay fp32)")
+    p.add_argument("--scan_impl", type=str, default="auto",
+                   choices=["auto", "bidir", "tm", "pallas", "xla", "folded"],
+                   help="SS2D scan path (default auto = the bidirectional "
+                        "kernels; tm/pallas = the time-major grouped ones)")
     p.add_argument("--drop_path", type=float, default=None,
                    help="stochastic depth rate (model default 0.2)")
     p.add_argument("--synthetic", action="store_true",
@@ -90,6 +99,9 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             f"--method {args.method} is not ported yet; ported: "
             f"{', '.join(PORTED_METHODS)}")
+    from mamba_unet_torch.nn.ss2d import check_scan_impl
+
+    check_scan_impl(args.scan_impl)  # before any data is loaded
 
     import torch
 
@@ -124,7 +136,7 @@ def main(argv=None) -> int:
                                 transform=transform)
         val_ds = VolumeDataset(args.root_path, "val")
 
-    kwargs = {"num_classes": args.num_classes,
+    kwargs = {"num_classes": args.num_classes, "scan_impl": args.scan_impl,
               "generator": torch.Generator().manual_seed(args.seed)}
     if args.drop_path is not None:
         kwargs["drop_path_rate"] = args.drop_path

@@ -2,9 +2,12 @@
 //
 // Replaces the Pallas TPU kernel
 //   mamba_unet_tpu/ops/selective_scan_pallas.py::_fwd_kernel in its
-//   unidirectional mode (bidir=False, save_cs=False), reached through
+//   unidirectional mode (bidir=False), reached through
 //   _scan_core <- selective_scan_pallas_tm <- selective_scan_pallas, the
-//   scan of every 1-D Mamba layer (nn/mamba1d.py).
+//   scan of every 1-D Mamba layer (nn/mamba1d.py) and of SS2D's time-major
+//   branch (nn/ss2d.py, scan_impl="tm"): with save_cs=False (serving) and
+//   with save_cs=True (_scan_core_fwd, the training forward, whose
+//   chunk-entry states only the backward, selective_scan_bwd.cu, reads).
 //
 // Math, per batch b, group g and channel d of the group (dg channels):
 //   delta = softplus(delta[b,g,t,d] + delta_bias[g*dg+d])  (softplus optional)
@@ -15,6 +18,12 @@
 // all arithmetic are fp32; y is rounded to the input dtype once. With a
 // non-null `last_state` the kernel also writes x_L as (B, G*dg, N) fp32: the
 // decode cache a prefill hands to the single-token step.
+//
+// With a non-null `cs` (the training forward) each thread also writes its 16
+// fp32 states at every kStateChunk-th step: cs[b, g, c, n, d] = the state
+// entering step c * kStateChunk (zero for c = 0), nc = ceil(L / 16) chunks.
+// The serving call passes null and compiles without the stores (a template
+// flag), so serving runs the code it ran before the option existed.
 //
 // A sibling of selective_scan_bidir_fwd.cu, not a template mode of it: that
 // kernel's block walks a pair of directions over one data stream and adds
@@ -55,6 +64,8 @@ namespace {
 constexpr int kN = 16;        // d_state
 constexpr int kThreads = 64;  // channels per block, one thread each
 constexpr int kChunk = 32;    // time steps staged in shared memory per pass
+constexpr int kStateChunk = 16;  // steps between saved states (= bwd kChunk)
+static_assert(kChunk % kStateChunk == 0, "a state chunk is inside a chunk");
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
@@ -70,14 +81,14 @@ __device__ __forceinline__ float softplus(float x) {
   return x > 20.f ? x : log1pf(expf(x));
 }
 
-template <typename T>
+template <typename T, bool kSave>
 __global__ void __launch_bounds__(kThreads)
 grouped_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
                    const T* __restrict__ Bm, const T* __restrict__ Cm,
                    const float* __restrict__ A, const float* __restrict__ D,
                    const float* __restrict__ delta_bias, T* __restrict__ y,
-                   float* __restrict__ last_state, int G, int L, int dg,
-                   int apply_softplus) {
+                   float* __restrict__ last_state, float* __restrict__ cs,
+                   int G, int L, int dg, int apply_softplus) {
   __shared__ float s_u[kChunk][kThreads];
   __shared__ float s_delta[kChunk][kThreads];
   __shared__ float s_B[kChunk * kN];
@@ -96,6 +107,10 @@ grouped_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
   const T* C_s = Cm + seq * kN;
   T* y_s = y + seq * dg;
   const size_t row = (size_t)g * dg + d;  // channel among the G*dg
+  float* cs_s =
+      kSave ? cs + (size_t)(b * G + g) * ((L + kStateChunk - 1) / kStateChunk)
+                       * kN * dg + d
+            : nullptr;
 
   float a2[kN], x[kN];
   float skip = 0.f, bias = 0.f;
@@ -130,6 +145,11 @@ grouped_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
     if (active) {
 #pragma unroll 4
       for (int s = 0; s < len; ++s) {
+        if (kSave && s % kStateChunk == 0) {  // t0 is a multiple too
+          float* dst = cs_s + (size_t)((t0 + s) / kStateChunk) * kN * dg;
+#pragma unroll
+          for (int n = 0; n < kN; ++n) dst[(size_t)n * dg] = x[n];
+        }
         const float uu = s_u[s][tid];
         const float raw = s_delta[s][tid] + bias;
         const float dt = apply_softplus ? softplus(raw) : raw;
@@ -161,15 +181,18 @@ template <typename T>
 cudaError_t launch(const void* u, const void* delta, const void* Bm,
                    const void* Cm, const void* A, const void* D,
                    const void* delta_bias, void* y, void* last_state,
-                   int batch, int G, int L, int dg, int apply_softplus,
-                   cudaStream_t stream) {
+                   void* cs, int batch, int G, int L, int dg,
+                   int apply_softplus, cudaStream_t stream) {
   const dim3 grid((dg + kThreads - 1) / kThreads, G, batch);
-  grouped_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(
+  auto kernel =
+      cs ? grouped_fwd_kernel<T, true> : grouped_fwd_kernel<T, false>;
+  kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(delta),
       static_cast<const T*>(Bm), static_cast<const T*>(Cm),
       static_cast<const float*>(A), static_cast<const float*>(D),
       static_cast<const float*>(delta_bias), static_cast<T*>(y),
-      static_cast<float*>(last_state), G, L, dg, apply_softplus);
+      static_cast<float*>(last_state), static_cast<float*>(cs), G, L, dg,
+      apply_softplus);
   return cudaGetLastError();
 }
 
@@ -177,14 +200,16 @@ cudaError_t launch(const void* u, const void* delta, const void* Bm,
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // Pointers are contiguous device buffers laid out as documented above;
-// `last_state` is null (no final state) or (batch, G*dg, 16) fp32.
+// `last_state` is null (no final state) or (batch, G*dg, 16) fp32; `cs` is
+// null (serving) or (batch, G, ceil(L / 16), 16, dg) fp32 (training).
 extern "C" int selective_scan_fwd(const void* u, const void* delta,
                                   const void* Bm, const void* Cm,
                                   const void* A, const void* D,
                                   const void* delta_bias, void* y,
-                                  void* last_state, int batch, int G, int L,
-                                  int dg, int n, int apply_softplus,
-                                  int is_bf16, void* stream) {
+                                  void* last_state, void* cs, int batch,
+                                  int G, int L, int dg, int n,
+                                  int apply_softplus, int is_bf16,
+                                  void* stream) {
   if (n != kN || batch <= 0 || batch > 65535 || G <= 0 || G > 65535 ||
       L <= 0 || dg <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -192,9 +217,10 @@ extern "C" int selective_scan_fwd(const void* u, const void* delta,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? launch<__nv_bfloat16>(u, delta, Bm, Cm, A, D, delta_bias, y,
-                                      last_state, batch, G, L, dg,
+                                      last_state, cs, batch, G, L, dg,
                                       apply_softplus, s)
               : launch<float>(u, delta, Bm, Cm, A, D, delta_bias, y,
-                              last_state, batch, G, L, dg, apply_softplus, s);
+                              last_state, cs, batch, G, L, dg,
+                              apply_softplus, s);
   return static_cast<int>(err);
 }

@@ -21,12 +21,13 @@ from mamba_unet_torch.nn.ss2d import SS2D
 class VSSBlock(nn.Module):
     """x + DropPath(SS2D(LN(x))). Single branch, no MLP."""
 
-    def __init__(self, hidden_dim: int, drop_path: float = 0.0, *,
-                 device=None, generator: Optional[torch.Generator] = None):
+    def __init__(self, hidden_dim: int, drop_path: float = 0.0,
+                 scan_impl: str = "auto", *, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.ln_1 = nn.LayerNorm(hidden_dim, eps=1e-5, device=device)
-        self.self_attention = SS2D(hidden_dim, device=device,
-                                   generator=generator)
+        self.self_attention = SS2D(hidden_dim, scan_impl=scan_impl,
+                                   device=device, generator=generator)
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -38,12 +39,13 @@ class VSSLayer(nn.Module):
     PatchExpand2D (decoder stage)."""
 
     def __init__(self, dim: int, depth: int, drop_path: Sequence[float] = (),
-                 downsample: bool = False, upsample: bool = False, *,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 downsample: bool = False, upsample: bool = False,
+                 scan_impl: str = "auto", *, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.blocks = nn.ModuleList(
             VSSBlock(dim, drop_path[i] if i < len(drop_path) else 0.0,
-                     device=device, generator=generator)
+                     scan_impl, device=device, generator=generator)
             for i in range(depth))
         self.downsample = (PatchMerging2D(dim, device=device,
                                           generator=generator)

@@ -35,9 +35,13 @@ _SIGNATURES = {
     # du2, ddelta4, dB_part, dC_part, dA_part, dD_part, ddb_part,
     # batch, L, dg, n, is_bf16, stream
     "selective_scan_bidir_bwd": [_P] * 16 + [_I] * 5 + [_P],
-    # u, delta, B, C, A, D, delta_bias, y, last_state (or null),
+    # u, delta, B, C, A, D, delta_bias, y, last_state (or null), cs (or
+    # null), batch, G, L, dg, n, softplus, is_bf16, stream
+    "selective_scan_fwd": [_P] * 10 + [_I] * 7 + [_P],
+    # u, delta, B, C, A, D, delta_bias, cs, gy,
+    # du, ddelta, dB_part, dC_part, dA_part, dD_part, ddb_part,
     # batch, G, L, dg, n, softplus, is_bf16, stream
-    "selective_scan_fwd": [_P] * 9 + [_I] * 7 + [_P],
+    "selective_scan_bwd": [_P] * 16 + [_I] * 7 + [_P],
 }
 
 

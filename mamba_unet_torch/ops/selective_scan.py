@@ -66,9 +66,14 @@ def selective_scan_ref(
     delta_bias: Optional[torch.Tensor] = None,
     delta_softplus: bool = False,
     return_last_state: bool = False,
+    *,
+    state_chunk: int = 0,
 ):
     """Sequential reference scan -> (B, D, L) in ``u.dtype``, and with
-    ``return_last_state`` also the fp32 (B, D, N) state after step L."""
+    ``return_last_state`` also the fp32 (B, D, N) state after step L. With
+    ``state_chunk`` = k > 0 it also returns, last, the fp32 states entering
+    steps 0, k, 2k, ... as (B, ceil(L / k), D, N): the chunk-entry states
+    that a training forward saves for its backward."""
     out_dtype = u.dtype
     u_f, delta_f, A_f, B_f, C_f = _prep(u, delta, A, B, C, delta_bias,
                                         delta_softplus)
@@ -81,8 +86,10 @@ def selective_scan_ref(
     u_g = u_f.reshape(bsz, G, dg, L)
     delta_g = delta_f.reshape(bsz, G, dg, L)
     x = u_f.new_zeros(bsz, G, dg, n)
-    ys = []
+    ys, states = [], []
     for t in range(L):
+        if state_chunk and t % state_chunk == 0:
+            states.append(x.reshape(bsz, dim, n))
         d_t = delta_g[..., t, None]                                # (B,G,dg,1)
         x = torch.exp(d_t * A_g) * x + (
             d_t * B_f[:, :, None, :, t] * u_g[..., t, None])      # (B,G,dg,n)
@@ -91,9 +98,9 @@ def selective_scan_ref(
     if D is not None:
         y = y + u_f * D.float()[None, :, None]
     out = y.to(out_dtype) if z is None else silu_gate(y, z, out_dtype)
-    if return_last_state:
-        return out, x.reshape(bsz, dim, n)
-    return out
+    extra = ((x.reshape(bsz, dim, n),) if return_last_state else ()) + (
+        (torch.stack(states, dim=1),) if state_chunk else ())
+    return (out, *extra) if extra else out
 
 
 def selective_scan(
@@ -112,8 +119,10 @@ def selective_scan(
 
     CPU tensors run :func:`selective_scan_ref`. CUDA tensors go time-major
     through ``selective_scan_grouped``, which launches the CUDA kernel
-    ``csrc/selective_scan_fwd.cu`` or raises; ``z`` gates its output here,
-    in fp32, as the JAX package's Pallas wrapper does."""
+    ``csrc/selective_scan_fwd.cu`` or raises, and under grad its
+    state-saving variant and the backward kernel
+    ``csrc/selective_scan_bwd.cu``; ``z`` gates its output here, in fp32, as
+    the JAX package's Pallas wrapper does."""
     if u.device.type == "cpu":
         return selective_scan_ref(u, delta, A, B, C, D, z, delta_bias,
                                   delta_softplus, return_last_state)

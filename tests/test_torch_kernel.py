@@ -12,7 +12,8 @@ for per-element outputs and 1e-3 for dA/dD/ddelta_bias, which sum over
 batch and time; a bf16 gradient may also differ by one bf16 rounding step,
 since both versions round an fp32 sum to bf16 (``utils/compare.py``, the
 rule ``chip_smoke.py`` applies too). The unidirectional grouped forward
-(y and the final state) is held to the same rule at 1e-4.
+(y and the final state) is held to the same rule at 1e-4, and its training
+pair (state-saving forward, backward) as the bidirectional one.
 """
 
 import pytest
@@ -276,3 +277,104 @@ def test_selective_scan_dispatcher_on_card_matches_cpu(cuda):
     assert selective_scan_grouped.launches == before + 1
     assert_close_to_max(y.cpu(), want_y, 1e-4, "y")
     assert_close_to_max(last.cpu(), want_last, 1e-4, "last state")
+
+
+# (G, L, dg) of the grouped training kernels' checks at batch 2: the four
+# SS2D stage shapes of the tm branch (G = 4), the mamba-130m width over a
+# long L, and a ragged L and dg with a partial last 16-step chunk
+TM_SHAPES = [(4, L, dg) for L, dg in STAGES] + [(1, 1000, 1536), (1, 7, 130)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G,L,dg", TM_SHAPES)
+def test_grouped_training_kernels_match_plain_versions(cuda, dtype, G, L, dg):
+    """The grouped state-saving forward (y and cs) and backward (all seven
+    gradients) against their plain versions, batch 2, the rule of the
+    bidirectional training kernels."""
+    from mamba_unet_torch.ops import selective_scan_grouped as sg
+
+    args = [a.to(cuda) for a in _grouped_args(2, G, L, dg, dtype,
+                                              seed=L + dg)]
+    before = (sg.selective_scan_grouped_fwd_states.launches,
+              sg.selective_scan_grouped_bwd.launches)
+    y, cs = sg.selective_scan_grouped_fwd_states(*args)
+    y_ref, cs_ref = sg.selective_scan_grouped_states_ref(*args)
+    assert_close_to_max(y, y_ref, 1e-4, "y")
+    assert_close_to_max(cs, cs_ref, 1e-4, "cs")
+    gy = torch.randn(y.shape, generator=torch.Generator().manual_seed(3)
+                     ).to(cuda, y.dtype)
+    got = sg.selective_scan_grouped_bwd(*args, cs, gy)
+    torch.cuda.synchronize()
+    assert (sg.selective_scan_grouped_fwd_states.launches,
+            sg.selective_scan_grouped_bwd.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    want = sg.selective_scan_grouped_bwd_ref(*args, gy)
+    for name, g, w in zip(sg.ARG_NAMES, got, want):
+        assert_close_to_max(g, w, 1e-3 if name in SUMMED else 1e-4,
+                            f"d{name}")
+
+
+@pytest.mark.cuda
+def test_mamba_gradients_on_card_match_cpu(cuda):
+    """``loss.backward()`` through a small bimamba-v2 ``Mamba``: every
+    parameter gets a gradient on the card (the scan side too: conv1d*,
+    x_proj*, dt_proj*, A*_log, D*), equal to the CPU copy's; the scan runs
+    the grouped training kernels, never the serving one. Each gradient is
+    held at 1e-3 of its max: sums over batch and time through stock layers
+    and the scan in another order."""
+    from mamba_unet_torch.nn.mamba1d import Mamba
+    from mamba_unet_torch.ops import selective_scan_grouped as sg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = Mamba(32, bimamba_type="v2",
+                generator=torch.Generator().manual_seed(0))
+    card = Mamba(32, bimamba_type="v2", device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 37, 32, generator=torch.Generator().manual_seed(1))
+    before = (sg.selective_scan_grouped.launches,
+              sg.selective_scan_grouped_fwd_states.launches,
+              sg.selective_scan_grouped_bwd.launches)
+    for m, dev in ((cpu, "cpu"), (card, cuda)):
+        out = m(x.to(dev))
+        (out * out.detach().sin()).sum().backward()
+    torch.cuda.synchronize()
+    assert (sg.selective_scan_grouped.launches,
+            sg.selective_scan_grouped_fwd_states.launches,
+            sg.selective_scan_grouped_bwd.launches) == (
+        before[0], before[1] + 2, before[2] + 2)
+    for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
+        assert p.grad is not None, f"{name} got no gradient on the card"
+        assert_close_to_max(p.grad.cpu(), q.grad, 1e-3, name)
+
+
+@pytest.mark.cuda
+def test_selective_scan_dispatcher_gradients_on_card_match_cpu(cuda):
+    """``backward()`` through the public (B, D, L) ``selective_scan`` on the
+    card (the grouped training kernels) against the plain loop's autograd
+    on the CPU: all eight gradients."""
+    from mamba_unet_torch.ops.selective_scan import selective_scan
+    from mamba_unet_torch.ops import selective_scan_grouped as sg
+
+    g = torch.Generator().manual_seed(8)
+    bsz, G, dg, L, n = 2, 2, 40, 33, 16
+    args = [torch.randn(bsz, G * dg, L, generator=g),
+            0.5 * torch.randn(bsz, G * dg, L, generator=g),
+            -torch.exp(0.5 * torch.randn(G * dg, n, generator=g)),
+            torch.randn(bsz, G, n, L, generator=g),
+            torch.randn(bsz, G, n, L, generator=g),
+            torch.randn(G * dg, generator=g),
+            torch.randn(bsz, G * dg, L, generator=g),
+            torch.empty(G * dg).uniform_(-6, -2, generator=g)]
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [a.to(dev).clone().requires_grad_() for a in args]
+        before = sg.selective_scan_grouped_bwd.launches
+        out = selective_scan(*leaves, delta_softplus=True)
+        (out * out.detach().sin()).sum().backward()
+        launched = sg.selective_scan_grouped_bwd.launches - before
+        assert launched == (0 if dev == "cpu" else 1)
+        grads[str(dev)] = [leaf.grad.cpu() for leaf in leaves]
+    for i, (got, want) in enumerate(zip(grads[str(cuda)], grads["cpu"])):
+        assert_close_to_max(got, want, 1e-3, f"gradient {i}")
