@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths on one CUDA card:
-Mamba-UNet serving and training, Mamba-LM serving, then Mamba-UNet training
-on SS2D's time-major branch and the 1-D Mamba stack's gradients.
+Mamba-UNet serving and training, Mamba-LM serving, Mamba-UNet training on
+SS2D's time-major branch and the 1-D Mamba stack's gradients, then
+Mamba-UNet training and serving on SS2D's batch-folded branch.
 
     python3 chip_smoke.py
 
@@ -71,6 +72,22 @@ exits non-zero; nothing is caught):
 15. lm_grad - full-width mamba-130m, batch 2 x 128 tokens, fp32 with TF32
               off: next-token cross-entropy and every parameter's gradient
               card vs CPU, 24 + 24 grouped launches.
+16. folded_kernel - the batch-folded kernels (serving forward: y;
+              state-saving forward: y and cs; backward: all seven
+              gradients) against their plain versions, fp32 and bf16, at
+              the four SS2D stage shapes at batch 2 and at a ragged shape
+              (batch 3, L=7, dg=130) both bidirectional and
+              unidirectional; then timed at bs24 per stage shape, the timed
+              calls' outputs compared again.
+17. folded_grad_parity - phase 7 through ``MambaUnet(scan_impl="folded")``:
+              loss and every gradient card vs CPU, 14 + 14 folded launches
+              and none of the other kernels; then the same weights' logits
+              on the card through the folded and the bidir branch.
+18. folded_training - phase 8 with ``scan_impl="folded"``: per step 14
+              folded state-saving forward and 14 backward launches and none
+              of the other kernels, 14 folded serving launches per eval
+              forward; a falling loss; step ms, slices/s, peak memory and a
+              profile (``build/train_folded_profile.txt``).
 
 Then one JSON line with the kernel table, and the last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -130,6 +147,9 @@ LM_REQUESTS, LM_SCORE_BATCH = 64, 8
 TM_KERNEL_SHAPES = tuple((4, L, dg) for L, dg, _ in STAGES) + (
     (1, 1000, 1536), (1, 7, 130))
 LM_TRAIN_SHAPE = (8, 1024)  # (batch, L) of the timed mamba-130m-shape call
+# (batch, L, dg) of the folded kernels' ragged check: 390 lanes, L not a
+# multiple of the 16-step chunk, the last channel tile of each batch 2 wide
+FOLDED_RAGGED = (3, 7, 130)
 LM_GRAD_BATCH, LM_GRAD_LEN = 2, 128  # phase 15's tokens
 LM_PROMPTS, LM_PROMPT_LEN, LM_NEW_TOKENS = 4, 128, 64
 # full mamba-130m, card vs CPU, fp32 with TF32 off: 24 scans plus fp32
@@ -221,11 +241,14 @@ def check_kernel(torch, got, want, **where) -> float:
 def scan_bound(kind: str, bsz: int, L: int, dg: int, itemsize: int,
                n: int = 16, groups: int = 1, last_state: bool = False):
     """(least ms, "bytes" or "operations") of one scan call of ``kind``
-    (fwd, fwd_states, bwd: the bidirectional kernels; grouped,
-    grouped_fwd_states, grouped_bwd: the unidirectional ones over ``groups``
-    groups of ``dg`` channels, whose y, gy, du, ddelta, dB and dC are in the
-    input dtype; ``last_state`` adds the serving forward's fp32 final
-    state): each input read once, each output written once;
+    (fwd, fwd_states, bwd: the bidirectional kernels; folded,
+    folded_fwd_states, folded_bwd: the batch-folded ones, whose operands
+    are the bidirectional ones' but whose y and gy are four directions in
+    the input dtype; grouped, grouped_fwd_states, grouped_bwd: the
+    unidirectional ones over ``groups`` groups of ``dg`` channels, whose y,
+    gy, du, ddelta, dB and dC are in the input dtype; ``last_state`` adds
+    the serving forward's fp32 final state): each input read once, each
+    output written once;
     per (direction, step, channel, state) the forward needs 1 exp and ~6
     FLOPs, the backward 1 exp (a_t = exp(dt A), which the recompute of the
     states and the reverse scan can share) and ~20 FLOPs; softplus/sigmoid
@@ -250,12 +273,15 @@ def scan_bound(kind: str, bsz: int, L: int, dg: int, itemsize: int,
                  + 2 * bsz * 4 * L * n) * itemsize
         params = 4 * dg * (n + 2) * 4
         cs = bsz * 4 * (-(-L // 16)) * n * dg * 4
-        y = bsz * 2 * L * dg * 4
-        if kind == "bwd":
+        # y (and gy): pair-summed fp32 streams, or four folded directions
+        y = (trip * itemsize if kind.startswith("folded")
+             else bsz * 2 * L * dg * 4)
+        if kind.endswith("bwd"):
             nbytes = 2 * io_in + 2 * params + cs + y  # + gy in, grads out
             exps, flops = trip * (n + 5), trip * n * 20
         else:
-            nbytes = io_in + params + y + (cs if kind == "fwd_states" else 0)
+            nbytes = (io_in + params + y
+                      + (cs if kind.endswith("fwd_states") else 0))
             exps, flops = trip * (n + 2), trip * n * 6
     mem_s = nbytes / HBM_BYTES_PER_S
     ops_s = max(exps / SFU_PER_S, flops / FP32_FLOP_PER_S)
@@ -274,15 +300,24 @@ def timed_once(torch, fn):
     return start.elapsed_time(end), out
 
 
-def training_kernels(grouped: bool):
+def training_kernels(kind: str):
     """(state-saving forward, its plain version, backward, its plain
-    version, operand names) of the bidirectional or the grouped scan."""
-    if grouped:
+    version, operand names) of the ``kind`` scan: bidir, grouped, folded
+    (bidirectional) or folded_uni (unidirectional)."""
+    if kind == "grouped":
         from mamba_unet_torch.ops import selective_scan_grouped as m
         return (m.selective_scan_grouped_fwd_states,
                 m.selective_scan_grouped_states_ref,
                 m.selective_scan_grouped_bwd,
                 m.selective_scan_grouped_bwd_ref, m.ARG_NAMES)
+    if kind.startswith("folded"):
+        from functools import partial
+
+        from mamba_unet_torch.ops import selective_scan_folded as m
+        return tuple(partial(f, bidir=kind == "folded") for f in (
+            m.selective_scan_folded_fwd_states,
+            m.selective_scan_folded_states_ref, m.selective_scan_folded_bwd,
+            m.selective_scan_folded_bwd_ref)) + (m.ARG_NAMES,)
     from mamba_unet_torch.ops import selective_scan_bidir as m
     return (m.selective_scan_bidir_fwd_states,
             m.selective_scan_bidir_states_ref, m.selective_scan_bidir_bwd,
@@ -290,16 +325,17 @@ def training_kernels(grouped: bool):
 
 
 def check_training_kernels(torch, args, gy, phase="kernel_bwd",
-                           grouped=False, **where):
-    """State-saving forward and backward (bidirectional, or grouped with
-    ``grouped``) against their plain versions on the same inputs; returns
+                           kind="bidir", **where):
+    """State-saving forward and backward of the ``kind`` scan (see
+    :func:`training_kernels`) against their plain versions on the same
+    inputs; returns
     ({"fwd_states": max abs error of y and cs, "bwd": of the gradients}, ms
     of the plain forward, ms of the plain backward), each plain version
     timed once."""
     from mamba_unet_torch.utils.compare import assert_close_to_max
 
     fwd_states, states_ref, bwd, bwd_ref, arg_names = training_kernels(
-        grouped)
+        kind)
     at = " ".join(f"{k}={v}" for k, v in where.items())
     y, cs = fwd_states(*args)
     plain_fwd, (y_ref, cs_ref) = timed_once(
@@ -394,22 +430,31 @@ def kernel_bwd_phase(torch, dev):
 
 def scan_kernels(scan_impl: str):
     """((serving, state-saving forward, backward) wrappers that SS2D's
-    ``scan_impl`` branch launches, the same three of the other branch)."""
+    ``scan_impl`` branch launches, the same three of each other branch
+    after one another)."""
     from mamba_unet_torch.ops import selective_scan_bidir as ssb
+    from mamba_unet_torch.ops import selective_scan_folded as ssf
     from mamba_unet_torch.ops import selective_scan_grouped as ssg
 
-    bidir = (ssb.selective_scan_bidir, ssb.selective_scan_bidir_fwd_states,
-             ssb.selective_scan_bidir_bwd)
-    grouped = (ssg.selective_scan_grouped,
+    branches = {
+        "auto": (ssb.selective_scan_bidir,
+                 ssb.selective_scan_bidir_fwd_states,
+                 ssb.selective_scan_bidir_bwd),
+        "tm": (ssg.selective_scan_grouped,
                ssg.selective_scan_grouped_fwd_states,
-               ssg.selective_scan_grouped_bwd)
-    return (grouped, bidir) if scan_impl == "tm" else (bidir, grouped)
+               ssg.selective_scan_grouped_bwd),
+        "folded": (ssf.selective_scan_folded_fwd,
+                   ssf.selective_scan_folded_fwd_states,
+                   ssf.selective_scan_folded_bwd),
+    }
+    kernels = branches.pop(scan_impl)
+    return kernels, sum(branches.values(), ())
 
 
 def grad_parity_phase(torch, dev, scan_impl="auto"):
-    """Phases 7 and 13: one full-width backward on the card against a CPU
-    copy, through SS2D's ``scan_impl`` branch (14 state-saving forward and
-    14 backward launches of its kernels, none of the other branch's);
+    """Phases 7, 13 and 17: one full-width backward on the card against a
+    CPU copy, through SS2D's ``scan_impl`` branch (14 state-saving forward
+    and 14 backward launches of its kernels, none of the other branches');
     returns the card model."""
     from mamba_unet_torch.models.vssm import MambaUnet
     from mamba_unet_torch.objectives import supervised_ce_dice
@@ -438,10 +483,11 @@ def grad_parity_phase(torch, dev, scan_impl="auto"):
         if tag == "gpu":
             launched = [k.launches - b
                         for k, b in zip(kernels + others, before)]
-            if launched != [0, SS2D_PER_FORWARD, SS2D_PER_FORWARD, 0, 0, 0]:
+            if launched != [0, SS2D_PER_FORWARD, SS2D_PER_FORWARD] + [
+                    0] * len(others):
                 raise AssertionError(f"one backward launched {launched} "
                                      f"(serve, fwd_states, bwd of the "
-                                     f"{scan_impl} branch, then the other)")
+                                     f"{scan_impl} branch, then the others)")
     worst, worst_key = 0.0, None
     for k, want in grads["cpu"].items():
         scale = want.abs().max().item()
@@ -461,35 +507,37 @@ def grad_parity_phase(torch, dev, scan_impl="auto"):
     return model
 
 
-def tm_logits_phase(torch, dev, model):
-    """Phase 13, second half: the same weights give the same logits on the
-    card through SS2D's tm branch (grouped serving kernel) and its bidir
-    branch (bidirectional serving kernel)."""
+def branch_logits_phase(torch, dev, model, scan_impl):
+    """Phases 13 and 17, second half: the same weights give the same logits
+    on the card through SS2D's ``scan_impl`` branch (its serving kernel)
+    and its bidir branch (the bidirectional serving kernel)."""
     from mamba_unet_torch.models.vssm import MambaUnet
 
-    (grouped, _, _), (bidir, _, _) = scan_kernels("tm")
+    (serve, _, _), _ = scan_kernels(scan_impl)
+    (bidir, _, _), _ = scan_kernels("auto")
     other = MambaUnet(num_classes=4, drop_path_rate=0.0, device=dev)
     other.load_state_dict(model.state_dict())
     x = torch.randn(2, PATCH, PATCH, 1,
                     generator=torch.Generator().manual_seed(3)).to(dev)
-    before = (grouped.launches, bidir.launches)
+    before = (serve.launches, bidir.launches)
     with torch.inference_mode():
-        tm = model.eval()(x).cpu()
+        got = model.eval()(x).cpu()
         bi = other.eval()(x).cpu()
-    launched = (grouped.launches - before[0], bidir.launches - before[1])
-    err = (tm - bi).abs().max().item()
-    log("tm_grad_parity", compare="tm_vs_bidir_logits",
+    launched = (serve.launches - before[0], bidir.launches - before[1])
+    err = (got - bi).abs().max().item()
+    log(f"{scan_impl}_grad_parity", compare=f"{scan_impl}_vs_bidir_logits",
         max_abs_err=f"{err:.3e}", logit_max=f"{bi.abs().max():.3f}",
-        tol=LOGIT_TOL, launches_grouped_bidir=launched)
+        tol=LOGIT_TOL, **{f"launches_{scan_impl}_bidir": launched})
     if launched != (SS2D_PER_FORWARD, SS2D_PER_FORWARD):
         raise AssertionError(f"serving launches {launched}")
-    if not torch.isfinite(tm).all() or err > LOGIT_TOL:
-        raise AssertionError(f"tm logits differ from bidir logits: {err}")
+    if not torch.isfinite(got).all() or err > LOGIT_TOL:
+        raise AssertionError(f"{scan_impl} logits differ from bidir logits: "
+                             f"{err}")
 
 
 def training_phase(torch, dev, scan_impl="auto"):
-    """Phases 8 and 14; returns the launch counts (serve, fwd_states, bwd)
-    of the ``scan_impl`` branch's kernels in the training run."""
+    """Phases 8, 14 and 18; returns the launch counts (serve, fwd_states,
+    bwd) of the ``scan_impl`` branch's kernels in the training run."""
     from mamba_unet_torch.data.acdc import SliceDataset
     from mamba_unet_torch.data.augment import RandomGenerator
     from mamba_unet_torch.data.loader import Loader
@@ -550,11 +598,11 @@ def training_phase(torch, dev, scan_impl="auto"):
         d = [b - a for a, b in zip(c0, c1)]
         evaled = i == TRAIN_EVAL_AT
         want = [SS2D_PER_FORWARD * eval_fwd if evaled else 0,
-                SS2D_PER_FORWARD, SS2D_PER_FORWARD, 0, 0, 0]
+                SS2D_PER_FORWARD, SS2D_PER_FORWARD] + [0] * len(others)
         if d != want:
             raise AssertionError(f"step {i}: launches (serve, fwd_states, "
                                  f"bwd of the {scan_impl} branch, then the "
-                                 f"other) {d}, expected {want}")
+                                 f"others) {d}, expected {want}")
         if i > TRAIN_WARMUP and not evaled:
             step_ms.append(1e3 * (t1 - t0))
     step_ms.sort()
@@ -868,12 +916,12 @@ def tm_kernel_phase(torch, dev):
     train step, bound ms per train step, bound_by)} of the grouped
     state-saving forward and backward, fp32 inputs at bs24, summed over the
     14 SS2D calls of the tm branch."""
-    fwd_states, _, bwd, _, _ = training_kernels(grouped=True)
+    fwd_states, _, bwd, _, _ = training_kernels("grouped")
     max_err = {"fwd_states": 0.0, "bwd": 0.0}
 
     def check(args, gy, **where):
         errs, plain_fwd, plain_bwd = check_training_kernels(
-            torch, args, gy, "tm_kernel", True, **where)
+            torch, args, gy, "tm_kernel", "grouped", **where)
         for kind, err in errs.items():
             max_err[kind] = max(max_err[kind], err)
         return plain_fwd, plain_bwd
@@ -948,6 +996,116 @@ def tm_kernel_phase(torch, dev):
             for kind in tot}
 
 
+def folded_args(torch, bsz, L, dg, dtype, dev, seed, bidir=True):
+    """Operands of the folded scan at the magnitudes of
+    :func:`grouped_args` (A drawn per channel and state, D per channel),
+    folded: u and delta (·, L, batch * dg), B and C (G, L, N, batch); G = 4
+    directions over 2 streams (bidirectional) or 2 over their own."""
+    G = 4 if bidir else 2
+    args = grouped_args(torch, bsz, L, G, dg, dtype, dev, seed)
+    if bidir:
+        args[0] = args[0][:, :2]
+    for i in (0, 1):
+        args[i] = args[i].permute(1, 2, 0, 3).reshape(-1, L, bsz * dg)
+    for i in (3, 4):
+        args[i] = args[i].permute(1, 2, 3, 0)
+    return [a.contiguous() for a in args]
+
+
+def folded_kernel_phase(torch, dev):
+    """Phase 16; returns {kernel: (max_err, ms, plain ms, bound ms,
+    bound_by)} of the folded serving forward (per served forward), and of
+    the state-saving forward and the backward (per train step), fp32 inputs
+    at bs24, summed over the 14 SS2D calls."""
+    from mamba_unet_torch.ops import selective_scan_folded as sf
+    from mamba_unet_torch.utils.compare import assert_close_to_max
+
+    max_err = {"serve": 0.0, "fwd_states": 0.0, "bwd": 0.0}
+
+    def check(args, gy, bidir=True, y=None, **where):
+        """The serving forward's ``y`` (launched here when not given) and
+        the training pair against their plain versions; returns the plain
+        versions' ms (serve, fwd_states, bwd)."""
+        at = " ".join(f"{k}={v}" for k, v in where.items())
+        if y is None:
+            y = sf.selective_scan_folded_fwd(*args, bidir=bidir)
+        plain, want = timed_once(
+            torch, lambda: sf.selective_scan_folded_ref(*args, bidir=bidir))
+        err = assert_close_to_max(y, want, KERNEL_TOL, f"serving y at {at}")
+        max_err["serve"] = max(max_err["serve"], err)
+        log("folded_kernel", **where, serve_y=f"{err:.2e}", ok=True)
+        del y, want
+        errs, plain_fwd, plain_bwd = check_training_kernels(
+            torch, args, gy, "folded_kernel",
+            "folded" if bidir else "folded_uni", **where)
+        for kind, e in errs.items():
+            max_err[kind] = max(max_err[kind], e)
+        return plain, plain_fwd, plain_bwd
+
+    def cotangent(args, seed):
+        return torch.randn(args[1].shape, generator=torch.Generator()
+                           .manual_seed(seed)).to(dev, args[0].dtype)
+
+    shapes = [(2, L, dg, True) for L, dg, _ in STAGES] + [
+        (*FOLDED_RAGGED, True), (*FOLDED_RAGGED, False)]
+    for bsz, L, dg, bidir in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = folded_args(torch, bsz, L, dg, dtype, dev, L + dg, bidir)
+            check(args, cotangent(args, L), bidir, batch=bsz, L=L, dg=dg,
+                  route="bidir" if bidir else "uni",
+                  dtype=str(dtype).split(".")[-1])
+
+    def timed(L, dg, dtype):
+        """(serve, fwd_states, bwd ms, then their plain versions' ms) at
+        bs24; the timed calls' outputs are held against the plain versions
+        (the kernels are deterministic: no atomics)."""
+        args = folded_args(torch, TRAIN_BATCH, L, dg, dtype, dev, 0)
+        gy = cotangent(args, 1)
+        serve_ms, y = device_ms(
+            torch, lambda: sf.selective_scan_folded_fwd(*args), 20)
+        fwd_ms, (_, cs) = device_ms(
+            torch, lambda: sf.selective_scan_folded_fwd_states(*args), 20)
+        bwd_ms, _ = device_ms(
+            torch, lambda: sf.selective_scan_folded_bwd(*args, cs, gy), 20)
+        del cs
+        plain = check(args, gy, y=y, batch=TRAIN_BATCH, L=L, dg=dg,
+                      route="bidir", dtype=str(dtype).split(".")[-1])
+        del args, gy, y
+        torch.cuda.empty_cache()
+        return (serve_ms, fwd_ms, bwd_ms, *plain)
+
+    kinds = ("serve", "fwd_states", "bwd")
+    tot = {k: [0.0, 0.0, 0.0] for k in kinds}
+    bound_by = {}
+    for L, dg, calls in STAGES:
+        fp32 = timed(L, dg, torch.float32)
+        ms, plain = dict(zip(kinds, fp32)), dict(zip(kinds, fp32[3:]))
+        bf = timed(L, dg, torch.bfloat16)
+        stage = {}
+        for kind in kinds:
+            bkind = "folded" if kind == "serve" else f"folded_{kind}"
+            bound, bound_by[kind] = scan_bound(bkind, TRAIN_BATCH, L, dg, 4)
+            stage[kind] = (bound, scan_bound(bkind, TRAIN_BATCH, L, dg, 2)[0])
+            tot[kind][0] += calls * ms[kind]
+            tot[kind][1] += calls * plain[kind]
+            tot[kind][2] += calls * bound
+        log("folded_kernel_time", L=L, dg=dg, batch=TRAIN_BATCH,
+            **{f"{k}_ms": f"{ms[k]:.4f}" for k in kinds},
+            **{f"plain_{k}_ms": f"{plain[k]:.2f}" for k in kinds},
+            **{f"bf16_{k}_ms": f"{v:.4f}" for k, v in zip(kinds, bf)},
+            **{f"bound_{k}_ms": f"{v[0]:.4f}" for k, v in stage.items()},
+            **{f"bf16_bound_{k}_ms": f"{v[1]:.4f}"
+               for k, v in stage.items()})
+    for kind, (ms, plain, bound) in tot.items():
+        log("folded_kernel_time", kernel=kind,
+            **{"per_forward_ms" if kind == "serve" else "per_step_ms":
+               f"{ms:.4f}"},
+            plain_ms=f"{plain:.2f}", bound_ms=f"{bound:.4f}",
+            calls=SS2D_PER_FORWARD)
+    return {kind: (max_err[kind], *tot[kind], bound_by[kind])
+            for kind in tot}
+
+
 def lm_grad_phase(torch, dev):
     """Phase 15: full-width mamba-130m, next-token cross-entropy and every
     parameter's gradient on the card against a CPU copy, fp32 with TF32
@@ -990,10 +1148,11 @@ def lm_grad_phase(torch, dev):
         worst_grad_rel_err=f"{worst:.2e}", worst_param=worst_key,
         tol=MODEL_GRAD_TOL, gpu_s=f"{secs['gpu']:.2f}",
         cpu_s=f"{secs['cpu']:.2f}")
-    if launched["gpu"] != [0, LM_DEPTH, LM_DEPTH, 0, 0, 0] or any(
+    if launched["gpu"] != [0, LM_DEPTH, LM_DEPTH] + [0] * len(others) or any(
             launched["cpu"]):
         raise AssertionError(f"launches (grouped serve, fwd_states, bwd, "
-                             f"then the bidirectional three): {launched}")
+                             f"then the bidirectional and folded three): "
+                             f"{launched}")
     if not (worst <= MODEL_GRAD_TOL and loss_err <= LOSS_TOL):
         raise AssertionError(f"card gradients disagree with the CPU: worst "
                              f"{worst} at {worst_key}, loss rel err "
@@ -1181,7 +1340,7 @@ def main() -> int:
     tm_kernels = tm_kernel_phase(torch, dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    tm_logits_phase(torch, dev, grad_parity_phase(torch, dev, "tm"))
+    branch_logits_phase(torch, dev, grad_parity_phase(torch, dev, "tm"), "tm")
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32_defaults
     torch.cuda.empty_cache()
@@ -1191,6 +1350,19 @@ def main() -> int:
     lm_grad_phase(torch, dev)
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32_defaults
+    torch.cuda.empty_cache()
+
+    # --- 16-18. Mamba-UNet training and serving on SS2D's batch-folded
+    # branch
+    folded_kernels = folded_kernel_phase(torch, dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    branch_logits_phase(torch, dev, grad_parity_phase(torch, dev, "folded"),
+                        "folded")
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32_defaults
+    torch.cuda.empty_cache()
+    folded_launches = training_phase(torch, dev, "folded")
 
     serve_bound = sum(calls * scan_bound("fwd", SERVE_BATCH, L, dg, 4)[0]
                       for L, dg, calls in STAGES)
@@ -1226,6 +1398,22 @@ def main() -> int:
             ("selective_scan_bwd", "bwd", tm_bwd, "selective_scan_bwd.cu",
              f"{pallas}:318 (unidirectional: _scan_core_bwd :701)")):
         err, ms, plain, bound, by = tm_kernels[kind]
+        rows.append(dict(name=kernel, launches=n, max_abs_err=err, ms=ms,
+                         plain_ms=plain, bound_ms=bound, bound_by=by,
+                         source=f"mamba_unet_torch/csrc/{src}",
+                         replaces=where))
+    folded = "mamba_unet_tpu/ops/selective_scan_folded.py"
+    for kernel, kind, n, src, where in (
+            ("selective_scan_folded_fwd", "serve", folded_launches[0],
+             "selective_scan_folded_fwd.cu",
+             f"{folded}:162 (_scan_fwd_folded :431, save_cs=False)"),
+            ("selective_scan_folded_fwd_states", "fwd_states",
+             folded_launches[1], "selective_scan_folded_fwd.cu",
+             f"{folded}:162 (_scan_fwd_folded :431, save_cs=True)"),
+            ("selective_scan_folded_bwd", "bwd", folded_launches[2],
+             "selective_scan_folded_bwd.cu",
+             f"{folded}:241 (_scan_bwd_folded :495)")):
+        err, ms, plain, bound, by = folded_kernels[kind]
         rows.append(dict(name=kernel, launches=n, max_abs_err=err, ms=ms,
                          plain_ms=plain, bound_ms=bound, bound_by=by,
                          source=f"mamba_unet_torch/csrc/{src}",

@@ -7,13 +7,16 @@ rather than run on the CPU). Other methods raise "not ported yet".
 ``--synthetic`` trains on in-memory phantom slices
 (``data.synthetic.phantom_acdc``) instead of writing an h5 set.
 ``--scan_impl`` picks SS2D's scan branch: ``auto``/``bidir`` (the
-bidirectional kernels) or ``tm``/``pallas`` (the time-major grouped ones);
-``xla`` and ``folded`` are not ported yet.
+bidirectional kernels), ``tm``/``pallas`` (the time-major grouped ones) or
+``folded`` (the batch-folded ones, at every batch); ``xla`` is not ported
+yet.
 
     python -m mamba_unet_torch.cli.train --root_path ../data/ACDC \\
         --patch_size 224 224 --batch_size 24 --bf16 --snapshot_dir snap
     python -m mamba_unet_torch.cli.train --model ViM_seg --scan_impl tm \\
         --bf16 --patch_size 224 224 --batch_size 24
+    python -m mamba_unet_torch.cli.train --scan_impl folded --bf16 \\
+        --patch_size 224 224 --batch_size 24
     python -m mamba_unet_torch.cli.train --synthetic --device cpu \\
         --patch_size 32 32 --batch_size 4 --max_iterations 4 --eval_every 2
 """
@@ -62,7 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scan_impl", type=str, default="auto",
                    choices=["auto", "bidir", "tm", "pallas", "xla", "folded"],
                    help="SS2D scan path (default auto = the bidirectional "
-                        "kernels; tm/pallas = the time-major grouped ones)")
+                        "kernels; tm/pallas = the time-major grouped ones; "
+                        "folded = the batch-folded ones; xla is not ported "
+                        "yet)")
     p.add_argument("--drop_path", type=float, default=None,
                    help="stochastic depth rate (model default 0.2)")
     p.add_argument("--synthetic", action="store_true",

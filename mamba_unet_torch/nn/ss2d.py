@@ -1,6 +1,6 @@
 """SS2D — the 2-D selective-scan (visual Mamba) token mixer, channels-last.
 
-Port of the bidirectional and time-major branches of
+Port of the bidirectional, time-major and batch-folded branches of
 ``mamba_unet_tpu/nn/ss2d.py``::
 
   in_proj D -> 2*d_inner, split (x, z)
@@ -13,15 +13,28 @@ Port of the bidirectional and time-major branches of
     cross-scan: [row, col, row-rev, col-rev] copies (B, 4, L, d_inner)
     per-direction x_proj (direction k) -> dt, B, C
     dt_projs -> grouped scan, G = 4 (y in the compute dtype) -> cross-merge
+  folded (scan_impl "folded"):
+    row / column streams time-major, batch folded into the lanes
+    (2, L, B * d_inner)
+    dt from one collapsed (d_inner, d_inner) matrix per direction
+    (dt_projs @ x_proj's dt rows, in fp32), B and C from their own
+    einsums (4, L, N, B)
+    4-direction folded scan (one slab per direction, compute dtype) ->
+    widened to fp32, pairs and row + col merged
   LayerNorm -> * silu(z) -> out_proj
 
-Direction k of the tm branch is direction 2*j + m of the bidir branch, so
-both compute the same function of the same weights. The bidir scan is
-``selective_scan_bidir``, the tm scan ``selective_scan_grouped``: CUDA
+Direction k of the tm and folded branches is direction 2*j + m of the
+bidir branch, so all three compute the same function of the same weights
+(the folded branch rounds dt differently: its collapsed matrix is one
+product, not two). The scans are ``selective_scan_bidir``,
+``selective_scan_grouped`` and ``selective_scan_folded_bidir``: CUDA
 kernels on CUDA tensors, their plain versions on CPU tensors. The JAX
-package's other scan routes (``xla``, ``folded``, the sharded ones) are not
-ported yet. Parameter names follow the upstream torch
-checkpoints (``in_proj``, ``conv2d``, ``x_proj_weight``, ``dt_projs_weight``,
+package folds only when B * d_inner is a multiple of 128 (TPU lane
+padding) and otherwise warns and takes its XLA route, which computes the
+same function; the port runs the folded kernels at every batch. The JAX
+package's other scan routes (``xla``, ``hwbc_folded``, the sharded ones)
+are not ported. Parameter names follow the upstream torch checkpoints
+(``in_proj``, ``conv2d``, ``x_proj_weight``, ``dt_projs_weight``,
 ``dt_projs_bias``, ``A_logs``, ``Ds``, ``out_norm``, ``out_proj``).
 """
 
@@ -42,6 +55,9 @@ from mamba_unet_torch.ops.cross_scan import (
     row_col_streams,
 )
 from mamba_unet_torch.ops.selective_scan_bidir import selective_scan_bidir
+from mamba_unet_torch.ops.selective_scan_folded import (
+    selective_scan_folded_bidir,
+)
 from mamba_unet_torch.ops.selective_scan_grouped import selective_scan_grouped
 
 K = 4  # scan directions: [row, col, row-reversed, col-reversed]
@@ -52,26 +68,31 @@ K = 4  # scan directions: [row, col, row-reversed, col-reversed]
 EXPAND, D_CONV = 2, 3
 DT_MIN, DT_MAX, DT_INIT_FLOOR = 0.001, 0.1, 1e-4
 # scan_impl values of the JAX SS2D that the port runs: the bidirectional
-# branch and the time-major one; and those it does not run yet, with what
-# each waits for
+# branch, the time-major one and the batch-folded one; and those it does
+# not run, with why
 BIDIR_IMPLS, TM_IMPLS = ("auto", "bidir"), ("tm", "pallas")
-_KERNELS_5_6 = "TPU kernels #5/#6 (the batch-folded scan), last in the queue"
-_PARALLELISM = "the parallelism item (ROADMAP.md, queue 1, item 17)"
-NOT_PORTED = {"folded": _KERNELS_5_6, "hwbc_folded": _KERNELS_5_6,
+FOLDED_IMPLS = ("folded",)
+PORTED_IMPLS = BIDIR_IMPLS + TM_IMPLS + FOLDED_IMPLS
+_PARALLELISM = ("it waits for the parallelism item (ROADMAP.md, queue 1, "
+                "item 17)")
+NOT_PORTED = {"hwbc_folded": "the hwbc layout is TPU-only machinery (its "
+                             "time-major batch-minor maps make the folded "
+                             "scan's stream setup a free reshape on the TPU) "
+                             "and is not ported; use scan_impl='folded'",
               "xla": _PARALLELISM, "seq_sharded": _PARALLELISM,
               "tp_sharded": _PARALLELISM}
 
 
 def check_scan_impl(scan_impl: str) -> None:
     """Raise unless SS2D runs ``scan_impl``: ``NotImplementedError`` for a
-    route of the JAX SS2D that is not ported yet, ``ValueError`` for any
-    other value."""
-    ported = ", ".join(BIDIR_IMPLS + TM_IMPLS)
+    route of the JAX SS2D that is not ported, ``ValueError`` for any other
+    value."""
+    ported = ", ".join(PORTED_IMPLS)
     if scan_impl in NOT_PORTED:
         raise NotImplementedError(
-            f"SS2D scan_impl={scan_impl!r} is not ported yet: it waits for "
+            f"SS2D scan_impl={scan_impl!r} is not ported: "
             f"{NOT_PORTED[scan_impl]} (ported: {ported})")
-    if scan_impl not in BIDIR_IMPLS + TM_IMPLS:
+    if scan_impl not in PORTED_IMPLS:
         raise ValueError(f"unknown SS2D scan_impl {scan_impl!r}; ported: "
                          f"{ported}")
 
@@ -132,6 +153,8 @@ class SS2D(nn.Module):
         xx = F.silu(self.conv2d(xx.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
         if self.scan_impl in TM_IMPLS:
             y = self._scan_tm(xx)
+        elif self.scan_impl in FOLDED_IMPLS:
+            y = self._scan_folded(xx)
         else:
             y = self._scan_bidir(xx)
         return self.out_proj(self.out_norm(y) * F.silu(z))
@@ -174,3 +197,37 @@ class SS2D(nn.Module):
             self.dt_projs_bias.float().reshape(-1), True,
         )                                                       # (B, 4, L, d)
         return cross_merge_tm(ys.float(), H, W)
+
+    def _scan_folded(self, xx: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, d_inner) -> fp32 (B, H, W, d_inner): the two data
+        streams time-major with the batch folded into the lanes, scanned
+        both ways by the folded kernel; the JAX branch's projections as it
+        writes them."""
+        bsz, H, W, d = xx.shape
+        L, R, n = H * W, self.dt_rank, self.d_state
+        row = xx.permute(1, 2, 0, 3).reshape(L, bsz, d)
+        col = xx.permute(2, 1, 0, 3).reshape(L, bsz, d)
+        xs2 = torch.stack([row, col])                          # (2, L, B, d)
+        # direction k = 2*j + m reads stream m: W[k] regroups as (j, m, ., .)
+        Wg = self.x_proj_weight.float().reshape(2, 2, R + 2 * n, d)
+        with torch.autocast(xx.device.type, enabled=False):
+            M_dt = torch.einsum(  # one (d, d) dt matrix per direction, fp32
+                "jmdr,jmre->jmde",
+                self.dt_projs_weight.float().reshape(2, 2, d, R), Wg[:, :, :R])
+        M_dt = M_dt.to(xs2.dtype)
+        W_B = Wg[:, :, R:R + n].to(xs2.dtype)
+        W_C = Wg[:, :, R + n:].to(xs2.dtype)
+        dts = torch.einsum("mlbe,jmde->jmlbd", xs2, M_dt).reshape(
+            K, L, bsz * d)
+        Bs = torch.einsum("mlbd,jmnd->jmlnb", xs2, W_B).reshape(K, L, n, bsz)
+        Cs = torch.einsum("mlbd,jmnd->jmlnb", xs2, W_C).reshape(K, L, n, bsz)
+        ys = selective_scan_folded_bidir(
+            xs2.reshape(2, L, bsz * d), dts, -torch.exp(self.A_logs.float()),
+            Bs, Cs, self.Ds.float(), self.dt_projs_bias.float().reshape(-1),
+        )                                                      # (4, L, B*d)
+        # [row + row-rev, col + col-rev], added in fp32 as JAX widens first;
+        # a sum and an unbind, whose backwards write no zero-filled slabs
+        row, col = ys.reshape(2, 2, L, bsz, d).sum(
+            0, dtype=torch.float32).unbind()
+        return row.reshape(H, W, bsz, d).permute(2, 0, 1, 3) + col.reshape(
+            W, H, bsz, d).permute(2, 1, 0, 3)

@@ -42,6 +42,13 @@ _SIGNATURES = {
     # du, ddelta, dB_part, dC_part, dA_part, dD_part, ddb_part,
     # batch, G, L, dg, n, softplus, is_bf16, stream
     "selective_scan_bwd": [_P] * 16 + [_I] * 7 + [_P],
+    # u, delta, B, C, A, D, delta_bias, y, cs (or null),
+    # batch, G, L, dg, n, bidir, softplus, is_bf16, stream
+    "selective_scan_folded_fwd": [_P] * 9 + [_I] * 8 + [_P],
+    # u, delta, B, C, A, D, delta_bias, cs, gy,
+    # du_part, ddelta, dB_part, dC_part, dA_part, dD_part, ddb_part,
+    # batch, G, L, dg, n, bidir, softplus, is_bf16, stream
+    "selective_scan_folded_bwd": [_P] * 16 + [_I] * 8 + [_P],
 }
 
 

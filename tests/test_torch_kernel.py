@@ -13,7 +13,8 @@ batch and time; a bf16 gradient may also differ by one bf16 rounding step,
 since both versions round an fp32 sum to bf16 (``utils/compare.py``, the
 rule ``chip_smoke.py`` applies too). The unidirectional grouped forward
 (y and the final state) is held to the same rule at 1e-4, and its training
-pair (state-saving forward, backward) as the bidirectional one.
+pair (state-saving forward, backward) as the bidirectional one; so are the
+batch-folded kernels (serving forward, state-saving forward, backward).
 """
 
 import pytest
@@ -378,3 +379,112 @@ def test_selective_scan_dispatcher_gradients_on_card_match_cpu(cuda):
         grads[str(dev)] = [leaf.grad.cpu() for leaf in leaves]
     for i, (got, want) in enumerate(zip(grads[str(cuda)], grads["cpu"])):
         assert_close_to_max(got, want, 1e-3, f"gradient {i}")
+
+
+def _folded_args(bsz, L, dg, dtype, bidir, G=4, n=16, seed=0):
+    """Operands of the folded scan; A and D differ in every channel (and A
+    in every state), so that a kernel reading the wrong lane's row
+    disagrees."""
+    g = torch.Generator().manual_seed(seed)
+    BD = bsz * dg
+    args = [torch.randn(2 if bidir else G, L, BD, generator=g),
+            0.5 * torch.randn(G, L, BD, generator=g),
+            -torch.exp(0.5 * torch.randn(G * dg, n, generator=g)),
+            torch.randn(G, L, n, bsz, generator=g),
+            torch.randn(G, L, n, bsz, generator=g),
+            torch.randn(G * dg, generator=g),
+            torch.empty(G * dg).uniform_(-6, -2, generator=g)]
+    for i in (0, 1, 3, 4):
+        args[i] = args[i].to(getattr(torch, dtype))
+    return args
+
+
+# (batch, L, dg, bidir) of the folded kernels' checks: the four SS2D stage
+# shapes at batch 2, and a ragged shape (390 lanes, L not a multiple of the
+# 16-step chunk, the last channel tile of each batch 2 wide) both ways
+FOLDED_SHAPES = [(2, L, dg, True) for L, dg in STAGES] + [
+    (3, 7, 130, True), (3, 7, 130, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bsz,L,dg,bidir", FOLDED_SHAPES)
+def test_folded_kernels_match_plain_versions(cuda, dtype, bsz, L, dg, bidir):
+    """The folded serving forward (y), state-saving forward (y and cs) and
+    backward (all seven gradients) against their plain versions; the rule
+    of the other training kernels."""
+    from mamba_unet_torch.ops import selective_scan_folded as sf
+
+    args = [a.to(cuda) for a in _folded_args(bsz, L, dg, dtype, bidir,
+                                             G=4 if bidir else 2,
+                                             seed=L + dg)]
+    kernels = (sf.selective_scan_folded_fwd,
+               sf.selective_scan_folded_fwd_states,
+               sf.selective_scan_folded_bwd)
+    before = [k.launches for k in kernels]
+    y_serve = sf.selective_scan_folded_fwd(*args, bidir=bidir)
+    y, cs = sf.selective_scan_folded_fwd_states(*args, bidir=bidir)
+    y_ref, cs_ref = sf.selective_scan_folded_states_ref(*args, bidir=bidir)
+    assert_close_to_max(y_serve, y_ref, 1e-4, "serving y")
+    assert torch.equal(y_serve, y)
+    assert_close_to_max(y, y_ref, 1e-4, "y")
+    assert_close_to_max(cs, cs_ref, 1e-4, "cs")
+    gy = torch.randn(y.shape, generator=torch.Generator().manual_seed(3)
+                     ).to(cuda, y.dtype)
+    got = sf.selective_scan_folded_bwd(*args, cs, gy, bidir=bidir)
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == [b + 1 for b in before]
+    want = sf.selective_scan_folded_bwd_ref(*args, gy, bidir=bidir)
+    for name, g, w in zip(sf.ARG_NAMES, got, want):
+        assert_close_to_max(g, w, 1e-3 if name in SUMMED else 1e-4,
+                            f"d{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["noncontiguous", "mixed_devices", "d_state"])
+def test_folded_kernel_wrapper_raises_instead_of_falling_back(cuda, bad):
+    from mamba_unet_torch.ops import selective_scan_folded as sf
+
+    n = 8 if bad == "d_state" else 16
+    args = [a.to(cuda) for a in _folded_args(2, 16, 32, "float32", True,
+                                             n=n)]
+    if bad == "noncontiguous":
+        args[1] = args[1].transpose(0, 1).contiguous().transpose(0, 1)
+    elif bad == "mixed_devices":
+        args[5] = args[5].cpu()
+    before = sf.selective_scan_folded_fwd.launches
+    with pytest.raises(ValueError):
+        sf.selective_scan_folded_fwd(*args)
+    assert sf.selective_scan_folded_fwd.launches == before
+
+
+@pytest.mark.cuda
+def test_folded_mamba_unet_gradients_on_card_match_cpu(cuda):
+    """``loss.backward()`` through a toy ``MambaUnet(scan_impl="folded")``
+    at batch 3 (lanes not a multiple of 64 at any stage): every parameter's
+    gradient on the card (the folded training kernels, 3 + 3 launches, no
+    serving launch) against the CPU copy's, each at 1e-3 of its max."""
+    from mamba_unet_torch.models.vssm import MambaUnet
+    from mamba_unet_torch.ops import selective_scan_folded as sf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(num_classes=4, depths=(1, 1), dims=(16, 32),
+              drop_path_rate=0.0, scan_impl="folded")
+    cpu = MambaUnet(generator=torch.Generator().manual_seed(0), **kw)
+    card = MambaUnet(device=cuda, **kw)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(3, 32, 32, 1, generator=torch.Generator().manual_seed(1))
+    kernels = (sf.selective_scan_folded_fwd,
+               sf.selective_scan_folded_fwd_states,
+               sf.selective_scan_folded_bwd)
+    before = [k.launches for k in kernels]
+    for m, dev in ((cpu, "cpu"), (card, cuda)):
+        out = m.train()(x.to(dev))
+        (out * out.detach().sin()).sum().backward()
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == [before[0], before[1] + 3,
+                                             before[2] + 3]
+    for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
+        assert p.grad is not None, f"{name} got no gradient on the card"
+        assert_close_to_max(p.grad.cpu(), q.grad, 1e-3, name)
