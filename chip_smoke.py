@@ -10,11 +10,17 @@ Phases, each printing lines tagged with its name (any failure raises and
 exits non-zero; nothing is caught):
 
 1. device   - require CUDA; print ``nvidia-smi`` name and power limit.
-2. build    - compile the CUDA kernels from ``mamba_unet_torch/csrc``.
+2. build    - compile the CUDA kernels from ``mamba_unet_torch/csrc``;
+              then ``[kernel_occ]``: per bidirectional kernel (serving,
+              state-saving, backward) and stage shape at bs24, the grid,
+              threads per block, registers, static and dynamic shared
+              memory, local bytes (spills) and the resident warps per SM the
+              card reports.
 3. kernel   - ``selective_scan_bidir`` (CUDA) against its plain PyTorch
               version at the four stage shapes of the 224² model, batch 2,
-              fp32 and bf16 inputs; then both timed at batch 24, where the
-              timed calls' outputs are compared again.
+              and at the ragged shapes BIDIR_EDGES, fp32 and bf16 inputs;
+              then both timed at batch 24, where the timed calls' outputs
+              are compared again.
 4. parity   - full-width Mamba-UNet (vmamba-tiny, seeded weights), batch 2
               at 224²: logits on the card (kernel) against a CPU copy (plain
               scan), fp32 with TF32 off; then bf16 serving against fp32.
@@ -24,8 +30,11 @@ exits non-zero; nothing is caught):
               14 times per served forward.
 6. kernel_bwd - the training kernels (state-saving forward: y and cs;
               backward: all seven gradients) against their plain versions
-              at the four stage shapes, batch 2, fp32 and bf16 inputs; then
-              both timed at batch 24 and their outputs compared again.
+              at the four stage shapes, batch 2, and at BIDIR_EDGES, fp32
+              and bf16 inputs; then both timed at batch 24 and their outputs
+              compared again. cs is (B, 4, ceil(L/16), dg, 16) fp32: the
+              state with which each direction enters each 16-step chunk of
+              data time, in that direction's scan order.
 7. grad_parity - full-width Mamba-UNet, batch 2 at 224², fp32 with TF32
               off: loss and every parameter's gradient of one
               ``supervised_ce_dice`` backward on the card against a CPU copy;
@@ -36,7 +45,9 @@ exits non-zero; nothing is caught):
               one eval; 14 state-saving forward and 14 backward launches per
               step, 14 serving launches per eval forward; step ms, slices/s,
               peak memory, a falling loss, and a short ``torch.profiler``
-              breakdown (full table in ``build/train_profile.txt``).
+              breakdown (full table in ``build/train_profile.txt``) whose
+              device time per step is printed beside that of the
+              earlier bidir kernels (BIDIR_STEP_DEVICE_MS_BASELINE).
 9. lm_kernel - ``selective_scan_grouped`` (CUDA kernel #3) against its
               plain version, y and the final state, batch 2, fp32 and bf16,
               at (G, L, dg) = (1, 1, 1536), (1, 7, 130), (1, 1000, 1536),
@@ -109,6 +120,15 @@ STAGES = ((3136, 192, 4), (784, 384, 4), (196, 768, 4), (49, 1536, 2))
 # kernel vs plain: both read the same values (bf16 is widened exactly), so
 # only the fp32 summation order differs; 1e-4 bounds that over L=3136
 KERNEL_TOL = 1e-4
+# (batch, L, dg) where the bidirectional kernels' tiling is ragged: dg not a
+# multiple of their 16-channel tile, L not a multiple of their 16- and
+# 32-step chunks (odd and even chunk counts, so the direction-pair merge
+# meets in a middle chunk or not), L = 1, batch 1
+BIDIR_EDGES = ((1, 97, 33), (2, 7, 130), (1, 1, 40), (1, 64, 48))
+# device ms per bidir train step under the profiler with the earlier bidir
+# kernels (one thread per channel running both directions of a pair), on
+# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 5)
+BIDIR_STEP_DEVICE_MS_BASELINE = 129.72
 # full model, card vs CPU, fp32 with TF32 off: 14 scans plus the stock
 # layers in another summation order
 LOGIT_TOL = 1e-3
@@ -195,10 +215,21 @@ def scan_inputs(torch, bsz, L, dg, dtype, device, seed, streams=2, dirs=4):
     return args
 
 
-def cuda_ms(torch, fn, iters):
-    """(mean ms per call over ``iters`` calls after one warm-up call, the
-    last call's output)."""
+def warm_up(fn) -> None:
+    """Two calls, the first one's output alive during the second, so that
+    the caching allocator holds the two output buffers the timed loop
+    alternates between: otherwise the second timed call allocates one with
+    cudaMalloc inside the timed window (after ``empty_cache``, a stall of up
+    to 100 ms)."""
+    first = fn()
     fn()
+    del first
+
+
+def cuda_ms(torch, fn, iters):
+    """(mean ms per call over ``iters`` calls after :func:`warm_up`, the
+    last call's output)."""
+    warm_up(fn)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
     start.record()
@@ -213,7 +244,7 @@ def device_ms(torch, fn, iters):
     """As :func:`cuda_ms`, but the timed calls queue up behind a ~50 ms
     sleep on the card, so that a kernel shorter than its launch from the
     host is timed, not the host's enqueue rate."""
-    fn()
+    warm_up(fn)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
     torch.cuda._sleep(100_000_000)  # clock cycles
@@ -370,13 +401,13 @@ def kernel_bwd_phase(torch, dev):
         for kind, err in errs.items():
             max_err[kind] = max(max_err[kind], err)
 
-    for L, dg, _ in STAGES:
+    for bsz, L, dg in [(2, L, dg) for L, dg, _ in STAGES] + list(BIDIR_EDGES):
         for dtype in (torch.float32, torch.bfloat16):
-            args = scan_inputs(torch, 2, L, dg, dtype, dev, seed=L + 1)
-            gy = torch.randn(2, 2, L, dg, generator=torch.Generator()
+            args = scan_inputs(torch, bsz, L, dg, dtype, dev, seed=L + 1)
+            gy = torch.randn(bsz, 2, L, dg, generator=torch.Generator()
                              .manual_seed(L)).to(dev)
             errs, _, _ = check_training_kernels(
-                torch, args, gy, L=L, dg=dg, batch=2,
+                torch, args, gy, L=L, dg=dg, batch=bsz,
                 dtype=str(dtype).split(".")[-1])
             note(errs)
     tot = {k: [0.0, 0.0, 0.0] for k in ("fwd_states", "bwd")}
@@ -426,6 +457,36 @@ def kernel_bwd_phase(torch, dev):
             calls=SS2D_PER_FORWARD)
     return {kind: (max_err[kind], *tot[kind], bound_by[kind])
             for kind in tot}
+
+
+def kernel_occ_phase(torch):
+    """``[kernel_occ]``: per bidirectional kernel and stage shape at bs24,
+    the launch configuration and occupancy the card reports (grid, threads
+    per block, registers, static and dynamic shared memory, local bytes per
+    thread, which count spills), the resident warps per SM the occupancy
+    calculator allows, the grid's warps per SM and its waves."""
+    from mamba_unet_torch.ops.selective_scan_bidir import kernel_occupancy
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for kind in ("serve", "fwd_states", "bwd"):
+        for L, dg, _ in STAGES:
+            occ = kernel_occupancy(kind, TRAIN_BATCH, L, dg)
+            bf16 = kernel_occupancy(kind, TRAIN_BATCH, L, dg, bf16=True)
+            blocks = occ["grid_x"] * occ["grid_y"] * occ["grid_z"]
+            warps = occ["threads"] // 32
+            slots = occ["blocks_per_sm"] * sms
+            log("kernel_occ", kernel=kind, L=L, dg=dg, batch=TRAIN_BATCH,
+                grid=f"{occ['grid_x']}x{occ['grid_y']}x{occ['grid_z']}",
+                threads=occ["threads"], registers=occ["registers"],
+                bf16_registers=bf16["registers"],
+                static_smem=occ["static_smem"],
+                dynamic_smem=occ["dynamic_smem"],
+                local_bytes=occ["local_bytes"],
+                bf16_local_bytes=bf16["local_bytes"],
+                blocks_per_sm=occ["blocks_per_sm"],
+                max_warps_per_sm=occ["blocks_per_sm"] * warps,
+                grid_warps_per_sm=f"{blocks * warps / sms:.1f}",
+                waves=f"{blocks / slots:.2f}" if slots else "inf", sms=sms)
 
 
 def scan_kernels(scan_impl: str):
@@ -621,28 +682,34 @@ def training_phase(torch, dev, scan_impl="auto"):
         peak_mem_gb=f"{peak_gb:.2f}")
     if changed < 0.99 * len(before):
         raise AssertionError(f"only {changed}/{len(before)} tensors changed")
-    profile_steps(torch, trainer, loader,
-                  "train" if scan_impl == "auto" else f"train_{scan_impl}")
+    device_ms = profile_steps(
+        torch, trainer, loader,
+        "train" if scan_impl == "auto" else f"train_{scan_impl}")
+    if scan_impl == "auto":
+        log(phase, device_ms_per_step=f"{device_ms:.2f}",
+            baseline_device_ms_per_step=BIDIR_STEP_DEVICE_MS_BASELINE,
+            change=f"{device_ms / BIDIR_STEP_DEVICE_MS_BASELINE - 1:+.1%}")
     return launches
 
 
 def profile_steps(torch, trainer, loader, path, steps=3):
     """Device time by kernel over ``steps`` train steps on pre-loaded
-    batches, after one warm-up step (``[profile] path=...``)."""
+    batches, after one warm-up step (``[profile] path=...``); returns the
+    device ms per step."""
     batches = []
     for batch in loader:
         batches.append(batch)
         if len(batches) == steps:
             break
     trainer.train_step(batches[0])
-    profile_calls(torch, path, [lambda b=b: trainer.train_step(b)
-                                for b in batches])
+    return profile_calls(torch, path, [lambda b=b: trainer.train_step(b)
+                                       for b in batches])
 
 
 def profile_calls(torch, path, calls, top=12):
     """Device time by kernel over the ``calls`` (torch.profiler), each one
-    step of ``path``; prints the largest and writes the table to
-    build/{path}_profile.txt."""
+    step of ``path``; prints the largest, writes the table to
+    build/{path}_profile.txt and returns the device ms per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -677,6 +744,7 @@ def profile_calls(torch, path, calls, top=12):
     for ms, n, key in rows[:top]:
         log("profile", path=path, ms_per_step=f"{ms:.3f}",
             launches_per_step=f"{n:.0f}", kernel=key[:90].replace(" ", "_"))
+    return busy
 
 
 def grouped_args(torch, bsz, L, G, dg, dtype, dev, seed):
@@ -1197,10 +1265,19 @@ def main() -> int:
     _build.library()
     log("build", seconds=f"{time.perf_counter() - t0:.2f}",
         lib=_build.build().name)
+    kernel_occ_phase(torch)
 
-    # --- 3. kernel vs plain at batch 2, then timed and compared at batch 24
+    # --- 3. kernel vs plain at batch 2 and the ragged shapes, then timed
+    # and compared at batch 24
     max_err = 0.0
     ms_fwd = plain_ms_fwd = 0.0
+    for bsz, L, dg in BIDIR_EDGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = scan_inputs(torch, bsz, L, dg, dtype, dev, seed=L + dg)
+            err = check_kernel(torch, selective_scan_bidir(*args),
+                               selective_scan_bidir_ref(*args), L=L, dg=dg,
+                               batch=bsz, dtype=str(dtype).split(".")[-1])
+            max_err = max(max_err, err)
     for L, dg, calls in STAGES:
         for dtype in (torch.float32, torch.bfloat16):
             args = scan_inputs(torch, 2, L, dg, dtype, dev, seed=L)

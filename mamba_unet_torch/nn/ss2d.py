@@ -79,8 +79,10 @@ NOT_PORTED = {"hwbc_folded": "the hwbc layout is TPU-only machinery (its "
                              "time-major batch-minor maps make the folded "
                              "scan's stream setup a free reshape on the TPU) "
                              "and is not ported; use scan_impl='folded'",
-              "xla": _PARALLELISM, "seq_sharded": _PARALLELISM,
-              "tp_sharded": _PARALLELISM}
+              "xla": "the route (cross_scan, the plain selective_scan on "
+                     "(B, 4 * d_inner, L), cross_merge) needs no mesh but "
+                     "is not ported yet (ROADMAP.md, queue 1, item 4b)",
+              "seq_sharded": _PARALLELISM, "tp_sharded": _PARALLELISM}
 
 
 def check_scan_impl(scan_impl: str) -> None:

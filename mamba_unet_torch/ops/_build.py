@@ -35,6 +35,11 @@ _SIGNATURES = {
     # du2, ddelta4, dB_part, dC_part, dA_part, dD_part, ddb_part,
     # batch, L, dg, n, is_bf16, stream
     "selective_scan_bidir_bwd": [_P] * 16 + [_I] * 5 + [_P],
+    # batch, L, dg, is_bf16, save, out (int[9]): grid x/y/z, threads,
+    # registers, static and dynamic shared memory, local bytes, blocks/SM
+    "selective_scan_bidir_fwd_occupancy": [_I] * 5 + [_P],
+    # batch, L, dg, is_bf16, out (int[9]) as above
+    "selective_scan_bidir_bwd_occupancy": [_I] * 4 + [_P],
     # u, delta, B, C, A, D, delta_bias, y, last_state (or null), cs (or
     # null), batch, G, L, dg, n, softplus, is_bf16, stream
     "selective_scan_fwd": [_P] * 10 + [_I] * 7 + [_P],

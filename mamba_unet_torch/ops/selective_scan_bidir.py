@@ -14,7 +14,8 @@ Three kernel entry points, each with its plain version and launch count:
 * :func:`selective_scan_bidir` without grad - the serving forward (no saved
   states);
 * :func:`selective_scan_bidir_fwd_states` - the forward that also writes the
-  fp32 state at every ``STATE_CHUNK``-th scan step (``cs``), for training;
+  fp32 state entering every ``STATE_CHUNK``-step data chunk (``cs``), for
+  training;
 * :func:`selective_scan_bidir_bwd` - the backward from those states.
 
 :func:`selective_scan_bidir` picks at call time: with grad enabled and an
@@ -30,14 +31,20 @@ B4, C4            (B, 4, L, N)      as u2
 A                 (4 * dg, N)       fp32
 D, delta_bias     (4 * dg,)         fp32
 out, gy           (B, 2, L, dg)     fp32
-cs                (B, 4, nc, N, dg) fp32, nc = ceil(L / STATE_CHUNK)
+cs                (B, 4, nc, dg, N) fp32, nc = ceil(L / STATE_CHUNK)
 ================  ================  =============
 
 ``delta`` goes through softplus(delta + delta_bias); the state and all
-arithmetic are fp32.
+arithmetic are fp32. The saved states are fixed in data time: ``cs[:, g,
+k]`` is the state with which direction g enters the k-th STATE_CHUNK-step
+chunk of data time that it scans (data chunk k for g < 2, data chunk
+nc - 1 - k, entered at its last step, for g >= 2), as the TPU kernel's
+``cs`` is.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -45,15 +52,18 @@ import torch.nn.functional as F
 from mamba_unet_torch.ops import _build
 
 KERNEL_N = 16  # the d_state the CUDA kernels are compiled for
-STATE_CHUNK = 16  # scan steps between saved states (kStateChunk in the .cu)
+STATE_CHUNK = 16  # data steps between saved states (kStateChunk in the .cu)
+KERNEL_TILE = 16  # channels per block and direction of the backward (kCh)
 ARG_NAMES = ("u2", "delta4", "A", "B4", "C4", "D", "delta_bias")
 
 
 def selective_scan_bidir_states_ref(u2, delta4, A, B4, C4, D, delta_bias):
     """Plain version of the state-saving forward: the sequential fp32 loop
     over scan steps of all four directions at once (reversed directions
-    flipped explicitly). Returns (fp32 pair-summed y, cs): cs[:, g, c] is the
-    (N, dg) state entering scan step c * STATE_CHUNK of direction g."""
+    flipped explicitly). Returns (fp32 pair-summed y, cs): cs[:, g, k] is the
+    (dg, N) state with which direction g enters its k-th data chunk (module
+    docstring): before scan step k * STATE_CHUNK for g < 2, before scan step
+    max(0, L - (nc - k) * STATE_CHUNK) for g >= 2."""
     bsz, _, L, dg = delta4.shape
     u4 = torch.cat([u2, u2.flip(2)], dim=1).float()        # scan order
     d4 = torch.cat([delta4[:, :2], delta4[:, 2:].flip(2)], dim=1).float()
@@ -62,16 +72,19 @@ def selective_scan_bidir_states_ref(u2, delta4, A, B4, C4, D, delta_bias):
     dt = F.softplus(d4 + delta_bias.reshape(1, 4, 1, dg))  # (B, 4, L, dg)
     A4 = A.float().reshape(4, dg, -1)
     x = u4.new_zeros(bsz, 4, dg, A.shape[-1])
-    ys, cs = [], []
+    ys, cs_fwd, cs_rev = [], [], []
     for t in range(L):
         if t % STATE_CHUNK == 0:
-            cs.append(x.transpose(2, 3))
+            cs_fwd.append(x[:, :2])
+        if t == 0 or (L - t) % STATE_CHUNK == 0:
+            cs_rev.append(x[:, 2:])
         d_t = dt[:, :, t, :, None]                             # (B,4,dg,1)
         x = torch.exp(d_t * A4) * x + (
             d_t * b4[:, :, t, None, :] * u4[:, :, t, :, None])
         ys.append(torch.einsum("bgdn,bgn->bgd", x, c4[:, :, t]))
     y = torch.stack(ys, dim=2) + u4 * D.reshape(1, 4, 1, dg)
-    return y[:, :2] + y[:, 2:].flip(2), torch.stack(cs, dim=2)
+    cs = torch.cat([torch.stack(cs_fwd, 2), torch.stack(cs_rev, 2)], 1)
+    return y[:, :2] + y[:, 2:].flip(2), cs
 
 
 def selective_scan_bidir_ref(u2, delta4, A, B4, C4, D, delta_bias):
@@ -160,6 +173,31 @@ def _launch_fwd(args, cs):
     return out
 
 
+OCCUPANCY_KEYS = ("grid_x", "grid_y", "grid_z", "threads", "registers",
+                  "static_smem", "dynamic_smem", "local_bytes",
+                  "blocks_per_sm")
+
+
+def kernel_occupancy(kind: str, bsz: int, L: int, dg: int,
+                     bf16: bool = False) -> dict:
+    """The launch configuration of the kernel that ``kind`` (``serve``,
+    ``fwd_states`` or ``bwd``) launches at (bsz, L, dg), as the card
+    reports it: OCCUPANCY_KEYS -> int (registers per thread, shared memory
+    per block in bytes, local memory per thread in bytes, which counts
+    spills, and the resident blocks per SM the occupancy calculator
+    allows). Needs a card."""
+    lib = _build.library()
+    out = (ctypes.c_int * len(OCCUPANCY_KEYS))()
+    if kind == "bwd":
+        err = lib.selective_scan_bidir_bwd_occupancy(bsz, L, dg, int(bf16),
+                                                     out)
+    else:
+        err = lib.selective_scan_bidir_fwd_occupancy(
+            bsz, L, dg, int(bf16), int(kind == "fwd_states"), out)
+    _raise_on(err, f"selective_scan_bidir {kind} occupancy")
+    return dict(zip(OCCUPANCY_KEYS, out))
+
+
 def selective_scan_bidir_fwd_states(u2, delta4, A, B4, C4, D, delta_bias):
     """The training forward -> (fp32 pair-summed y, fp32 cs).
 
@@ -172,7 +210,7 @@ def selective_scan_bidir_fwd_states(u2, delta4, A, B4, C4, D, delta_bias):
         return selective_scan_bidir_states_ref(*args)
     bsz, _, L, dg = u2.shape
     nc = -(-L // STATE_CHUNK)
-    cs = torch.empty(bsz, 4, nc, KERNEL_N, dg, dtype=torch.float32,
+    cs = torch.empty(bsz, 4, nc, dg, KERNEL_N, dtype=torch.float32,
                      device=u2.device)
     out = _launch_fwd(args, cs)
     selective_scan_bidir_fwd_states.launches += 1
@@ -195,7 +233,7 @@ def selective_scan_bidir_bwd(u2, delta4, A, B4, C4, D, delta_bias, cs, gy):
     _check(*args)
     bsz, _, L, dg = u2.shape
     n = A.shape[-1]
-    want = (bsz, 4, -(-L // STATE_CHUNK), n, dg)
+    want = (bsz, 4, -(-L // STATE_CHUNK), dg, n)
     if tuple(cs.shape) != want or cs.dtype != torch.float32:
         raise ValueError(f"cs must be float32 {want}, got {cs.dtype} "
                          f"{tuple(cs.shape)}")
@@ -204,7 +242,7 @@ def selective_scan_bidir_bwd(u2, delta4, A, B4, C4, D, delta_bias, cs, gy):
                          f"{gy.dtype} {tuple(gy.shape)}")
     if not _on_cuda(*args, cs, gy):
         return selective_scan_bidir_bwd_ref(*args, gy)
-    ntile = -(-dg // 64)  # kThreads channels per block
+    ntile = -(-dg // KERNEL_TILE)
     lib = _build.library()
     with torch.cuda.device(u2.device):
         f32 = dict(dtype=torch.float32, device=u2.device)

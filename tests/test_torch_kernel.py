@@ -45,30 +45,40 @@ def cuda():
 
 
 def _args(bsz, L, dg, n=16, seed=0):
+    """A drawn per (channel, state) and D per channel, neither an integer,
+    so that a kernel reading another channel's row, or a shortcut such as
+    powers of exp(-delta) that integer A would allow, disagrees."""
     g = torch.Generator().manual_seed(seed)
     return [torch.randn(bsz, 2, L, dg, generator=g),
             0.5 * torch.randn(bsz, 4, L, dg, generator=g),
-            -torch.arange(1, n + 1).float().repeat(4 * dg, 1),
+            -torch.exp(0.5 * torch.randn(4 * dg, n, generator=g)),
             torch.randn(bsz, 4, L, n, generator=g),
             torch.randn(bsz, 4, L, n, generator=g),
-            torch.ones(4 * dg),
+            torch.randn(4 * dg, generator=g),
             torch.empty(4 * dg).uniform_(-6, -2, generator=g)]
+
+
+# (batch, L, dg) beyond the stage shapes: dg not a multiple of the kernels'
+# 16-channel tile, L not a multiple of their 16- and 32-step chunks (with an
+# odd and an even chunk count, so that the pair merge meets both in a middle
+# chunk and not), L = 1, and batch 1
+EDGES = [(2, 50, 40), (2, 64, 64), (2, 7, 130), (1, 1, 40), (1, 97, 33),
+         (1, 33, 70)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("L,dg", [(50, 40), (64, 64), (7, 130)])
-def test_kernel_matches_plain_version(cuda, dtype, L, dg):
-    """Ragged channel tiles (dg not a multiple of 64) and L not a multiple
-    of the 32-step chunk."""
-    args = [a.to(cuda) for a in _args(2, L, dg)]
+@pytest.mark.parametrize("bsz,L,dg", EDGES)
+def test_kernel_matches_plain_version(cuda, dtype, bsz, L, dg):
+    """The serving kernel at the edge shapes."""
+    args = [a.to(cuda) for a in _args(bsz, L, dg)]
     for i in (0, 1, 3, 4):
         args[i] = args[i].to(getattr(torch, dtype))
     before = selective_scan_bidir.launches
     got = selective_scan_bidir(*args)
     torch.cuda.synchronize()
     assert selective_scan_bidir.launches == before + 1
-    assert got.dtype == torch.float32 and got.shape == (2, 2, L, dg)
+    assert got.dtype == torch.float32 and got.shape == (bsz, 2, L, dg)
     torch.testing.assert_close(got, selective_scan_bidir_ref(*args),
                                rtol=1e-4, atol=1e-4)
 
@@ -106,11 +116,12 @@ def test_ss2d_on_card_matches_cpu(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("L,dg", [(50, 40), (64, 64), (7, 130)] + STAGES)
-def test_training_kernels_match_plain_versions(cuda, dtype, L, dg):
+@pytest.mark.parametrize("bsz,L,dg",
+                         EDGES + [(2, L, dg) for L, dg in STAGES])
+def test_training_kernels_match_plain_versions(cuda, dtype, bsz, L, dg):
     """The state-saving forward (y and cs) and the backward (all seven
-    gradients), at ragged shapes and the four stage shapes, batch 2."""
-    args = [a.to(cuda) for a in _args(2, L, dg, seed=L + dg)]
+    gradients), at the edge shapes and the four stage shapes."""
+    args = [a.to(cuda) for a in _args(bsz, L, dg, seed=L + dg)]
     for i in (0, 1, 3, 4):
         args[i] = args[i].to(getattr(torch, dtype))
     before = (selective_scan_bidir_fwd_states.launches,
@@ -130,6 +141,27 @@ def test_training_kernels_match_plain_versions(cuda, dtype, L, dg):
     for name, g, w in zip(ARG_NAMES, got, want):
         assert_close_to_max(g, w, 1e-3 if name in SUMMED else 1e-4,
                             f"d{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bidir_kernels_are_deterministic(cuda, dtype):
+    """Two launches on the same inputs give bitwise equal outputs: the
+    serving forward, the state-saving forward (y and cs) and the backward
+    (all seven gradients). The kernels merge direction pairs and reduce
+    partial sums in a fixed order, with no atomics."""
+    args = [a.to(cuda) for a in _args(2, 97, 70, seed=11)]
+    for i in (0, 1, 3, 4):
+        args[i] = args[i].to(getattr(torch, dtype))
+    gy = torch.randn(2, 2, 97, 70, generator=torch.Generator().manual_seed(4)
+                     ).to(cuda)
+    runs = []
+    for _ in range(2):
+        y, cs = selective_scan_bidir_fwd_states(*args)
+        runs.append([selective_scan_bidir(*args), y, cs,
+                     *selective_scan_bidir_bwd(*args, cs, gy)])
+    for k, (a, b) in enumerate(zip(*runs)):
+        assert torch.equal(a, b), k
 
 
 @pytest.mark.cuda

@@ -121,11 +121,14 @@ def test_plain_backward_bf16_inputs_against_jax_fp32(rng):
         assert (err <= bound).all(), (name, err.max())
 
 
-def test_chunk_entry_states_match_pallas_fwd_kernel(rng):
+@pytest.mark.parametrize("L", [48, 40])
+def test_chunk_entry_states_match_pallas_fwd_kernel(rng, L):
     """cs against ``_fwd_kernel``'s ``cs`` output (fp32 I/O, 16-step
-    chunks, L a multiple of 16 so both kernels cut chunks at the same steps
-    in both directions)."""
-    L, dg, n = 48, 8, 4
+    chunks): both fix the chunks in data time and index them in each
+    direction's scan order, so they agree for L a multiple of 16 and for a
+    ragged L (JAX pads the data's end, which a reversed direction scans
+    first, from a zero state)."""
+    dg, n = 8, 4
     inp = _inputs(rng, 2, L, dg, n)
     A_t, Dsk, db = _prep_params(jnp.asarray(inp["A"]), jnp.asarray(inp["D"]),
                                 jnp.asarray(inp["delta_bias"]), 4, dg, n)
@@ -134,15 +137,19 @@ def test_chunk_entry_states_match_pallas_fwd_kernel(rng):
         jnp.asarray(inp["B4"]), jnp.asarray(inp["C4"]), Dsk, db, True, 16,
         True, bidir=True)
     cs_jax = np.asarray(cs_jax)                      # (B, 4, DT, nc, N, dgt)
-    assert cs_jax.shape[2] == 1 and cs_jax.shape[3] == L // 16
+    nc = -(-L // 16)
+    assert cs_jax.shape[2] == 1 and cs_jax.shape[3] == nc
     _, cs = selective_scan_bidir_states_ref(*_port(inp))
-    assert cs.shape == (2, 4, L // STATE_CHUNK, n, dg)
-    np.testing.assert_allclose(cs.numpy(), cs_jax[:, :, 0], **TOL)
+    assert cs.shape == (2, 4, -(-L // STATE_CHUNK), dg, n)
+    np.testing.assert_allclose(cs.numpy(), cs_jax[:, :, 0].swapaxes(-1, -2),
+                               **TOL)
 
 
 def test_chunk_entry_states_match_sequential_reference(rng):
-    """cs[:, g, c] is the state after the first c*16 scan steps of
-    direction g (reversed directions scan the flipped data); L ragged."""
+    """cs[:, g, c] is the state with which direction g enters its c-th
+    16-step data chunk: after its first c*16 scan steps for g < 2, after its
+    first L - 16*(nc - c) for the reversed directions (which scan the
+    flipped data and enter each data chunk at its last step); L ragged."""
     L, dg, n, bsz = 37, 8, 4, 2
     inp = _inputs(rng, bsz, L, dg, n)
     y, cs = selective_scan_bidir_states_ref(*_port(inp))
@@ -156,8 +163,9 @@ def test_chunk_entry_states_match_sequential_reference(rng):
             u, d, B, C = (x[:, ::-1] for x in (u, d, B, C))
         rows = slice(g * dg, (g + 1) * dg)
         np.testing.assert_array_equal(cs[:, g, 0].numpy(), 0.0)
-        for c in range(1, cs.shape[2]):
-            k = c * STATE_CHUNK
+        nc = cs.shape[2]
+        for c in range(1, nc):
+            k = c * STATE_CHUNK if g < 2 else L - (nc - c) * STATE_CHUNK
             _, last = j_ref(
                 *(jnp.asarray(np.ascontiguousarray(x[:, :k].swapaxes(1, 2)))
                   for x in (u, d)),
@@ -166,8 +174,7 @@ def test_chunk_entry_states_match_sequential_reference(rng):
                   for x in (B, C)),
                 delta_bias=jnp.asarray(inp["delta_bias"][rows]),
                 delta_softplus=True, return_last_state=True)
-            np.testing.assert_allclose(cs[:, g, c].numpy(),
-                                       np.asarray(last).swapaxes(1, 2),
+            np.testing.assert_allclose(cs[:, g, c].numpy(), np.asarray(last),
                                        err_msg=f"g={g} c={c}", **TOL)
 
 

@@ -374,6 +374,18 @@ def test_train_cli_scan_impl_tm_on_cpu(monkeypatch):
     assert len(calls) == 2 * 14  # two steps, 14 SS2D per forward
 
 
+@pytest.mark.parametrize("impl,reason", [
+    ("hwbc_folded", "TPU-only"), ("xla", "queue 1, item 4b"),
+    ("seq_sharded", "parallelism item"), ("tp_sharded", "parallelism item")])
+def test_unported_scan_impl_names_its_reason(impl, reason):
+    """Each refused route of the JAX SS2D says why it is refused: the TPU
+    layout, the unported mesh-free xla route, or the parallelism item."""
+    with pytest.raises(NotImplementedError, match=reason):
+        tss2d.check_scan_impl(impl)
+    if impl != "xla":
+        assert "4b" not in tss2d.NOT_PORTED[impl]
+
+
 @pytest.mark.parametrize("impl", ["hwbc_folded", "xla"])
 def test_train_cli_unported_scan_impl_raises(impl):
     """The model refuses both; the CLI offers ``xla`` (not the TPU-only
