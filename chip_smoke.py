@@ -12,8 +12,10 @@ exits non-zero; nothing is caught):
 1. device   - require CUDA; print ``nvidia-smi`` name and power limit.
 2. build    - compile the CUDA kernels from ``mamba_unet_torch/csrc``;
               then ``[kernel_occ]``: per bidirectional kernel (serving,
-              state-saving, backward) and stage shape at bs24, the grid,
-              threads per block, registers, static and dynamic shared
+              state-saving, backward), grouped backward (G = 4) and folded
+              backward at each stage shape at bs24, and the grouped
+              backward at the mamba-130m shape, the grid, threads per
+              block, registers (fp32 and bf16), static and dynamic shared
               memory, local bytes (spills) and the resident warps per SM the
               card reports.
 3. kernel   - ``selective_scan_bidir`` (CUDA) against its plain PyTorch
@@ -79,7 +81,8 @@ exits non-zero; nothing is caught):
               state-saving forward and 14 backward launches and no
               bidirectional one, 14 grouped serving launches per eval
               forward; a falling loss; step ms, slices/s, peak memory and a
-              profile (``build/train_tm_profile.txt``).
+              profile (``build/train_tm_profile.txt``), its device time per
+              step beside the earlier backward's (TM_STEP_DEVICE_MS_BASELINE).
 15. lm_grad - full-width mamba-130m, batch 2 x 128 tokens, fp32 with TF32
               off: next-token cross-entropy and every parameter's gradient
               card vs CPU, 24 + 24 grouped launches.
@@ -98,7 +101,9 @@ exits non-zero; nothing is caught):
               folded state-saving forward and 14 backward launches and none
               of the other kernels, 14 folded serving launches per eval
               forward; a falling loss; step ms, slices/s, peak memory and a
-              profile (``build/train_folded_profile.txt``).
+              profile (``build/train_folded_profile.txt``), its device time
+              per step beside the earlier backward's
+              (FOLDED_STEP_DEVICE_MS_BASELINE).
 
 Then one JSON line with the kernel table, and the last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -129,6 +134,11 @@ BIDIR_EDGES = ((1, 97, 33), (2, 7, 130), (1, 1, 40), (1, 64, 48))
 # kernels (one thread per channel running both directions of a pair), on
 # an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 5)
 BIDIR_STEP_DEVICE_MS_BASELINE = 129.72
+# the same per tm and per folded train step with the earlier grouped and
+# folded backwards (one thread per channel holding all 16 states), on the
+# same card at 700 W (PERF.md, section 5)
+TM_STEP_DEVICE_MS_BASELINE = 125.31
+FOLDED_STEP_DEVICE_MS_BASELINE = 112.75
 # full model, card vs CPU, fp32 with TF32 off: 14 scans plus the stock
 # layers in another summation order
 LOGIT_TOL = 1e-3
@@ -460,33 +470,52 @@ def kernel_bwd_phase(torch, dev):
 
 
 def kernel_occ_phase(torch):
-    """``[kernel_occ]``: per bidirectional kernel and stage shape at bs24,
-    the launch configuration and occupancy the card reports (grid, threads
-    per block, registers, static and dynamic shared memory, local bytes per
-    thread, which count spills), the resident warps per SM the occupancy
-    calculator allows, the grid's warps per SM and its waves."""
-    from mamba_unet_torch.ops.selective_scan_bidir import kernel_occupancy
+    """``[kernel_occ]``: per kernel and shape, the launch configuration and
+    occupancy the card reports (grid, threads per block, registers, static
+    and dynamic shared memory, local bytes per thread, which count spills),
+    the resident warps per SM the occupancy calculator allows, the grid's
+    warps per SM and its waves: the bidirectional kernels, the grouped
+    backward (G = 4) and the folded backward (bidirectional) at the stage
+    shapes at bs24, and the grouped backward at the mamba-130m shape."""
+    from mamba_unet_torch.ops import selective_scan_bidir as ssb
+    from mamba_unet_torch.ops import selective_scan_folded as ssf
+    from mamba_unet_torch.ops import selective_scan_grouped as ssg
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for kind in ("serve", "fwd_states", "bwd"):
-        for L, dg, _ in STAGES:
-            occ = kernel_occupancy(kind, TRAIN_BATCH, L, dg)
-            bf16 = kernel_occupancy(kind, TRAIN_BATCH, L, dg, bf16=True)
-            blocks = occ["grid_x"] * occ["grid_y"] * occ["grid_z"]
-            warps = occ["threads"] // 32
-            slots = occ["blocks_per_sm"] * sms
-            log("kernel_occ", kernel=kind, L=L, dg=dg, batch=TRAIN_BATCH,
-                grid=f"{occ['grid_x']}x{occ['grid_y']}x{occ['grid_z']}",
-                threads=occ["threads"], registers=occ["registers"],
-                bf16_registers=bf16["registers"],
-                static_smem=occ["static_smem"],
-                dynamic_smem=occ["dynamic_smem"],
-                local_bytes=occ["local_bytes"],
-                bf16_local_bytes=bf16["local_bytes"],
-                blocks_per_sm=occ["blocks_per_sm"],
-                max_warps_per_sm=occ["blocks_per_sm"] * warps,
-                grid_warps_per_sm=f"{blocks * warps / sms:.1f}",
-                waves=f"{blocks / slots:.2f}" if slots else "inf", sms=sms)
+    cases = [(kind, TRAIN_BATCH, L, dg,
+              lambda b, L, dg, bf16, k=kind: ssb.kernel_occupancy(
+                  k, b, L, dg, bf16))
+             for kind in ("serve", "fwd_states", "bwd")
+             for L, dg, _ in STAGES]
+    cases += [("grouped_bwd", TRAIN_BATCH, L, dg,
+               lambda b, L, dg, bf16: ssg.kernel_occupancy(b, 4, L, dg, bf16))
+              for L, dg, _ in STAGES]
+    bsz, L = LM_TRAIN_SHAPE
+    cases.append(("grouped_bwd", bsz, L, LM_DINNER,
+                  lambda b, L, dg, bf16: ssg.kernel_occupancy(b, 1, L, dg,
+                                                              bf16)))
+    cases += [("folded_bwd", TRAIN_BATCH, L, dg,
+               lambda b, L, dg, bf16: ssf.kernel_occupancy(b, L, dg,
+                                                           bf16=bf16))
+              for L, dg, _ in STAGES]
+    for kind, bsz, L, dg, occupancy in cases:
+        occ = occupancy(bsz, L, dg, False)
+        bf16 = occupancy(bsz, L, dg, True)
+        blocks = occ["grid_x"] * occ["grid_y"] * occ["grid_z"]
+        warps = occ["threads"] // 32
+        slots = occ["blocks_per_sm"] * sms
+        log("kernel_occ", kernel=kind, L=L, dg=dg, batch=bsz,
+            grid=f"{occ['grid_x']}x{occ['grid_y']}x{occ['grid_z']}",
+            threads=occ["threads"], registers=occ["registers"],
+            bf16_registers=bf16["registers"],
+            static_smem=occ["static_smem"],
+            dynamic_smem=occ["dynamic_smem"],
+            local_bytes=occ["local_bytes"],
+            bf16_local_bytes=bf16["local_bytes"],
+            blocks_per_sm=occ["blocks_per_sm"],
+            max_warps_per_sm=occ["blocks_per_sm"] * warps,
+            grid_warps_per_sm=f"{blocks * warps / sms:.1f}",
+            waves=f"{blocks / slots:.2f}" if slots else "inf", sms=sms)
 
 
 def scan_kernels(scan_impl: str):
@@ -685,10 +714,12 @@ def training_phase(torch, dev, scan_impl="auto"):
     device_ms = profile_steps(
         torch, trainer, loader,
         "train" if scan_impl == "auto" else f"train_{scan_impl}")
-    if scan_impl == "auto":
-        log(phase, device_ms_per_step=f"{device_ms:.2f}",
-            baseline_device_ms_per_step=BIDIR_STEP_DEVICE_MS_BASELINE,
-            change=f"{device_ms / BIDIR_STEP_DEVICE_MS_BASELINE - 1:+.1%}")
+    baseline = {"auto": BIDIR_STEP_DEVICE_MS_BASELINE,
+                "tm": TM_STEP_DEVICE_MS_BASELINE,
+                "folded": FOLDED_STEP_DEVICE_MS_BASELINE}[scan_impl]
+    log(phase, device_ms_per_step=f"{device_ms:.2f}",
+        baseline_device_ms_per_step=baseline,
+        change=f"{device_ms / baseline - 1:+.1%}")
     return launches
 
 

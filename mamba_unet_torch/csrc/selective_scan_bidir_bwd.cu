@@ -81,7 +81,7 @@
 //   * Each gate exp(dt A) is one SFU ex2 with subnormal results flushed to
 //     zero (exp2_ftz): exp2f's subnormal fix-up around every gate cost
 //     about a tenth of the kernel's time on the card.
-// Where the time goes now (scripts/bidir_scan_phases.py, stage 0): about
+// Where the time goes now (scripts/scan_phases.py, stage 0): about
 // 70 % in the recompute and reverse, a tenth each in the write-out and in
 // staging. At 4 warps per scheduler the reverse step's shuffle chains
 // (dΔ/du sums, the dB/dC butterfly) and exps are not hidden: it is latency

@@ -65,7 +65,7 @@
 //   * Each gate exp(dt A) is one SFU ex2 with subnormal results flushed to
 //     zero (exp2_ftz): exp2f's subnormal fix-up around every gate cost
 //     about a tenth of the kernel's time on the card.
-// Where the time goes now (scripts/bidir_scan_phases.py, stage 0): about
+// Where the time goes now (scripts/scan_phases.py, stage 0): about
 // half in the scan loop, a quarter in the merged write-out (its second
 // visitor waits on a read of the first visitor's y), the rest in the
 // softplus conversion. No single resource is saturated at this occupancy:

@@ -21,104 +21,75 @@
 // delta_bias (G*dg) fp32; cs (B,G,nc,16,dg) fp32, the chunk-entry states the
 // state-saving forward wrote (nc = ceil(L/16)). Outputs: du, ddelta in T,
 // and fp32 partial sums that the caller reduces (deterministically, no
-// atomics): dB/dC over channel tiles (ntile,B,G,L,16), dA (B,G*dg,16), dD
-// and dΔbias (B,G*dg) over the batch. Every state and sum is fp32.
+// atomics): dB/dC over 32-channel tiles (ceil(dg/32),B,G,L,16), dA
+// (B,G*dg,16), dD and dΔbias (B,G*dg) over the batch. Every state and sum
+// is fp32.
 //
 // What bounds it on an H100. At stage 0 of the trained Mamba-UNet with
 // scan_impl="tm" (bs24, G=4, L=3136, dg=192, fp32) one call reads u, delta,
 // gy (3 x 0.23 GB), cs (0.23 GB) and B/C (0.04 GB), and writes du and
-// ddelta (0.46 GB) and dB/dC (0.04 GB): about 1.46 GB, 0.44 ms at 3.35 TB/s.
-// The gradient needs one exp per state and step (a_t) plus softplus and
-// sigmoid, about 1.2 G special-function results, under 0.3 ms, so the bound
-// is the bytes. This kernel computes a_t twice (recompute and reverse). Its
-// parallelism is B*G*ceil(dg/64) blocks of 64 threads (288 at that shape,
-// 192 at the mamba-130m shape of batch 8), each running two sequential
-// passes over L: latency bound, like the bidirectional backward it follows.
+// ddelta (0.46 GB) and the dB/dC partials: about 1.46 GB with the summed
+// dB/dC, 0.44 ms at 3.35 TB/s. It needs one exp per state and step (a_t)
+// plus softplus and sigmoid, about 1.2 G special-function results, under
+// 0.3 ms, so the bound is the bytes. The design this one replaces (one
+// thread per channel holding all 16 states, a chunk's 17 x 16 x 64
+// recomputed states in 68 KB of shared memory, blocks of 64 threads, 2.2
+// warps per SM in the grid at stage 0) took 10.07 ms per stage-0 call and
+// 1.683 ms at the mamba-130m shape (8, 1, 1024, 1536) (chip_smoke.py,
+// NVIDIA H100 80GB HBM3, 700 W).
 //
-// What the design does about it (that of selective_scan_bidir_bwd.cu with
-// one direction per thread instead of a pair):
-//   * One block per (b, g, 64-channel tile), one thread per channel: du is
-//     written straight, there is no stream to merge.
-//   * Per chunk of kChunk = 16 steps, walked from the last: the block stages
-//     u, delta, gy and the group's B/C in shared memory, recomputes the
-//     chunk's 16 states per step from the saved entry state into shared
-//     memory (17 x 16 x 64 fp32 = 68 KB), then runs the reverse scan with the
-//     carry a_{t+1} e_{t+1} in registers across chunks.
-//   * dB/dC need a sum over channels every step: a transposing butterfly
-//     over the warp (31 shuffles leave lane l with the warp's sum of value l
-//     of the 32 dB|dC values) and one shared-memory add over the block's two
-//     warps; the sum over channel tiles is left to the caller.
+// The design is that of selective_scan_bidir_bwd.cu, on the device body
+// selective_scan_bwd_group.cuh shares with selective_scan_folded_bwd.cu:
+//   * States split over lanes: 4 lanes per channel, 4 states each; sums
+//     over n (dΔ, du) take two shuffles.
+//   * A block is two 16-channel groups of the same (b, g), both walking
+//     time backwards in lockstep: grid (ceil(dg/32), G, B), 576 blocks at
+//     stage 0 of the tm branch and 384 at the mamba-130m shape. There is
+//     no stream to merge: du is written straight in T.
+//   * Each 16-step chunk is recomputed from its saved entry state in two
+//     8-step halves with the states in registers (2.5 exps per state and
+//     step); registers are capped so that 5 blocks fit per SM. Measured
+//     (chip_smoke.py [kernel_occ], NVIDIA H100 80GB HBM3, 700 W): 96
+//     registers, 16 bytes of local memory (spills), 38 KB of dynamic shared
+//     memory, 5 blocks (20 warps) per SM; 17.5 warps per SM in the grid and
+//     0.87 waves at stage 0, 0.58 waves at the mamba-130m shape.
+//   * The next chunk's u, delta, gy, B, C and entry states are copied into
+//     shared memory with cp.async while the current chunk computes: u,
+//     delta and gy by 4-byte values (bf16 by channel pairs, which needs an
+//     even dg: an odd dg in bf16 loads them plainly), B and C by 16-byte
+//     copies, the entry states as 16 rows of 16 channels (four 16-byte copies
+//     a row when dg is a multiple of 4, else 4-byte copies). dt =
+//     softplus(raw), dt*u and sigmoid(raw) are computed once per element;
+//     the four lanes of a channel read them by broadcast.
+//   * Gates by one SFU ex2 with subnormals flushed to zero (exp2_ftz).
+//   * dB/dC: a transposing butterfly over the 8 channels of a warp (7
+//     shuffles), then the block's 4 warps summed in shared memory in a
+//     fixed order and written as one partial per 32-channel tile: at stage
+//     0 6 tiles, 0.23 GB of dB/dC partials written and re-read by the
+//     wrapper's sum (16-channel tiles would double that).
 //   * dA/dD/dΔbias are per-thread register sums over time, written per
 //     batch element; the caller sums over the batch.
 //   * Masked threads (d >= dg) run with zero inputs: they reach every
-//     barrier and shuffle and contribute exact zeros.
+//     barrier and shuffle and contribute exact zeros. Steps past a ragged
+//     last chunk are skipped by a predicate uniform over the block.
+// Where the time goes now (chip_smoke.py and scripts/scan_phases.py, same
+// card): 2.67 ms per stage-0 call with the wrapper's sums (6.1x its bound;
+// 2.55 ms the kernel alone), 19.05 ms per tm step, 0.737 ms per mamba-130m
+// call. Of the kernel's time at stage 0, 68 % is the recompute and
+// reverse, 13 % waiting for the copies and converting, 11 % the write-out
+// and 8 % issuing the next chunk's copies. All of stage 0's warps are
+// resident, about 4 per scheduler, and they do not hide the reverse step's
+// chains (shuffle sums, the dB/dC butterfly, the exps): latency bound, as
+// the bidirectional backward is.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "selective_scan_bwd_group.cuh"
 
 namespace {
 
-constexpr int kN = 16;        // d_state
-constexpr int kThreads = 64;  // channels per block, one thread each
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 16;    // = the forward's kStateChunk
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-struct Smem {
-  float x[kChunk + 1][kN][kThreads];  // [0]: chunk entry; [i+1]: after step i
-  float u[kChunk][kThreads];
-  float delta[kChunk][kThreads];      // raw delta, bias not yet added
-  float g[kChunk][kThreads];
-  float B[kChunk][kN];
-  float C[kChunk][kN];
-  float red[kWarps][kChunk][2 * kN];  // per-warp dB|dC sums by step
-};
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float softplus(float x) {
-  return x > 20.f ? x : log1pf(expf(x));
-}
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-// One level of the transposing warp sum: lanes with bit W set keep the
-// upper W values and send the lower W; the partner does the opposite.
-template <int W>
-__device__ __forceinline__ void transpose_sum_level(float (&v)[2 * kN],
-                                                    int lane) {
-  const bool upper = lane & W;
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    const float send = upper ? v[i] : v[i + W];
-    const float keep = upper ? v[i + W] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, W);
-  }
-}
-
-// After this, v[0] of lane l is the sum over the warp's lanes of v[l].
-__device__ __forceinline__ float transpose_sum(float (&v)[2 * kN], int lane) {
-  transpose_sum_level<16>(v, lane);
-  transpose_sum_level<8>(v, lane);
-  transpose_sum_level<4>(v, lane);
-  transpose_sum_level<2>(v, lane);
-  transpose_sum_level<1>(v, lane);
-  return v[0];
-}
+using namespace scan_bwd;
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 grouped_bwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
                    const T* __restrict__ Bm, const T* __restrict__ Cm,
                    const float* __restrict__ A, const float* __restrict__ D,
@@ -128,139 +99,51 @@ grouped_bwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
                    float* __restrict__ dB_part, float* __restrict__ dC_part,
                    float* __restrict__ dA_part, float* __restrict__ dD_part,
                    float* __restrict__ ddb_part, int batch, int G, int L,
-                   int dg, int apply_softplus) {
+                   int dg, int apply_softplus, int flags) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int tile = blockIdx.x;
-  const int d = tile * kThreads + tid;
   const int g = blockIdx.y;
   const int b = blockIdx.z;
-  const bool active = d < dg;
+  const int d0 = (2 * tile + threadIdx.x / kGroup) * kCh;  // group's first
   const int nc = (L + kChunk - 1) / kChunk;
-
   const size_t seq = (size_t)(b * G + g) * L;  // first step of (b, g)
-  const T* u_s = u + seq * dg;
-  const T* delta_s = delta + seq * dg;
-  const T* g_s = gy + seq * dg;
-  T* du_s = du + seq * dg;
-  T* ddelta_s = ddelta + seq * dg;
-  const T* B_s = Bm + seq * kN;
-  const T* C_s = Cm + seq * kN;
-  const float* cs_s = cs + (size_t)(b * G + g) * nc * kN * dg + d;
-  const size_t part = ((size_t)tile * batch * G + b * G + g) * L * kN;
-  float* dB_s = dB_part + part;
-  float* dC_s = dC_part + part;
-  const size_t row = (size_t)g * dg + d;  // channel among the G*dg
+  const size_t part = (((size_t)tile * batch + b) * G + g) * L * kN;
+  const size_t row = (size_t)g * dg + d0;      // channel among the G*dg
+  const size_t out = (size_t)b * G * dg + row;
 
-  float a2[kN], carry[kN], dA[kN];
-  float skip = 0.f, bias = 0.f;
-#pragma unroll
-  for (int n = 0; n < kN; ++n) {
-    a2[n] = active ? A[row * kN + n] * kLog2e : 0.f;
-    carry[n] = 0.f;
-    dA[n] = 0.f;
-  }
-  if (active) {
-    skip = D[row];
-    bias = delta_bias[row];
-  }
-  float dD = 0.f, ddb = 0.f;
+  Group<T, T> io;
+  io.u = u + seq * dg + d0;
+  io.delta = delta + seq * dg + d0;
+  io.gy = gy + seq * dg + d0;
+  io.B = Bm + seq * kN;
+  io.C = Cm + seq * kN;
+  io.cs = cs + (size_t)(b * G + g) * nc * kN * dg + d0;
+  io.du = du + seq * dg + d0;
+  io.ddelta = ddelta + seq * dg + d0;
+  io.dB = dB_part + part;
+  io.dC = dC_part + part;
+  io.A = A + row * kN;
+  io.D = D + row;
+  io.bias = delta_bias + row;
+  io.dA = dA_part + out * kN;
+  io.dD = dD_part + out;
+  io.ddb = ddb_part + out;
+  io.u_base = u;
+  io.B_base = Bm;
+  io.cs_base = cs;
+  io.ts = dg;
+  io.cns = dg;
+  io.nvalid = min(kCh, dg - d0);
+  group_bwd<false>(io, L, apply_softplus != 0, flags, smem_raw);
+}
 
-  for (int c = nc - 1; c >= 0; --c) {
-    const int t0 = c * kChunk;
-    const int len = min(kChunk, L - t0);
-    __syncthreads();  // the previous chunk is done with shared memory
-    for (int i = tid; i < len * kN; i += kThreads) {
-      const size_t off = (size_t)t0 * kN + i;
-      (&sm.B[0][0])[i] = load_f32(B_s + off);
-      (&sm.C[0][0])[i] = load_f32(C_s + off);
-    }
-    for (int s = 0; s < len; ++s) {
-      float uu = 0.f, dl = 0.f, gg = 0.f;
-      if (active) {
-        const size_t off = (size_t)(t0 + s) * dg + d;
-        uu = load_f32(u_s + off);
-        dl = load_f32(delta_s + off);
-        gg = load_f32(g_s + off);
-      }
-      sm.u[s][tid] = uu;
-      sm.delta[s][tid] = dl;
-      sm.g[s][tid] = gg;
-    }
-    float x[kN];
-#pragma unroll
-    for (int n = 0; n < kN; ++n) {
-      x[n] = active ? cs_s[((size_t)c * kN + n) * dg] : 0.f;
-      sm.x[0][n][tid] = x[n];
-    }
-    __syncthreads();
+template <typename T>
+const void* kernel_of() {
+  return reinterpret_cast<const void*>(grouped_bwd_kernel<T>);
+}
 
-    // recompute the chunk's states from its entry state
-    for (int s = 0; s < len; ++s) {
-      const float raw = sm.delta[s][tid] + bias;
-      const float dt = apply_softplus ? softplus(raw) : raw;
-      const float du_in = dt * sm.u[s][tid];
-#pragma unroll
-      for (int n = 0; n < kN; ++n) {
-        x[n] = exp2f(dt * a2[n]) * x[n] + du_in * sm.B[s][n];
-        sm.x[s + 1][n][tid] = x[n];
-      }
-    }
-
-    // reverse scan over the chunk
-    for (int s = len - 1; s >= 0; --s) {
-      const float uu = sm.u[s][tid];
-      const float raw = sm.delta[s][tid] + bias;
-      const float dt = apply_softplus ? softplus(raw) : raw;
-      const float gg = sm.g[s][tid];
-      float v[2 * kN];
-      float dd_a = 0.f, ddu = 0.f;
-#pragma unroll
-      for (int n = 0; n < kN; ++n) {
-        const float a = exp2f(dt * a2[n]);
-        const float e = sm.C[s][n] * gg + carry[n];
-        const float eax = e * a * sm.x[s][n][tid];  // e a x_{t-1}
-        dd_a += eax * a2[n];
-        ddu += e * sm.B[s][n];
-        dA[n] += eax * dt;
-        v[n] = e * dt * uu;                    // dB contribution
-        v[kN + n] = sm.x[s + 1][n][tid] * gg;  // dC contribution
-        carry[n] = a * e;
-      }
-      float ddt = dd_a * kLn2 + ddu * uu;
-      if (apply_softplus) ddt *= sigmoid(raw);
-      dD += gg * uu;
-      ddb += ddt;
-      if (active) {
-        const size_t off = (size_t)(t0 + s) * dg + d;
-        store(ddelta_s + off, ddt);
-        store(du_s + off, ddu * dt + skip * gg);
-      }
-      sm.red[warp][s][lane] = transpose_sum(v, lane);
-    }
-    __syncthreads();
-    for (int i = tid; i < len * 2 * kN; i += kThreads) {
-      const int s = i / (2 * kN);
-      const int k = i % (2 * kN);
-      float sum = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) sum += sm.red[w][s][k];
-      const size_t off = (size_t)(t0 + s) * kN + (k % kN);
-      (k < kN ? dB_s : dC_s)[off] = sum;
-    }
-  }
-
-  if (active) {
-    const size_t out = (size_t)b * G * dg + row;
-#pragma unroll
-    for (int n = 0; n < kN; ++n) dA_part[out * kN + n] = dA[n];
-    dD_part[out] = dD;
-    ddb_part[out] = ddb;
-  }
+dim3 grid_of(int batch, int G, int dg) {
+  return dim3((dg + 2 * kCh - 1) / (2 * kCh), G, batch);
 }
 
 template <typename T>
@@ -271,13 +154,18 @@ cudaError_t launch(const void* u, const void* delta, const void* Bm,
                    void* dA_part, void* dD_part, void* ddb_part, int batch,
                    int G, int L, int dg, int apply_softplus,
                    cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(Smem));
   cudaError_t err = cudaFuncSetAttribute(
       grouped_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((dg + kThreads - 1) / kThreads, G, batch);
-  grouped_bwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  int flags = 0;
+  if (sizeof(T) == 4 || (dg % 2 == 0 && aligned(u, 4) &&
+                         aligned(delta, 4) && aligned(gy, 4))) {
+    flags |= kPairs;
+  }
+  if (aligned(Bm, 16) && aligned(Cm, 16)) flags |= kBCVec;
+  if (dg % 4 == 0 && aligned(cs, 16)) flags |= kCSVec;
+  grouped_bwd_kernel<T><<<grid_of(batch, G, dg), kThreads, kSmem, stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(delta),
       static_cast<const T*>(Bm), static_cast<const T*>(Cm),
       static_cast<const float*>(A), static_cast<const float*>(D),
@@ -285,7 +173,7 @@ cudaError_t launch(const void* u, const void* delta, const void* Bm,
       static_cast<const T*>(gy), static_cast<T*>(du), static_cast<T*>(ddelta),
       static_cast<float*>(dB_part), static_cast<float*>(dC_part),
       static_cast<float*>(dA_part), static_cast<float*>(dD_part),
-      static_cast<float*>(ddb_part), batch, G, L, dg, apply_softplus);
+      static_cast<float*>(ddb_part), batch, G, L, dg, apply_softplus, flags);
   return cudaGetLastError();
 }
 
@@ -313,4 +201,16 @@ extern "C" int selective_scan_bwd(
                               ddelta, dB_part, dC_part, dA_part, dD_part,
                               ddb_part, batch, G, L, dg, apply_softplus, s);
   return static_cast<int>(err);
+}
+
+// Reports the launch configuration and occupancy of the kernel that
+// selective_scan_bwd launches for (batch, G, L, dg): out[0..8] = grid x, y,
+// z, threads per block, registers per thread, static and dynamic shared
+// memory per block (bytes), local memory per thread (bytes; spills), and
+// the resident blocks per SM the occupancy calculator allows.
+extern "C" int selective_scan_bwd_occupancy(int batch, int G, int L, int dg,
+                                            int is_bf16, int* out) {
+  (void)L;
+  return occupancy(is_bf16 ? kernel_of<__nv_bfloat16>() : kernel_of<float>(),
+                   grid_of(batch, G, dg), out);
 }

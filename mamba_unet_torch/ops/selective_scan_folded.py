@@ -56,14 +56,19 @@ not.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from mamba_unet_torch.ops import _build
+from mamba_unet_torch.ops.selective_scan_bidir import OCCUPANCY_KEYS
 
 KERNEL_N = 16  # the d_state the CUDA kernels are compiled for
 STATE_CHUNK = 16  # data steps between saved states (kChunk in the .cu)
-KERNEL_TILE = 64  # channels of one batch per block (kThreads in the .cu)
+# channels of one batch per dB/dC partial of the backward: a group's kCh
+# (bidirectional: a block is a direction pair) or a block's 2 * kCh
+KERNEL_TILE = {True: 16, False: 32}
 ARG_NAMES = ("u", "delta", "A", "B", "C", "D", "delta_bias")
 
 
@@ -234,6 +239,19 @@ def _launch_fwd(args, softplus, bidir, cs):
     return y
 
 
+def kernel_occupancy(bsz: int, L: int, dg: int, bidir: bool = True,
+                     bf16: bool = False) -> dict:
+    """The launch configuration of the backward kernel at (bsz, L, dg) with
+    4 directions (bidirectional) or 4 streams, as the card reports it:
+    ``selective_scan_bidir.OCCUPANCY_KEYS`` -> int. Needs a card."""
+    lib = _build.library()
+    out = (ctypes.c_int * len(OCCUPANCY_KEYS))()
+    err = lib.selective_scan_folded_bwd_occupancy(bsz, 4, L, dg, int(bidir),
+                                                  int(bf16), out)
+    _raise_on(err, "selective_scan_folded_bwd occupancy")
+    return dict(zip(OCCUPANCY_KEYS, out))
+
+
 def selective_scan_folded_fwd(u, delta, A, B, C, D, delta_bias,
                               softplus=True, bidir=True):
     """The serving forward -> y in the dtype of ``u``.
@@ -278,10 +296,10 @@ def selective_scan_folded_bwd(u, delta, A, B, C, D, delta_bias, cs, gy,
     ``cs`` is the state-saving forward's second output and ``gy`` the
     cotangent of its y, in the I/O dtype. CPU tensors run
     :func:`selective_scan_folded_bwd_ref` (which recomputes instead of
-    reading ``cs``); CUDA tensors launch the backward kernel and reduce its
-    fp32 partial sums here in a fixed order (du over each pair of
-    directions, dB/dC over channel tiles, dA/dD/ddelta_bias over the batch:
-    deterministic, no atomics), or raise. Each launch adds one to
+    reading ``cs``); CUDA tensors launch the backward kernel, which sums du
+    over each pair of directions itself, and reduce its fp32 partial sums
+    here in a fixed order (dB/dC over channel tiles, dA/dD/ddelta_bias over
+    the batch: deterministic, no atomics), or raise. Each launch adds one to
     ``selective_scan_folded_bwd.launches``."""
     args = (u, delta, A, B, C, D, delta_bias)
     _check(*args, bidir)
@@ -296,21 +314,24 @@ def selective_scan_folded_bwd(u, delta, A, B, C, D, delta_bias, cs, gy,
                          f"{gy.dtype} {tuple(gy.shape)}")
     if not _on_cuda(*args, cs, gy):
         return selective_scan_folded_bwd_ref(*args, gy, softplus, bidir)
-    ntile = -(-dg // KERNEL_TILE)
+    ntile = -(-dg // KERNEL_TILE[bool(bidir)])
     lib = _build.library()
     with torch.cuda.device(u.device):
         f32 = dict(dtype=torch.float32, device=u.device)
-        du_part = torch.empty(delta.shape, **f32)
+        du = torch.empty(u.shape, **f32)  # per stream: bidir pairs summed
         ddelta = torch.empty_like(delta)
         dB_part = torch.empty(ntile, G, bsz, L, n, **f32)
         dC_part = torch.empty(ntile, G, bsz, L, n, **f32)
         dA_part = torch.empty(bsz, G * dg, n, **f32)
         dD_part = torch.empty(bsz, G * dg, **f32)
         ddb_part = torch.empty(bsz, G * dg, **f32)
+        # B/C batch-major, (G, B, L, N): a step's N values of one batch lie
+        # together for the kernel's 16-byte copies
+        Bt, Ct = (t.permute(0, 3, 1, 2).contiguous() for t in (B, C))
         err = lib.selective_scan_folded_bwd(
-            u.data_ptr(), delta.data_ptr(), B.data_ptr(), C.data_ptr(),
+            u.data_ptr(), delta.data_ptr(), Bt.data_ptr(), Ct.data_ptr(),
             A.data_ptr(), D.data_ptr(), delta_bias.data_ptr(), cs.data_ptr(),
-            gy.data_ptr(), du_part.data_ptr(), ddelta.data_ptr(),
+            gy.data_ptr(), du.data_ptr(), ddelta.data_ptr(),
             dB_part.data_ptr(), dC_part.data_ptr(), dA_part.data_ptr(),
             dD_part.data_ptr(), ddb_part.data_ptr(), bsz, G, L, dg, n,
             int(bool(bidir)), int(bool(softplus)),
@@ -319,7 +340,6 @@ def selective_scan_folded_bwd(u, delta, A, B, C, D, delta_bias, cs, gy,
         _raise_on(err, "selective_scan_folded_bwd")
         selective_scan_folded_bwd.launches += 1
         io = u.dtype
-        du = du_part[:2] + du_part[2:] if bidir else du_part
 
         def per_batch_last(part):  # (ntile, G, B, L, N) -> (G, L, N, B)
             return part.sum(0).permute(0, 2, 3, 1).to(io).contiguous()

@@ -44,13 +44,17 @@ reads it.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from mamba_unet_torch.ops import _build
+from mamba_unet_torch.ops.selective_scan_bidir import OCCUPANCY_KEYS
 
 KERNEL_N = 16  # the d_state the CUDA kernels are compiled for
 STATE_CHUNK = 16  # steps between saved states (kStateChunk in the .cu)
+KERNEL_TILE = 32  # channels per block of the backward (2 * kCh)
 ARG_NAMES = ("u", "delta", "A", "B", "C", "D", "delta_bias")
 
 
@@ -185,6 +189,18 @@ def _launch_fwd(args, softplus, last, cs):
     return y
 
 
+def kernel_occupancy(bsz: int, G: int, L: int, dg: int,
+                     bf16: bool = False) -> dict:
+    """The launch configuration of the backward kernel at (bsz, G, L, dg),
+    as the card reports it: ``selective_scan_bidir.OCCUPANCY_KEYS`` -> int.
+    Needs a card."""
+    lib = _build.library()
+    out = (ctypes.c_int * len(OCCUPANCY_KEYS))()
+    err = lib.selective_scan_bwd_occupancy(bsz, G, L, dg, int(bf16), out)
+    _raise_on(err, "selective_scan_bwd occupancy")
+    return dict(zip(OCCUPANCY_KEYS, out))
+
+
 def selective_scan_grouped_fwd_states(u, delta, A, B, C, D, delta_bias,
                                       softplus=True):
     """The training forward -> (y in the dtype of ``u``, fp32 cs).
@@ -229,7 +245,7 @@ def selective_scan_grouped_bwd(u, delta, A, B, C, D, delta_bias, cs, gy,
                          f"{gy.dtype} {tuple(gy.shape)}")
     if not _on_cuda(*args, cs, gy):
         return selective_scan_grouped_bwd_ref(*args, gy, softplus)
-    ntile = -(-dg // 64)  # kThreads channels per block
+    ntile = -(-dg // KERNEL_TILE)
     lib = _build.library()
     with torch.cuda.device(u.device):
         f32 = dict(dtype=torch.float32, device=u.device)

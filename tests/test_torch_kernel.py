@@ -314,8 +314,10 @@ def test_selective_scan_dispatcher_on_card_matches_cpu(cuda):
 
 # (G, L, dg) of the grouped training kernels' checks at batch 2: the four
 # SS2D stage shapes of the tm branch (G = 4), the mamba-130m width over a
-# long L, and a ragged L and dg with a partial last 16-step chunk
-TM_SHAPES = [(4, L, dg) for L, dg in STAGES] + [(1, 1000, 1536), (1, 7, 130)]
+# long L, a ragged L and dg with a partial last 16-step chunk, and an odd dg
+# (bf16 loaded by single values, the entry states by 4-byte copies)
+TM_SHAPES = [(4, L, dg) for L, dg in STAGES] + [(1, 1000, 1536), (1, 7, 130),
+                                                (1, 7, 129)]
 
 
 @pytest.mark.cuda
@@ -432,10 +434,13 @@ def _folded_args(bsz, L, dg, dtype, bidir, G=4, n=16, seed=0):
 
 
 # (batch, L, dg, bidir) of the folded kernels' checks: the four SS2D stage
-# shapes at batch 2, and a ragged shape (390 lanes, L not a multiple of the
-# 16-step chunk, the last channel tile of each batch 2 wide) both ways
+# shapes at batch 2, a ragged shape (390 lanes, L not a multiple of the
+# 16-step chunk, the last channel tile of each batch 2 wide) both ways, and
+# an odd dg both ways (odd batches' lanes start at an odd offset, so bf16
+# cannot be copied by channel pairs)
 FOLDED_SHAPES = [(2, L, dg, True) for L, dg in STAGES] + [
-    (3, 7, 130, True), (3, 7, 130, False)]
+    (3, 7, 130, True), (3, 7, 130, False), (3, 7, 129, True),
+    (3, 7, 129, False)]
 
 
 @pytest.mark.cuda
@@ -470,6 +475,38 @@ def test_folded_kernels_match_plain_versions(cuda, dtype, bsz, L, dg, bidir):
     for name, g, w in zip(sf.ARG_NAMES, got, want):
         assert_close_to_max(g, w, 1e-3 if name in SUMMED else 1e-4,
                             f"d{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["grouped", "folded", "folded_uni"])
+def test_grouped_and_folded_backwards_are_deterministic(cuda, kind, dtype):
+    """Two launches of the grouped or the folded backward (both ways) on the
+    same inputs give bitwise equal gradients: the folded pair merges du and
+    both reduce their partial sums in a fixed order, with no atomics."""
+    from functools import partial
+
+    from mamba_unet_torch.ops import selective_scan_folded as sf
+    from mamba_unet_torch.ops import selective_scan_grouped as sg
+
+    if kind == "grouped":
+        args = [a.to(cuda) for a in _grouped_args(2, 2, 97, 70, dtype,
+                                                  seed=11)]
+        fwd, bwd = (sg.selective_scan_grouped_fwd_states,
+                    sg.selective_scan_grouped_bwd)
+    else:
+        bidir = kind == "folded"
+        args = [a.to(cuda) for a in _folded_args(3, 97, 70, dtype, bidir,
+                                                 G=4 if bidir else 2,
+                                                 seed=11)]
+        fwd = partial(sf.selective_scan_folded_fwd_states, bidir=bidir)
+        bwd = partial(sf.selective_scan_folded_bwd, bidir=bidir)
+    y, cs = fwd(*args)
+    gy = torch.randn(y.shape, generator=torch.Generator().manual_seed(4)
+                     ).to(cuda, y.dtype)
+    runs = [bwd(*args, cs, gy) for _ in range(2)]
+    for k, (a, b) in enumerate(zip(*runs)):
+        assert torch.equal(a, b), k
 
 
 @pytest.mark.cuda
