@@ -11,13 +11,14 @@ exits non-zero; nothing is caught):
 
 1. device   - require CUDA; print ``nvidia-smi`` name and power limit.
 2. build    - compile the CUDA kernels from ``mamba_unet_torch/csrc``;
-              then ``[kernel_occ]``: per bidirectional kernel (serving,
-              state-saving, backward), grouped backward (G = 4) and folded
-              backward at each stage shape at bs24, and the grouped
-              backward at the mamba-130m shape, the grid, threads per
-              block, registers (fp32 and bf16), static and dynamic shared
-              memory, local bytes (spills) and the resident warps per SM the
-              card reports.
+              then ``[kernel_occ]``: per bidirectional, grouped (G = 4) and
+              folded kernel (serving forward, state-saving forward,
+              backward) at each stage shape at bs24, and the grouped ones at
+              the mamba-130m shape (serving at scoring's batch 8 x 1024,
+              state-saving and backward at the same shape), the grid,
+              threads per block, registers (fp32 and bf16), static and
+              dynamic shared memory, local bytes (spills) and the resident
+              warps per SM the card reports.
 3. kernel   - ``selective_scan_bidir`` (CUDA) against its plain PyTorch
               version at the four stage shapes of the 224² model, batch 2,
               and at the ragged shapes BIDIR_EDGES, fp32 and bf16 inputs;
@@ -29,7 +30,10 @@ exits non-zero; nothing is caught):
 5. serving  - 3 synthetic phantom volumes (10 slices, native 256x216)
               through ``cli.test.infer_volume`` at batch 24, fp32 and bf16,
               with PyTorch's TF32 defaults restored; the kernel must launch
-              14 times per served forward.
+              14 times per served forward. Then the bs24 forward timed, fp32
+              and bf16, on the bidir branch and, with the same weights, on
+              the tm and folded branches (their serving kernels, 14
+              launches per forward).
 6. kernel_bwd - the training kernels (state-saving forward: y and cs;
               backward: all seven gradients) against their plain versions
               at the four stage shapes, batch 2, and at BIDIR_EDGES, fp32
@@ -53,9 +57,10 @@ exits non-zero; nothing is caught):
 9. lm_kernel - ``selective_scan_grouped`` (CUDA kernel #3) against its
               plain version, y and the final state, batch 2, fp32 and bf16,
               at (G, L, dg) = (1, 1, 1536), (1, 7, 130), (1, 1000, 1536),
-              (4, 257, 192); then timed at the scoring shape (batch 8,
-              L=1024, dg=1536) and the prefill shape (batch 4, L=128, with
-              the final state), outputs compared again.
+              (4, 257, 192), (1, 17, 129), (2, 33, 64); then timed at the
+              scoring shape (batch 8, L=1024, dg=1536) and the prefill shape
+              (batch 4, L=128, with the final state), outputs compared
+              again.
 10. lm_parity - full-width mamba-130m (vocab 50277, seeded weights),
               batch 2 x 64 tokens: logits, prefill logits and decode states
               on the card against a CPU copy, fp32 with TF32 off.
@@ -70,9 +75,9 @@ exits non-zero; nothing is caught):
               cs; backward: all seven gradients) against their plain
               versions, batch 2, fp32 and bf16, at the four SS2D stage
               shapes with G = 4 and at (G, L, dg) = (1, 1000, 1536),
-              (1, 7, 130); then timed at bs24 per stage shape and at the
-              mamba-130m shape (batch 8, L=1024, dg=1536), the timed calls'
-              outputs compared again.
+              (1, 7, 130), (1, 17, 129), (2, 33, 48); then timed at bs24 per
+              stage shape and at the mamba-130m shape (batch 8, L=1024,
+              dg=1536), the timed calls' outputs compared again.
 13. tm_grad_parity - phase 7 through ``MambaUnet(scan_impl="tm")``: loss
               and every gradient card vs CPU, 14 + 14 grouped launches;
               then the same weights' logits on the card through the tm and
@@ -82,17 +87,18 @@ exits non-zero; nothing is caught):
               bidirectional one, 14 grouped serving launches per eval
               forward; a falling loss; step ms, slices/s, peak memory and a
               profile (``build/train_tm_profile.txt``), its device time per
-              step beside the earlier backward's (TM_STEP_DEVICE_MS_BASELINE).
+              step beside the earlier backward's (TM_STEP_DEVICE_MS_BASELINE)
+              and the earlier forward's (TM_STEP_DEVICE_MS_BEFORE_FWD).
 15. lm_grad - full-width mamba-130m, batch 2 x 128 tokens, fp32 with TF32
               off: next-token cross-entropy and every parameter's gradient
               card vs CPU, 24 + 24 grouped launches.
 16. folded_kernel - the batch-folded kernels (serving forward: y;
               state-saving forward: y and cs; backward: all seven
               gradients) against their plain versions, fp32 and bf16, at
-              the four SS2D stage shapes at batch 2 and at a ragged shape
-              (batch 3, L=7, dg=130) both bidirectional and
-              unidirectional; then timed at bs24 per stage shape, the timed
-              calls' outputs compared again.
+              the four SS2D stage shapes at batch 2 and at the ragged
+              FOLDED_EDGES both bidirectional and unidirectional; then
+              timed at bs24 per stage shape, the timed calls' outputs
+              compared again.
 17. folded_grad_parity - phase 7 through ``MambaUnet(scan_impl="folded")``:
               loss and every gradient card vs CPU, 14 + 14 folded launches
               and none of the other kernels; then the same weights' logits
@@ -103,7 +109,8 @@ exits non-zero; nothing is caught):
               forward; a falling loss; step ms, slices/s, peak memory and a
               profile (``build/train_folded_profile.txt``), its device time
               per step beside the earlier backward's
-              (FOLDED_STEP_DEVICE_MS_BASELINE).
+              (FOLDED_STEP_DEVICE_MS_BASELINE) and the earlier forward's
+              (FOLDED_STEP_DEVICE_MS_BEFORE_FWD).
 
 Then one JSON line with the kernel table, and the last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -139,6 +146,11 @@ BIDIR_STEP_DEVICE_MS_BASELINE = 129.72
 # same card at 700 W (PERF.md, section 5)
 TM_STEP_DEVICE_MS_BASELINE = 125.31
 FOLDED_STEP_DEVICE_MS_BASELINE = 112.75
+# the same with the redesigned backwards and the earlier grouped and folded
+# forwards (one thread per channel holding all 16 states), on the same card
+# at 700 W (PERF.md, section 5)
+TM_STEP_DEVICE_MS_BEFORE_FWD = 81.20
+FOLDED_STEP_DEVICE_MS_BEFORE_FWD = 71.73
 # full model, card vs CPU, fp32 with TF32 off: 14 scans plus the stock
 # layers in another summation order
 LOGIT_TOL = 1e-3
@@ -164,22 +176,28 @@ PATCH, NATIVE = 224, (256, 216)  # model input and phantom slice sizes
 # scan (G = 1, dg = 2 * 768) per layer and forward
 LM_VOCAB, LM_DEPTH, LM_DINNER = 50277, 24, 1536
 # (G, L, dg) of the kernel check at batch 2: one step, ragged L and dg,
-# the full width over a long L, four groups with ragged L and dg
+# the full width over a long L, four groups with ragged L and dg, an odd dg
+# whose last group is one channel wide at L = 17 (a partial 32-step chunk
+# holding a full 16-step state chunk), and L = 33 (one step past a chunk)
 LM_KERNEL_SHAPES = ((1, 1, 1536), (1, 7, 130), (1, 1000, 1536),
-                    (4, 257, 192))
+                    (4, 257, 192), (1, 17, 129), (2, 33, 64))
 # (tag, batch, L, final state) of the timed kernel calls: scoring (the
 # 1024-token bucket at batch 8) and prefill (4 prompts of 128 tokens)
 LM_TIMED = (("scoring", 8, 1024, False), ("prefill", 4, 128, True))
 LM_REQUESTS, LM_SCORE_BATCH = 64, 8
 # (G, L, dg) of the grouped training kernels' check at batch 2: the four
 # SS2D stage shapes of the tm branch (G = 4), the mamba-130m width over a
-# long L, and a ragged L and dg with a partial last 16-step chunk
+# long L, a ragged L and dg with a partial last 16-step chunk, and the odd
+# dg and L = 17, 33 of LM_KERNEL_SHAPES
 TM_KERNEL_SHAPES = tuple((4, L, dg) for L, dg, _ in STAGES) + (
-    (1, 1000, 1536), (1, 7, 130))
+    (1, 1000, 1536), (1, 7, 130), (1, 17, 129), (2, 33, 48))
 LM_TRAIN_SHAPE = (8, 1024)  # (batch, L) of the timed mamba-130m-shape call
-# (batch, L, dg) of the folded kernels' ragged check: 390 lanes, L not a
-# multiple of the 16-step chunk, the last channel tile of each batch 2 wide
-FOLDED_RAGGED = (3, 7, 130)
+# (batch, L, dg) of the folded kernels' ragged checks, each both ways: 390
+# lanes, L not a multiple of the 16-step chunk, the last channel tile of
+# each batch 2 wide; an odd dg at batch 3 (odd batches' lanes at odd
+# offsets: bf16 not by pairs) with L = 17, a partial 32-step chunk holding
+# a full 16-step state chunk (where a reversed direction starts); L = 33
+FOLDED_EDGES = ((3, 7, 130), (3, 17, 129), (2, 33, 48))
 LM_GRAD_BATCH, LM_GRAD_LEN = 2, 128  # phase 15's tokens
 LM_PROMPTS, LM_PROMPT_LEN, LM_NEW_TOKENS = 4, 128, 64
 # full mamba-130m, card vs CPU, fp32 with TF32 off: 24 scans plus fp32
@@ -474,9 +492,9 @@ def kernel_occ_phase(torch):
     occupancy the card reports (grid, threads per block, registers, static
     and dynamic shared memory, local bytes per thread, which count spills),
     the resident warps per SM the occupancy calculator allows, the grid's
-    warps per SM and its waves: the bidirectional kernels, the grouped
-    backward (G = 4) and the folded backward (bidirectional) at the stage
-    shapes at bs24, and the grouped backward at the mamba-130m shape."""
+    warps per SM and its waves: the bidirectional, grouped (G = 4) and
+    folded (bidirectional) kernels at the stage shapes at bs24, and the
+    grouped ones at the mamba-130m shape (serving at scoring's batch 8)."""
     from mamba_unet_torch.ops import selective_scan_bidir as ssb
     from mamba_unet_torch.ops import selective_scan_folded as ssf
     from mamba_unet_torch.ops import selective_scan_grouped as ssg
@@ -487,16 +505,20 @@ def kernel_occ_phase(torch):
                   k, b, L, dg, bf16))
              for kind in ("serve", "fwd_states", "bwd")
              for L, dg, _ in STAGES]
-    cases += [("grouped_bwd", TRAIN_BATCH, L, dg,
-               lambda b, L, dg, bf16: ssg.kernel_occupancy(b, 4, L, dg, bf16))
+    cases += [(f"grouped_{kind}", TRAIN_BATCH, L, dg,
+               lambda b, L, dg, bf16, k=kind: ssg.kernel_occupancy(
+                   k, b, 4, L, dg, bf16))
+              for kind in ("serve", "fwd_states", "bwd")
               for L, dg, _ in STAGES]
-    bsz, L = LM_TRAIN_SHAPE
-    cases.append(("grouped_bwd", bsz, L, LM_DINNER,
-                  lambda b, L, dg, bf16: ssg.kernel_occupancy(b, 1, L, dg,
-                                                              bf16)))
-    cases += [("folded_bwd", TRAIN_BATCH, L, dg,
-               lambda b, L, dg, bf16: ssf.kernel_occupancy(b, L, dg,
-                                                           bf16=bf16))
+    bsz, L = LM_TRAIN_SHAPE  # = scoring's (LM_TIMED)
+    cases += [(f"grouped_{kind}", bsz, L, LM_DINNER,
+               lambda b, L, dg, bf16, k=kind: ssg.kernel_occupancy(
+                   k, b, 1, L, dg, bf16))
+              for kind in ("serve", "fwd_states", "bwd")]
+    cases += [(f"folded_{kind}", TRAIN_BATCH, L, dg,
+               lambda b, L, dg, bf16, k=kind: ssf.kernel_occupancy(
+                   k, b, L, dg, bf16=bf16))
+              for kind in ("serve", "fwd_states", "bwd")
               for L, dg, _ in STAGES]
     for kind, bsz, L, dg, occupancy in cases:
         occ = occupancy(bsz, L, dg, False)
@@ -539,6 +561,36 @@ def scan_kernels(scan_impl: str):
     }
     kernels = branches.pop(scan_impl)
     return kernels, sum(branches.values(), ())
+
+
+def branch_serving_phase(torch, dev, model, batch, iters=10):
+    """Phase 5, last part: ``model``'s weights served at ``batch`` through
+    SS2D's tm and folded branches, fp32 and bf16: forward ms beside the
+    bidir branch's, and 14 launches of the branch's serving kernel per
+    forward (none of the other kernels)."""
+    from mamba_unet_torch.models.vssm import MambaUnet
+    from mamba_unet_torch.utils.export import make_predict_fn
+
+    for scan_impl in ("tm", "folded"):
+        (serve, *_), others = scan_kernels(scan_impl)
+        other = MambaUnet(num_classes=4, scan_impl=scan_impl, device=dev)
+        other.load_state_dict(model.state_dict())
+        for tag, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+            fn = make_predict_fn(other, dtype)
+            before = [k.launches for k in (serve, *others)]
+            ms, out = cuda_ms(torch, lambda: fn(batch), iters)
+            launched = [k.launches - b
+                        for k, b in zip((serve, *others), before)]
+            log("serving", scan_impl=scan_impl, dtype=tag,
+                batch=len(batch), forward_ms=f"{ms:.2f}",
+                slices_per_s=f"{len(batch) / ms * 1e3:.1f}",
+                launches=launched[0])
+            # cuda_ms runs two warm-up forwards before the timed ones
+            want = [SS2D_PER_FORWARD * (iters + 2)] + [0] * len(others)
+            if launched != want or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{scan_impl} serving launched "
+                                     f"{launched}, expected {want}")
+        del other
 
 
 def grad_parity_phase(torch, dev, scan_impl="auto"):
@@ -717,9 +769,14 @@ def training_phase(torch, dev, scan_impl="auto"):
     baseline = {"auto": BIDIR_STEP_DEVICE_MS_BASELINE,
                 "tm": TM_STEP_DEVICE_MS_BASELINE,
                 "folded": FOLDED_STEP_DEVICE_MS_BASELINE}[scan_impl]
+    before_fwd = {"tm": TM_STEP_DEVICE_MS_BEFORE_FWD,
+                  "folded": FOLDED_STEP_DEVICE_MS_BEFORE_FWD}.get(scan_impl)
     log(phase, device_ms_per_step=f"{device_ms:.2f}",
         baseline_device_ms_per_step=baseline,
-        change=f"{device_ms / baseline - 1:+.1%}")
+        change=f"{device_ms / baseline - 1:+.1%}",
+        **({} if before_fwd is None else {
+            "before_fwd_device_ms_per_step": before_fwd,
+            "change_fwd": f"{device_ms / before_fwd - 1:+.1%}"}))
     return launches
 
 
@@ -1146,7 +1203,7 @@ def folded_kernel_phase(torch, dev):
                            .manual_seed(seed)).to(dev, args[0].dtype)
 
     shapes = [(2, L, dg, True) for L, dg, _ in STAGES] + [
-        (*FOLDED_RAGGED, True), (*FOLDED_RAGGED, False)]
+        (*shape, bidir) for shape in FOLDED_EDGES for bidir in (True, False)]
     for bsz, L, dg, bidir in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             args = folded_args(torch, bsz, L, dg, dtype, dev, L + dg, bidir)
@@ -1412,14 +1469,16 @@ def main() -> int:
         raise AssertionError(f"kernel launched {launches} times, expected "
                              f"{expect} ({SS2D_PER_FORWARD} per forward)")
 
+    batch = torch.randn(SERVE_BATCH, 224, 224, 1, device=dev)
     for tag, fn in fns.items():
-        batch = torch.randn(SERVE_BATCH, 224, 224, 1, device=dev)
         ms, _ = cuda_ms(torch, lambda: fn(batch), 10)
         lat = served[tag]
-        log("serving", dtype=tag, batch=SERVE_BATCH, forward_ms=f"{ms:.2f}",
+        log("serving", scan_impl="auto", dtype=tag, batch=SERVE_BATCH,
+            forward_ms=f"{ms:.2f}",
             slices_per_s=f"{SERVE_BATCH / ms * 1e3:.1f}",
             volume_latency_ms=f"{1e3 * sum(lat) / len(lat):.1f}",
             volume_slices_per_s=f"{10 * len(lat) / sum(lat):.1f}")
+    branch_serving_phase(torch, dev, model, batch)
 
     # --- 6-8. the training path
     train_kernels = kernel_bwd_phase(torch, dev)

@@ -10,164 +10,137 @@
 //
 // Layout. The batch is folded into the channel axis: lane l of the B*dg
 // lanes is channel d = l % dg of batch b = l / dg. u is (S, L, B*dg): S = 2
-// data streams (bidir) or one per direction; delta and y are (G, L, B*dg)
-// and B, C are (G, L, N, B), fp32 or bf16; A is (G*dg, N), D and
-// delta_bias are (G*dg,), fp32. Direction g reads stream g % 2 (bidir) or
-// g; with bidir, directions g >= 2 scan their stream in reversed time.
+// data streams (bidir) or one per direction; delta and y are (G, L, B*dg),
+// fp32 or bf16; B and C are batch-major, (G, B, L, N), in the same dtype:
+// the wrapper moves the batch out of the innermost axis of the folded
+// (G, L, N, B); A is (G*dg, N), D and delta_bias are (G*dg,), fp32.
+// Direction g reads stream g % 2 (bidir) or g; with bidir, directions
+// g >= 2 scan their stream in reversed time.
 // Math, per direction g and lane (b, d), in the direction's scan order:
 //   delta = softplus(delta[g,t,l] + delta_bias[g*dg+d])  (softplus optional)
-//   x_t   = exp(delta*A[g*dg+d,:]) * x_prev + delta*B[g,t,:,b]*u[s,t,l]
-//   y_t   = <C[g,t,:,b], x_t> + D[g*dg+d]*u[s,t,l]
+//   x_t   = exp(delta*A[g*dg+d,:]) * x_prev + delta*B[g,b,t,:]*u[s,t,l]
+//   y_t   = <C[g,b,t,:], x_t> + D[g*dg+d]*u[s,t,l]
 // y is written per direction in data order (not pair-summed), rounded to
 // the input dtype once; the state (N = 16) and all arithmetic are fp32.
 //
-// With a non-null `cs` (the training forward) each thread also writes its
-// 16 fp32 states entering every chunk of kChunk data steps in its scan
-// order: cs[g, c, n, l] is the state before steps [16c, 16c + 16) are
+// With a non-null `cs` (the training forward) the kernel also writes the 16
+// fp32 states entering every 16-step chunk of data time in each direction's
+// scan order: cs[g, c, n, l] is the state before steps [16c, 16c + 16) are
 // scanned - after the steps before 16c going forward, after the steps from
 // 16c + 16 on going backward. The chunks are fixed in data time for both
-// orders, as the TPU kernel's are. The serving call passes null and
-// compiles without the stores (a template flag).
+// orders, as the TPU kernel's are, and cs is indexed by data chunk in both.
+// The serving call passes null and compiles without the stores (a template
+// flag).
 //
 // What bounds it on an H100. At stage 0 of the Mamba-UNet trained with
 // scan_impl="folded" (bs24, G=4, L=3136, dg=192, fp32) one call reads u (2
 // streams, 0.12 GB), delta (0.23 GB) and B/C (0.04 GB), writes y (0.23 GB)
 // and, training, cs (0.23 GB): 0.6-0.85 GB, 0.18-0.25 ms at 3.35 TB/s. It
 // computes 16 exps per (direction, step, lane), 0.93 G plus softplus, about
-// 0.23 ms at the SFU's rate. The recurrence is sequential in t; this
-// design's parallelism is G * B * ceil(dg/64) blocks of 64 threads (288 at
-// that shape), each walking all of L: latency bound, like the grouped
-// forward (selective_scan_fwd.cu), whose work it does.
+// 0.25 ms at the SFU's rate (chip_smoke.py::scan_bound). The recurrence is
+// sequential in t, so the parallelism is the 4 * B * dg lanes. The design
+// this one replaces (one thread per lane holding all 16 states in one
+// serial chain, blocks of 64 threads, 288 blocks and 4.4 warps per SM at
+// stage 0, B/C read batch-innermost, each of a step's 32 values a separate
+// 4-byte load strided by the batch) took 1.675 ms per stage-0 serving call
+// and 1.754 state-saving (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W):
+// latency bound.
 //
-// What the design does about it:
-//   * One thread per lane keeps its 16 states and its A row (scaled by
-//     log2(e), so each gate is one exp2f) in registers for the whole L.
-//   * One block per (direction g, batch b, tile of 64 channels of b): the
-//     tile's lanes are contiguous in every (g, t) row, so u/delta/y loads
-//     and stores coalesce, and the whole block shares one batch's B/C. A
-//     tile never straddles two batches (at the model's widths dg is a
-//     multiple of 64, so no lane idles; a ragged dg masks the last tile).
+// The design is that of selective_scan_bidir_fwd.cu without its pair
+// merge, on the device body selective_scan_fwd_group.cuh shares with
+// selective_scan_fwd.cu (see the notes there):
+//   * States split over lanes: 4 lanes per channel, 4 states each; y's sum
+//     over n is two shuffles.
+//   * A block is two 16-channel groups of one direction g and batch b: the
+//     groups' lanes are contiguous in every (g, t) row, so u/delta/y copies
+//     coalesce, and they share one staging of the batch's B/C. Grid
+//     (ceil(dg/32), G, B): 576 blocks at stage 0. Registers are capped so
+//     that at least 5 blocks fit per SM: stage 0 is one wave. Measured
+//     (chip_smoke.py [kernel_occ], NVIDIA H100 80GB HBM3, 700 W): 80
+//     registers serving and 90 state-saving (fp32 and bf16), no spills,
+//     36 KB of dynamic shared memory, 6 and 5 blocks (24 and 20 warps) per
+//     SM; 17.5 warps per SM in the grid, 0.73 and 0.87 waves at stage 0.
 //     The TPU kernel folds the batch into its lane tile to fill 128-lane
 //     vregs, and broadcasts per-batch B/C across lanes with a 0/1 matrix on
-//     the MXU; here the broadcast is the index b = blockIdx.y.
-//   * Per data chunk of kChunk steps, the block stages the batch's B/C and
-//     each thread's own u and delta in shared memory; a reversed direction
-//     walks the chunks, and the steps inside each, from the last.
-//   * The ragged L and dg are masked; masked threads (d >= dg) still reach
-//     every barrier.
+//     the MXU; here the broadcast is the index b = blockIdx.z.
+//   * B/C batch-major: a chunk's 32 x 16 values of one batch lie together
+//     and are copied 16 bytes at a time, where the folded layout strides
+//     every value by the batch (the backward measured the same trade:
+//     3.47 -> 3.30 ms per stage-0 call, selective_scan_folded_bwd.cu).
+//   * 32-step chunks staged with cp.async one chunk ahead, converted once
+//     per element; a reversed direction walks the chunks, the 16-step state
+//     chunks in each and the steps in each from the last, and its entry
+//     state of data chunk c is the state before step min(16c + 15, L - 1).
+//   * y and the entry states leave through shared memory as rows of
+//     contiguous lanes. An odd dg at an odd batch puts a batch's first lane
+//     at an odd offset, where bf16 cannot move by 4-byte pairs: the
+//     launcher then picks plain loads and stores.
+//   * Gates by one SFU ex2 with subnormals flushed to zero (exp2_ftz).
+//   * Masked threads (d >= dg) run with zero inputs: they reach every
+//     barrier and shuffle.
+// Where the time goes now (chip_smoke.py and scripts/scan_phases.py, same
+// card, fp32): 0.677 ms per stage-0 serving call (2.7x its bound) and
+// 4.65 ms per forward, 0.738 ms state-saving (2.9x) and 5.15 ms per train
+// step, the wrapper's B/C copies included. Of the kernel's time, 58-61 % is
+// the scan, 23-26 % converting (the softplus), 3-9 % the write-out (cs
+// doubles it) and 8 % issuing the copies: latency bound at 4-5 warps per
+// scheduler.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "selective_scan_fwd_group.cuh"
 
 namespace {
 
-constexpr int kN = 16;        // d_state
-constexpr int kThreads = 64;  // channels of one batch per block, one each
-constexpr int kChunk = 16;    // data steps staged per pass = between states
-constexpr float kLog2e = 1.4426950408889634f;
+using namespace scan_fwd;
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_io(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_io(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float softplus(float x) {
-  return x > 20.f ? x : log1pf(expf(x));
-}
-
+// grid (ceil(dg/32), G, B): group r of block (x, g, b) is channels
+// 32x + 16r.. of direction g and batch b
 template <typename T, bool kSave>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 folded_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
                   const T* __restrict__ Bm, const T* __restrict__ Cm,
                   const float* __restrict__ A, const float* __restrict__ D,
                   const float* __restrict__ delta_bias, T* __restrict__ y,
                   float* __restrict__ cs, int batch, int L, int dg, int bidir,
-                  int apply_softplus) {
-  __shared__ float s_u[kChunk][kThreads];
-  __shared__ float s_delta[kChunk][kThreads];
-  __shared__ float s_B[kChunk * kN];
-  __shared__ float s_C[kChunk * kN];
-
-  const int tid = threadIdx.x;
-  const int d = blockIdx.x * kThreads + tid;
-  const int b = blockIdx.y;
-  const int g = blockIdx.z;
-  const bool active = d < dg;
-  const bool rev = bidir && g >= 2;
+                  int apply_softplus, int flags) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int g = blockIdx.y;
+  const int b = blockIdx.z;
+  const int d0 = (2 * blockIdx.x + threadIdx.x / kGroup) * kCh;  // group's
   const int stream = bidir ? (g & 1) : g;
-  const int nc = (L + kChunk - 1) / kChunk;
-
+  const int nc = (L + kStateChunk - 1) / kStateChunk;
   const size_t BD = (size_t)batch * dg;  // lanes of one (g, t) row
-  const size_t lane = (size_t)b * dg + d;
-  const T* u_s = u + (size_t)stream * L * BD + lane;  // + t * BD
-  const T* delta_s = delta + (size_t)g * L * BD + lane;
-  T* y_s = y + (size_t)g * L * BD + lane;
-  const T* B_s = Bm + (size_t)g * L * kN * batch + b;  // + (t*kN + n)*batch
-  const T* C_s = Cm + (size_t)g * L * kN * batch + b;
-  float* cs_s = kSave ? cs + (size_t)g * nc * kN * BD + lane : nullptr;
-  const size_t row = (size_t)g * dg + d;  // channel among the G*dg
+  const size_t lane = (size_t)b * dg + d0;
+  const size_t dir = (size_t)g * L * BD + lane;
+  const size_t row = (size_t)g * dg + d0;  // channel among the G*dg
 
-  float a2[kN], x[kN];
-  float skip = 0.f, bias = 0.f;
-  if (active) {
-#pragma unroll
-    for (int n = 0; n < kN; ++n) a2[n] = A[row * kN + n] * kLog2e;
-    skip = D[row];
-    bias = delta_bias[row];
-  } else {
-#pragma unroll
-    for (int n = 0; n < kN; ++n) a2[n] = 0.f;
-  }
-#pragma unroll
-  for (int n = 0; n < kN; ++n) x[n] = 0.f;
+  Group<T> io;
+  io.u = u + (size_t)stream * L * BD + lane;
+  io.delta = delta + dir;
+  io.B = Bm + ((size_t)g * batch + b) * L * kN;
+  io.C = Cm + ((size_t)g * batch + b) * L * kN;
+  io.A = A + row * kN;
+  io.D = D + row;
+  io.bias = delta_bias + row;
+  io.y = y + dir;
+  io.cs = kSave ? cs + (size_t)g * nc * kN * BD + lane : nullptr;
+  io.last = nullptr;
+  io.u_base = u;
+  io.B_base = Bm;
+  io.ts = static_cast<int>(BD);
+  io.cns = static_cast<int>(BD);
+  io.nvalid = min(kCh, dg - d0);
+  io.rev = bidir && g >= 2;
+  group_fwd<kSave>(io, L, apply_softplus != 0, flags, smem_raw);
+}
 
-  for (int k = 0; k < nc; ++k) {
-    const int c = rev ? nc - 1 - k : k;  // data chunk of scan chunk k
-    const int t0 = c * kChunk;
-    const int len = min(kChunk, L - t0);
-    __syncthreads();  // the previous chunk is done with shared memory
-    for (int i = tid; i < len * kN; i += kThreads) {  // i = s * kN + n
-      const size_t off = ((size_t)t0 * kN + i) * batch;
-      s_B[i] = load_f32(B_s + off);
-      s_C[i] = load_f32(C_s + off);
-    }
-    if (active) {
-      for (int s = 0; s < len; ++s) {
-        const size_t off = (size_t)(t0 + s) * BD;
-        s_u[s][tid] = load_f32(u_s + off);
-        s_delta[s][tid] = load_f32(delta_s + off);
-      }
-    }
-    __syncthreads();
-    if (active) {
-      if (kSave) {
-        float* dst = cs_s + (size_t)c * kN * BD;
-#pragma unroll
-        for (int n = 0; n < kN; ++n) dst[(size_t)n * BD] = x[n];
-      }
-#pragma unroll 4
-      for (int i = 0; i < len; ++i) {
-        const int s = rev ? len - 1 - i : i;
-        const float uu = s_u[s][tid];
-        const float raw = s_delta[s][tid] + bias;
-        const float dt = apply_softplus ? softplus(raw) : raw;
-        const float du = dt * uu;
-        float yv = 0.f;
-#pragma unroll
-        for (int n = 0; n < kN; ++n) {
-          x[n] = exp2f(dt * a2[n]) * x[n] + du * s_B[s * kN + n];
-          yv += s_C[s * kN + n] * x[n];
-        }
-        store_io(y_s + (size_t)(t0 + s) * BD, yv + skip * uu);
-      }
-    }
-  }
+template <typename T>
+const void* kernel_of(bool save) {
+  return save ? reinterpret_cast<const void*>(folded_fwd_kernel<T, true>)
+              : reinterpret_cast<const void*>(folded_fwd_kernel<T, false>);
+}
+
+dim3 grid_of(int batch, int G, int dg) {
+  return dim3((dg + 2 * kCh - 1) / (2 * kCh), G, batch);
 }
 
 template <typename T>
@@ -176,23 +149,24 @@ cudaError_t launch(const void* u, const void* delta, const void* Bm,
                    const void* delta_bias, void* y, void* cs, int batch,
                    int G, int L, int dg, int bidir, int apply_softplus,
                    cudaStream_t stream) {
-  const dim3 grid((dg + kThreads - 1) / kThreads, batch, G);
+  const int flags = flags_for<T>(dg, u, delta, y, Bm, Cm, cs);
   auto kernel = cs ? folded_fwd_kernel<T, true> : folded_fwd_kernel<T, false>;
-  kernel<<<grid, kThreads, 0, stream>>>(
+  kernel<<<grid_of(batch, G, dg), kThreads, kSmem, stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(delta),
       static_cast<const T*>(Bm), static_cast<const T*>(Cm),
       static_cast<const float*>(A), static_cast<const float*>(D),
       static_cast<const float*>(delta_bias), static_cast<T*>(y),
-      static_cast<float*>(cs), batch, L, dg, bidir, apply_softplus);
+      static_cast<float*>(cs), batch, L, dg, bidir, apply_softplus, flags);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// Pointers are contiguous device buffers laid out as documented above; `cs`
-// is null (serving) or (G, ceil(L / 16), 16, batch*dg) fp32 (training).
-// With bidir, G must be 4 and u holds 2 streams; without, u holds G.
+// Pointers are contiguous device buffers laid out as documented above (B
+// and C batch-major); `cs` is null (serving) or (G, ceil(L / 16), 16,
+// batch*dg) fp32 (training). With bidir, G must be 4 and u holds 2 streams;
+// without, u holds G.
 extern "C" int selective_scan_folded_fwd(const void* u, const void* delta,
                                          const void* Bm, const void* Cm,
                                          const void* A, const void* D,
@@ -202,7 +176,8 @@ extern "C" int selective_scan_folded_fwd(const void* u, const void* delta,
                                          int apply_softplus, int is_bf16,
                                          void* stream) {
   if (n != kN || batch <= 0 || batch > 65535 || G <= 0 || G > 65535 ||
-      L <= 0 || dg <= 0 || (bidir && G != 4)) {
+      L <= 0 || dg <= 0 || (bidir && G != 4) ||
+      (size_t)batch * dg > 0x7fffffff / kN) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -213,4 +188,19 @@ extern "C" int selective_scan_folded_fwd(const void* u, const void* delta,
               : launch<float>(u, delta, Bm, Cm, A, D, delta_bias, y, cs,
                               batch, G, L, dg, bidir, apply_softplus, s);
   return static_cast<int>(err);
+}
+
+// Reports the launch configuration and occupancy of the kernel that
+// selective_scan_folded_fwd launches for (batch, G, L, dg), serving
+// (save = 0) or state-saving: out[0..8] = grid x, y, z, threads per block,
+// registers per thread, static and dynamic shared memory per block
+// (bytes), local memory per thread (bytes; spills), and the resident
+// blocks per SM the occupancy calculator allows.
+extern "C" int selective_scan_folded_fwd_occupancy(int batch, int G, int L,
+                                                   int dg, int is_bf16,
+                                                   int save, int* out) {
+  (void)L;
+  return occupancy(is_bf16 ? kernel_of<__nv_bfloat16>(save != 0)
+                           : kernel_of<float>(save != 0),
+                   grid_of(batch, G, dg), out);
 }

@@ -19,162 +19,112 @@
 // non-null `last_state` the kernel also writes x_L as (B, G*dg, N) fp32: the
 // decode cache a prefill hands to the single-token step.
 //
-// With a non-null `cs` (the training forward) each thread also writes its 16
-// fp32 states at every kStateChunk-th step: cs[b, g, c, n, d] = the state
-// entering step c * kStateChunk (zero for c = 0), nc = ceil(L / 16) chunks.
-// The serving call passes null and compiles without the stores (a template
-// flag), so serving runs the code it ran before the option existed.
+// With a non-null `cs` (the training forward) the kernel also writes the
+// fp32 state entering every 16-step chunk: cs[b, g, c, n, d] = the state
+// entering step 16c (zero for c = 0), nc = ceil(L / 16) chunks. The serving
+// call passes null and compiles without the stores (a template flag).
 //
-// A sibling of selective_scan_bidir_fwd.cu, not a template mode of it: that
-// kernel's block walks a pair of directions over one data stream and adds
-// the second onto the first's fp32 output, while this one walks G groups of
-// B/C once, writes y in the input dtype and may write the final state.
-// Three flags through one body would make both harder to read, and the
-// shipped bidirectional kernel stays as it was measured.
+// What bounds it on an H100. At stage 0 of the Mamba-UNet trained with
+// scan_impl="tm" (bs24, G=4, L=3136, dg=192, fp32) one state-saving call
+// reads u, delta (2 x 0.23 GB) and B/C (0.04 GB) and writes y (0.23 GB)
+// and cs (0.23 GB): about 0.96 GB, 0.29 ms at 3.35 TB/s; it needs 16 exps
+// per (step, channel) plus the softplus, about 1.0 G special-function
+// results, 0.25 ms. At the Mamba-LM scoring shape (mamba-130m: batch 8,
+// L = 1024, G*dg = 1536, fp32) a serving call moves 0.15 GB and needs
+// 2.0e8 exps: 0.054 ms, set by operations (chip_smoke.py::scan_bound).
+// The recurrence is sequential in t, so the parallelism is the B * G * dg
+// channels. The design this one replaces (one thread per channel holding
+// all 16 states in one serial chain, blocks of 64 threads: 288 blocks, 4.4
+// warps per SM at stage 0, 192 blocks, 2.9 warps per SM at the scoring
+// shape) took 1.188 ms per stage-0 call (state-saving) and 0.2878 ms per
+// scoring call (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): latency
+// bound.
 //
-// What bounds it on an H100. At the Mamba-LM scoring shape (mamba-130m:
-// batch 8, L = 1024, G*dg = 1536, fp32) one call moves about 0.15 GB (u,
-// delta in, y out; B/C are 1 MB), 45 us at 3.35 TB/s, and computes about
-// 2.0e8 exps (one per state and step, plus softplus), about 50 us at the
-// SFU's rate: a floor near 0.05 ms, set by operations. The recurrence is
-// sequential in t, and this design's parallelism is B*G*ceil(dg/64) blocks
-// of 64 threads: at batch 1 only ceil(1536/64) = 24 blocks for 132 SMs,
-// at batch 8 192 blocks of 2 warps. So it is latency bound, far above that
-// floor. Splitting L with a carry pass, or the 16 states over lanes, is
-// later work.
-//
-// What the design does about it:
-//   * One thread per channel d keeps its 16 states and its A row (scaled by
-//     log2(e), so each gate is one exp2f) in registers for the whole L.
-//   * One block per (b, g, 64-channel tile).
-//   * Per chunk of kChunk steps, the block stages the group's B/C (shared
-//     by all its threads) and each thread's own u and delta in shared
-//     memory, so the sequential loop reads no device memory. Neighbouring
-//     threads load neighbouring channels of one step: coalesced.
-//   * The ragged L and dg are masked; masked threads (d >= dg) still reach
-//     every barrier.
+// The design is that of selective_scan_bidir_fwd.cu without its pair
+// merge, on the device body selective_scan_fwd_group.cuh shares with
+// selective_scan_folded_fwd.cu (see the notes there):
+//   * States split over lanes: 4 lanes per channel, 4 states each; y's sum
+//     over n is two shuffles. 4x the threads, a quarter of the exp/FMA
+//     chain per thread.
+//   * A block is two 16-channel groups of the same (b, g), sharing one
+//     staging of its B/C: grid (ceil(dg/32), G, B), 576 blocks at stage 0
+//     of the tm branch, 384 at the scoring shape, 48 for a batch-1 prefill
+//     (splitting L for batch 1 is later work). Registers are capped so that
+//     at least 5 blocks fit per SM: stage 0 is one wave. Measured
+//     (chip_smoke.py [kernel_occ], NVIDIA H100 80GB HBM3, 700 W): 79
+//     registers serving, 80 state-saving (78-79 bf16), no spills, 36 KB of
+//     dynamic shared memory, 6 blocks (24 warps) per SM; 17.5 warps per SM
+//     in the grid and 0.73 waves at stage 0, 11.6 and 0.48 at the scoring
+//     shape.
+//   * 32-step chunks staged with cp.async one chunk ahead (16-byte copies
+//     where dg and the pointers allow), converted once per element into
+//     shared memory (dt = softplus(delta + bias), dt*u, D*u); y and the
+//     entry states leave through shared memory as rows of contiguous
+//     channels.
+//   * Each gate exp(dt A) is one SFU ex2 with subnormal results flushed to
+//     zero (exp2_ftz).
+//   * Masked channels (d >= dg) and the steps past a ragged chunk run with
+//     zero inputs or not at all; every thread reaches every barrier and
+//     shuffle.
+// Where the time goes now (chip_smoke.py and scripts/scan_phases.py, same
+// card, fp32): 0.653 ms per stage-0 state-saving call (2.3x its bound),
+// 4.55 ms per tm step, 0.160 ms per mamba-130m state-saving call and
+// 0.1475 ms per scoring call (2.7x its bound). Of the kernel's time, 59-62 %
+// is the scan, 24-26 % converting (the softplus), 3-8 % the write-out and
+// 7-8 % issuing the copies, which land before the barrier: latency bound at
+// 3-6 warps per scheduler, as the bidirectional forward is.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "selective_scan_fwd_group.cuh"
 
 namespace {
 
-constexpr int kN = 16;        // d_state
-constexpr int kThreads = 64;  // channels per block, one thread each
-constexpr int kChunk = 32;    // time steps staged in shared memory per pass
-constexpr int kStateChunk = 16;  // steps between saved states (= bwd kChunk)
-static_assert(kChunk % kStateChunk == 0, "a state chunk is inside a chunk");
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_io(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_io(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float softplus(float x) {
-  return x > 20.f ? x : log1pf(expf(x));
-}
+using namespace scan_fwd;
 
 template <typename T, bool kSave>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 grouped_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
                    const T* __restrict__ Bm, const T* __restrict__ Cm,
                    const float* __restrict__ A, const float* __restrict__ D,
                    const float* __restrict__ delta_bias, T* __restrict__ y,
                    float* __restrict__ last_state, float* __restrict__ cs,
-                   int G, int L, int dg, int apply_softplus) {
-  __shared__ float s_u[kChunk][kThreads];
-  __shared__ float s_delta[kChunk][kThreads];
-  __shared__ float s_B[kChunk * kN];
-  __shared__ float s_C[kChunk * kN];
-
-  const int tid = threadIdx.x;
-  const int d = blockIdx.x * kThreads + tid;
+                   int G, int L, int dg, int apply_softplus, int flags) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int g = blockIdx.y;
   const int b = blockIdx.z;
-  const bool active = d < dg;
-
+  const int d0 = (2 * blockIdx.x + threadIdx.x / kGroup) * kCh;  // group's
+  const int nc = (L + kStateChunk - 1) / kStateChunk;
   const size_t seq = (size_t)(b * G + g) * L;  // first step of (b, g)
-  const T* u_s = u + seq * dg;
-  const T* delta_s = delta + seq * dg;
-  const T* B_s = Bm + seq * kN;
-  const T* C_s = Cm + seq * kN;
-  T* y_s = y + seq * dg;
-  const size_t row = (size_t)g * dg + d;  // channel among the G*dg
-  float* cs_s =
-      kSave ? cs + (size_t)(b * G + g) * ((L + kStateChunk - 1) / kStateChunk)
-                       * kN * dg + d
-            : nullptr;
+  const size_t row = (size_t)g * dg + d0;      // channel among the G*dg
 
-  float a2[kN], x[kN];
-  float skip = 0.f, bias = 0.f;
-  if (active) {
-#pragma unroll
-    for (int n = 0; n < kN; ++n) a2[n] = A[row * kN + n] * kLog2e;
-    skip = D[row];
-    bias = delta_bias[row];
-  } else {
-#pragma unroll
-    for (int n = 0; n < kN; ++n) a2[n] = 0.f;
-  }
-#pragma unroll
-  for (int n = 0; n < kN; ++n) x[n] = 0.f;
+  Group<T> io;
+  io.u = u + seq * dg + d0;
+  io.delta = delta + seq * dg + d0;
+  io.B = Bm + seq * kN;
+  io.C = Cm + seq * kN;
+  io.A = A + row * kN;
+  io.D = D + row;
+  io.bias = delta_bias + row;
+  io.y = y + seq * dg + d0;
+  io.cs = kSave ? cs + (size_t)(b * G + g) * nc * kN * dg + d0 : nullptr;
+  io.last = last_state != nullptr
+                ? last_state + ((size_t)b * G * dg + row) * kN : nullptr;
+  io.u_base = u;
+  io.B_base = Bm;
+  io.ts = dg;
+  io.cns = dg;
+  io.nvalid = min(kCh, dg - d0);
+  io.rev = false;
+  group_fwd<kSave>(io, L, apply_softplus != 0, flags, smem_raw);
+}
 
-  for (int t0 = 0; t0 < L; t0 += kChunk) {
-    const int len = min(kChunk, L - t0);
-    __syncthreads();  // the previous chunk is done with shared memory
-    for (int i = tid; i < len * kN; i += kThreads) {
-      const size_t off = (size_t)t0 * kN + i;
-      s_B[i] = load_f32(B_s + off);
-      s_C[i] = load_f32(C_s + off);
-    }
-    if (active) {
-      for (int s = 0; s < len; ++s) {
-        const size_t off = (size_t)(t0 + s) * dg + d;
-        s_u[s][tid] = load_f32(u_s + off);
-        s_delta[s][tid] = load_f32(delta_s + off);
-      }
-    }
-    __syncthreads();
-    if (active) {
-#pragma unroll 4
-      for (int s = 0; s < len; ++s) {
-        if (kSave && s % kStateChunk == 0) {  // t0 is a multiple too
-          float* dst = cs_s + (size_t)((t0 + s) / kStateChunk) * kN * dg;
-#pragma unroll
-          for (int n = 0; n < kN; ++n) dst[(size_t)n * dg] = x[n];
-        }
-        const float uu = s_u[s][tid];
-        const float raw = s_delta[s][tid] + bias;
-        const float dt = apply_softplus ? softplus(raw) : raw;
-        const float du = dt * uu;
-        float yv = 0.f;
-#pragma unroll
-        for (int n = 0; n < kN; ++n) {
-          x[n] = exp2f(dt * a2[n]) * x[n] + du * s_B[s * kN + n];
-          yv += s_C[s * kN + n] * x[n];
-        }
-        store_io(y_s + (size_t)(t0 + s) * dg + d, yv + skip * uu);
-      }
-    }
-  }
+template <typename T>
+const void* kernel_of(bool save) {
+  return save ? reinterpret_cast<const void*>(grouped_fwd_kernel<T, true>)
+              : reinterpret_cast<const void*>(grouped_fwd_kernel<T, false>);
+}
 
-  if (last_state != nullptr && active) {
-    // (B, G*dg, N): the thread's 16 states are 64 contiguous, 64-byte
-    // aligned bytes
-    float4* dst = reinterpret_cast<float4*>(
-        last_state + ((size_t)b * G * dg + row) * kN);
-#pragma unroll
-    for (int q = 0; q < kN / 4; ++q) {
-      dst[q] = make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
-    }
-  }
+dim3 grid_of(int batch, int G, int dg) {
+  return dim3((dg + 2 * kCh - 1) / (2 * kCh), G, batch);
 }
 
 template <typename T>
@@ -183,16 +133,16 @@ cudaError_t launch(const void* u, const void* delta, const void* Bm,
                    const void* delta_bias, void* y, void* last_state,
                    void* cs, int batch, int G, int L, int dg,
                    int apply_softplus, cudaStream_t stream) {
-  const dim3 grid((dg + kThreads - 1) / kThreads, G, batch);
+  const int flags = flags_for<T>(dg, u, delta, y, Bm, Cm, cs);
   auto kernel =
       cs ? grouped_fwd_kernel<T, true> : grouped_fwd_kernel<T, false>;
-  kernel<<<grid, kThreads, 0, stream>>>(
+  kernel<<<grid_of(batch, G, dg), kThreads, kSmem, stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(delta),
       static_cast<const T*>(Bm), static_cast<const T*>(Cm),
       static_cast<const float*>(A), static_cast<const float*>(D),
       static_cast<const float*>(delta_bias), static_cast<T*>(y),
       static_cast<float*>(last_state), static_cast<float*>(cs), G, L, dg,
-      apply_softplus);
+      apply_softplus, flags);
   return cudaGetLastError();
 }
 
@@ -223,4 +173,19 @@ extern "C" int selective_scan_fwd(const void* u, const void* delta,
                               last_state, cs, batch, G, L, dg,
                               apply_softplus, s);
   return static_cast<int>(err);
+}
+
+// Reports the launch configuration and occupancy of the kernel that
+// selective_scan_fwd launches for (batch, G, L, dg), serving (save = 0) or
+// state-saving: out[0..8] = grid x, y, z, threads per block, registers per
+// thread, static and dynamic shared memory per block (bytes), local memory
+// per thread (bytes; spills), and the resident blocks per SM the occupancy
+// calculator allows.
+extern "C" int selective_scan_fwd_occupancy(int batch, int G, int L, int dg,
+                                            int is_bf16, int save,
+                                            int* out) {
+  (void)L;
+  return occupancy(is_bf16 ? kernel_of<__nv_bfloat16>(save != 0)
+                           : kernel_of<float>(save != 0),
+                   grid_of(batch, G, dg), out);
 }

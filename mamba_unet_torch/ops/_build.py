@@ -47,9 +47,11 @@ _SIGNATURES = {
     # du, ddelta, dB_part, dC_part, dA_part, dD_part, ddb_part,
     # batch, G, L, dg, n, softplus, is_bf16, stream
     "selective_scan_bwd": [_P] * 16 + [_I] * 7 + [_P],
+    # batch, G, L, dg, is_bf16, save, out (int[9]) as the bidir occupancy
+    "selective_scan_fwd_occupancy": [_I] * 6 + [_P],
     # batch, G, L, dg, is_bf16, out (int[9]) as the bidir occupancy
     "selective_scan_bwd_occupancy": [_I] * 5 + [_P],
-    # u, delta, B, C, A, D, delta_bias, y, cs (or null),
+    # u, delta, B, C (batch-major), A, D, delta_bias, y, cs (or null),
     # batch, G, L, dg, n, bidir, softplus, is_bf16, stream
     "selective_scan_folded_fwd": [_P] * 9 + [_I] * 8 + [_P],
     # u, delta, B, C, A, D, delta_bias, cs, gy,
@@ -57,6 +59,8 @@ _SIGNATURES = {
     # ddb_part,
     # batch, G, L, dg, n, bidir, softplus, is_bf16, stream
     "selective_scan_folded_bwd": [_P] * 16 + [_I] * 8 + [_P],
+    # batch, G, L, dg, is_bf16, save, out (int[9]) as the bidir occupancy
+    "selective_scan_folded_fwd_occupancy": [_I] * 6 + [_P],
     # batch, G, L, dg, bidir, is_bf16, out (int[9]) as the bidir occupancy
     "selective_scan_folded_bwd_occupancy": [_I] * 6 + [_P],
 }

@@ -65,7 +65,7 @@ from mamba_unet_torch.ops import _build
 from mamba_unet_torch.ops.selective_scan_bidir import OCCUPANCY_KEYS
 
 KERNEL_N = 16  # the d_state the CUDA kernels are compiled for
-STATE_CHUNK = 16  # data steps between saved states (kChunk in the .cu)
+STATE_CHUNK = 16  # data steps between saved states (kStateChunk in the .cuh)
 # channels of one batch per dB/dC partial of the backward: a group's kCh
 # (bidirectional: a block is a direction pair) or a block's 2 * kCh
 KERNEL_TILE = {True: 16, False: 32}
@@ -220,6 +220,12 @@ def _dims(delta, B):
     return G, L, B.shape[-1], BD // B.shape[-1]
 
 
+def _batch_major(B, C):
+    """B/C (G, L, N, batch) -> contiguous (G, batch, L, N), the kernels'
+    layout: a chunk's steps of one batch lie together for 16-byte copies."""
+    return (t.permute(0, 3, 1, 2).contiguous() for t in (B, C))
+
+
 def _launch_fwd(args, softplus, bidir, cs):
     """Launch the forward kernel -> y; ``cs`` is its optional fp32 output
     (None: not written)."""
@@ -228,8 +234,9 @@ def _launch_fwd(args, softplus, bidir, cs):
     lib = _build.library()  # builds the kernels on first use
     with torch.cuda.device(u.device):
         y = torch.empty(delta.shape, dtype=u.dtype, device=u.device)
+        Bt, Ct = _batch_major(B, C)
         err = lib.selective_scan_folded_fwd(
-            u.data_ptr(), delta.data_ptr(), B.data_ptr(), C.data_ptr(),
+            u.data_ptr(), delta.data_ptr(), Bt.data_ptr(), Ct.data_ptr(),
             A.data_ptr(), D.data_ptr(), delta_bias.data_ptr(), y.data_ptr(),
             None if cs is None else cs.data_ptr(), bsz, G, L, dg,
             A.shape[-1], int(bool(bidir)), int(bool(softplus)),
@@ -239,16 +246,21 @@ def _launch_fwd(args, softplus, bidir, cs):
     return y
 
 
-def kernel_occupancy(bsz: int, L: int, dg: int, bidir: bool = True,
-                     bf16: bool = False) -> dict:
-    """The launch configuration of the backward kernel at (bsz, L, dg) with
-    4 directions (bidirectional) or 4 streams, as the card reports it:
+def kernel_occupancy(kind: str, bsz: int, L: int, dg: int,
+                     bidir: bool = True, bf16: bool = False) -> dict:
+    """The launch configuration of the kernel that ``kind`` (``serve``,
+    ``fwd_states`` or ``bwd``) launches at (bsz, L, dg) with 4 directions
+    (bidirectional) or 4 streams, as the card reports it:
     ``selective_scan_bidir.OCCUPANCY_KEYS`` -> int. Needs a card."""
     lib = _build.library()
     out = (ctypes.c_int * len(OCCUPANCY_KEYS))()
-    err = lib.selective_scan_folded_bwd_occupancy(bsz, 4, L, dg, int(bidir),
-                                                  int(bf16), out)
-    _raise_on(err, "selective_scan_folded_bwd occupancy")
+    if kind == "bwd":
+        err = lib.selective_scan_folded_bwd_occupancy(
+            bsz, 4, L, dg, int(bidir), int(bf16), out)
+    else:
+        err = lib.selective_scan_folded_fwd_occupancy(
+            bsz, 4, L, dg, int(bf16), int(kind == "fwd_states"), out)
+    _raise_on(err, f"selective_scan_folded {kind} occupancy")
     return dict(zip(OCCUPANCY_KEYS, out))
 
 
@@ -325,9 +337,7 @@ def selective_scan_folded_bwd(u, delta, A, B, C, D, delta_bias, cs, gy,
         dA_part = torch.empty(bsz, G * dg, n, **f32)
         dD_part = torch.empty(bsz, G * dg, **f32)
         ddb_part = torch.empty(bsz, G * dg, **f32)
-        # B/C batch-major, (G, B, L, N): a step's N values of one batch lie
-        # together for the kernel's 16-byte copies
-        Bt, Ct = (t.permute(0, 3, 1, 2).contiguous() for t in (B, C))
+        Bt, Ct = _batch_major(B, C)
         err = lib.selective_scan_folded_bwd(
             u.data_ptr(), delta.data_ptr(), Bt.data_ptr(), Ct.data_ptr(),
             A.data_ptr(), D.data_ptr(), delta_bias.data_ptr(), cs.data_ptr(),

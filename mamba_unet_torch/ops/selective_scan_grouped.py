@@ -53,7 +53,7 @@ from mamba_unet_torch.ops import _build
 from mamba_unet_torch.ops.selective_scan_bidir import OCCUPANCY_KEYS
 
 KERNEL_N = 16  # the d_state the CUDA kernels are compiled for
-STATE_CHUNK = 16  # steps between saved states (kStateChunk in the .cu)
+STATE_CHUNK = 16  # steps between saved states (kStateChunk in the .cuh)
 KERNEL_TILE = 32  # channels per block of the backward (2 * kCh)
 ARG_NAMES = ("u", "delta", "A", "B", "C", "D", "delta_bias")
 
@@ -189,15 +189,20 @@ def _launch_fwd(args, softplus, last, cs):
     return y
 
 
-def kernel_occupancy(bsz: int, G: int, L: int, dg: int,
+def kernel_occupancy(kind: str, bsz: int, G: int, L: int, dg: int,
                      bf16: bool = False) -> dict:
-    """The launch configuration of the backward kernel at (bsz, G, L, dg),
-    as the card reports it: ``selective_scan_bidir.OCCUPANCY_KEYS`` -> int.
-    Needs a card."""
+    """The launch configuration of the kernel that ``kind`` (``serve``,
+    ``fwd_states`` or ``bwd``) launches at (bsz, G, L, dg), as the card
+    reports it: ``selective_scan_bidir.OCCUPANCY_KEYS`` -> int. Needs a
+    card."""
     lib = _build.library()
     out = (ctypes.c_int * len(OCCUPANCY_KEYS))()
-    err = lib.selective_scan_bwd_occupancy(bsz, G, L, dg, int(bf16), out)
-    _raise_on(err, "selective_scan_bwd occupancy")
+    if kind == "bwd":
+        err = lib.selective_scan_bwd_occupancy(bsz, G, L, dg, int(bf16), out)
+    else:
+        err = lib.selective_scan_fwd_occupancy(
+            bsz, G, L, dg, int(bf16), int(kind == "fwd_states"), out)
+    _raise_on(err, f"selective_scan_grouped {kind} occupancy")
     return dict(zip(OCCUPANCY_KEYS, out))
 
 

@@ -1,22 +1,29 @@
 #!/usr/bin/env python3
 """Where the scan kernels spend their time, phase by phase.
 
-Builds copies of ``csrc/selective_scan_bidir_fwd.cu`` and ``_bwd.cu``, and
-of the grouped and folded backwards (``csrc/selective_scan_bwd.cu``,
+Builds copies of ``csrc/selective_scan_bidir_fwd.cu`` and ``_bwd.cu``, of
+the grouped and folded backwards (``csrc/selective_scan_bwd.cu``,
 ``csrc/selective_scan_folded_bwd.cu``, whose chunk loop is the shared body
-in ``csrc/selective_scan_bwd_group.cuh``), with ``clock64()`` read at the
-boundaries of each phase of their chunk loop, runs them at the stage-0 and
-stage-1 shapes of the 224² model (bs24, fp32 inputs; the grouped backward
-with G = 4, the folded one bidirectional), and prints, per kernel and
-shape, the cycles the first thread of each 64-thread group spent in each
-phase, averaged over the blocks, and their share. Needs a CUDA card and
-``nvcc``; imports nothing of JAX.
+in ``csrc/selective_scan_bwd_group.cuh``) and of the grouped and folded
+forwards (``csrc/selective_scan_fwd.cu``, ``csrc/selective_scan_folded_fwd.cu``,
+on the body in ``csrc/selective_scan_fwd_group.cuh``), with ``clock64()``
+read at the boundaries of each phase of their chunk loop, runs them at the
+stage-0 and stage-1 shapes of the 224² model (bs24, fp32 inputs; the
+grouped kernels with G = 4, the folded ones bidirectional; the grouped
+forward state-saving, the folded one serving and state-saving), and the
+grouped serving forward at a mamba-130m scoring call's shape (batch 8,
+L = 1024, dg = 1536), and prints, per kernel and shape, the cycles the first thread of each 64-thread
+group spent in each phase, averaged over the blocks, and their share.
+Needs a CUDA card and ``nvcc``; imports nothing of JAX.
 
     python3 scripts/scan_phases.py
 
-Forward phases: issuing the next chunk's loads, the scan, the barrier, the
-pair-merged write-out of y, converting the next chunk into shared memory,
-the barrier. Backward phases: the du prefetch and the ``cp.async`` copies of
+Bidirectional forward phases: issuing the next chunk's loads, the scan,
+the barrier, the pair-merged write-out of y, converting the next chunk into
+shared memory, the barrier. Grouped and folded forward phases: issuing the
+next chunk's ``cp.async`` copies, the scan, waiting for the copies at the
+barrier, the write-out of y (and cs), converting the next chunk, the
+barrier. Backward phases: the du prefetch and the ``cp.async`` copies of
 the next chunk, the recompute and reverse of the chunk, the barrier, the
 write-out (dΔ, du, dB/dC), waiting for the copies and converting them, the
 barrier. The reads of the clock cost a few cycles each; the totals are
@@ -36,6 +43,7 @@ sys.path.insert(0, str(ROOT))
 
 SHAPES = ((3136, 192), (784, 384))  # (L, dg) of stages 0 and 1
 BATCH = 24
+LM_SHAPE = (8, 1024, 1536)  # (batch, L, dg) of a mamba-130m scoring call
 MAX_BLOCKS = 8192
 HEADER = """__device__ long long g_phase_cycles[%d][8];
 extern "C" int phase_cycles(long long* out) {
@@ -55,6 +63,8 @@ SAVE = ("    acc[0] += T1 - T0; acc[1] += T2 - T1; acc[2] += T3 - T2;\n"
 PHASES = {
     "fwd": ("load_issue", "scan", "barrier", "writeout", "convert",
             "barrier2"),
+    "fwd_group": ("issue_copies", "scan", "wait_barrier", "writeout",
+                  "convert", "barrier2"),
     "bwd": ("prefetch_stage", "recompute_reverse", "barrier", "writeout",
             "wait_convert", "barrier2"),
 }
@@ -131,6 +141,33 @@ def group_sources(name: str) -> dict:
                              bwd_edits(("namespace scan_bwd {", header)))}
 
 
+def fwd_group_sources(name: str) -> dict:
+    """{file name: source} of the grouped or folded forward with its body
+    (csrc/selective_scan_fwd_group.cuh) instrumented."""
+    csrc = ROOT / "mamba_unet_torch/csrc"
+    body = "selective_scan_fwd_group.cuh"
+    header = HEADER.replace("namespace {", "namespace scan_fwd {")
+    loop = "  for (int i = 0; i < nch; ++i) {\n"
+    stage = ("    if (i + 1 < nch) stage(i + 1);  // in flight during this "
+             "chunk\n")
+    wait = ("    cp_async_wait_all();\n    __syncthreads();  // y, the entry "
+            "states and the next chunk's copies\n")
+    tail = ("    if (i + 1 < nch) convert(i + 1);\n    __syncthreads();\n"
+            "  }\n")
+    return {f"{name}.cu": (csrc / f"{name}.cu").read_text(),
+            body: instrument((csrc / body).read_text(), [
+                ("namespace scan_fwd {", header),
+                (loop, "  long long acc[6] = {0, 0, 0, 0, 0, 0};\n" + loop
+                 + tick(0)),
+                (stage, stage + tick(1)),
+                (wait, tick(2) + wait + tick(3)),
+                (tail, tick(4) + "    if (i + 1 < nch) convert(i + 1);\n"
+                 + tick(5) + "    __syncthreads();\n" + tick(6) + SAVE),
+            ]),
+            "selective_scan_bwd_group.cuh": (
+                csrc / "selective_scan_bwd_group.cuh").read_text()}
+
+
 def build(sources: dict, tmp: Path, name: str):
     """(entry point `name`, phase counter reader) of the library built from
     {file name: source}, whose first file is compiled."""
@@ -153,7 +190,8 @@ def build(sources: dict, tmp: Path, name: str):
 
 
 def launches(torch, dev, L, dg):
-    """{kernel: (call(fn) -> CUDA error, blocks)} at (L, dg), bs24, fp32."""
+    """(tensors to keep alive, {label: (entry point, phase kind,
+    call(fn) -> CUDA error, blocks)}) at (L, dg), bs24, fp32."""
     import chip_smoke
     from mamba_unet_torch.ops import selective_scan_bidir as ssb
     from mamba_unet_torch.ops import selective_scan_folded as ssf
@@ -201,22 +239,56 @@ def launches(torch, dev, L, dg):
     fo_grads = grads(fo[0].shape, fo[1], ft, 4, (4, BATCH))
     fo_bc = [t.permute(0, 3, 1, 2).contiguous() for t in (fo[3], fo[4])]
     fo_in = ptrs((fo[0], fo[1], *fo_bc, fo[2], fo[5], fo[6]))
+    # the forwards' outputs: y and cs as the state-saving calls write them
+    gr_y, fo_y = torch.empty_like(gr[0]), torch.empty_like(fo[1])
+    gr_cs2, fo_cs2 = torch.empty_like(gr_cs), torch.empty_like(fo_cs)
+    fb = -(-dg // (2 * 16))  # blocks per (direction, batch) of the forwards
     keep = (bi, bi_cs, bi_gy, bi_out, bi_grads, gr, gr_cs, gr_gy, gr_grads,
-            fo, fo_cs, fo_gy, fo_grads, fo_bc)
+            fo, fo_cs, fo_gy, fo_grads, fo_bc, gr_y, fo_y, gr_cs2, fo_cs2)
     return keep, {
-        "selective_scan_bidir_fwd": (lambda f: f(
-            *bi_in, bi_out.data_ptr(), None, BATCH, L, dg, 16, 0, stream),
+        "selective_scan_bidir_fwd": ("selective_scan_bidir_fwd", "fwd",
+            lambda f: f(*bi_in, bi_out.data_ptr(), None, BATCH, L, dg, 16, 0,
+                        stream), 2 * BATCH * nt),
+        "selective_scan_bidir_bwd": ("selective_scan_bidir_bwd", "bwd",
+            lambda f: f(*bi_in, bi_cs.data_ptr(), bi_gy.data_ptr(),
+                        *ptrs(bi_grads), BATCH, L, dg, 16, 0, stream),
             2 * BATCH * nt),
-        "selective_scan_bidir_bwd": (lambda f: f(
-            *bi_in, bi_cs.data_ptr(), bi_gy.data_ptr(), *ptrs(bi_grads),
-            BATCH, L, dg, 16, 0, stream), 2 * BATCH * nt),
-        "selective_scan_bwd": (lambda f: f(
-            *gr_in, gr_cs.data_ptr(), gr_gy.data_ptr(), *ptrs(gr_grads),
-            BATCH, 4, L, dg, 16, 1, 0, stream), 4 * BATCH * gt),
-        "selective_scan_folded_bwd": (lambda f: f(
-            *fo_in, fo_cs.data_ptr(), fo_gy.data_ptr(), *ptrs(fo_grads),
-            BATCH, 4, L, dg, 16, 1, 1, 0, stream), 2 * BATCH * ft),
+        "selective_scan_fwd(states)": ("selective_scan_fwd", "fwd_group",
+            lambda f: f(*gr_in, gr_y.data_ptr(), None, gr_cs2.data_ptr(),
+                        BATCH, 4, L, dg, 16, 1, 0, stream), 4 * BATCH * fb),
+        "selective_scan_bwd": ("selective_scan_bwd", "bwd",
+            lambda f: f(*gr_in, gr_cs.data_ptr(), gr_gy.data_ptr(),
+                        *ptrs(gr_grads), BATCH, 4, L, dg, 16, 1, 0, stream),
+            4 * BATCH * gt),
+        "selective_scan_folded_fwd": ("selective_scan_folded_fwd",
+            "fwd_group", lambda f: f(*fo_in, fo_y.data_ptr(), None, BATCH, 4,
+                                     L, dg, 16, 1, 1, 0, stream),
+            4 * BATCH * fb),
+        "selective_scan_folded_fwd(states)": ("selective_scan_folded_fwd",
+            "fwd_group", lambda f: f(*fo_in, fo_y.data_ptr(),
+                                     fo_cs2.data_ptr(), BATCH, 4, L, dg, 16,
+                                     1, 1, 0, stream), 4 * BATCH * fb),
+        "selective_scan_folded_bwd": ("selective_scan_folded_bwd", "bwd",
+            lambda f: f(*fo_in, fo_cs.data_ptr(), fo_gy.data_ptr(),
+                        *ptrs(fo_grads), BATCH, 4, L, dg, 16, 1, 1, 0,
+                        stream), 2 * BATCH * ft),
     }
+
+
+def lm_launches(torch, dev):
+    """(tensors to keep alive, {label: ...} as :func:`launches`) of the
+    grouped serving forward at LM_SHAPE, fp32."""
+    import chip_smoke
+
+    bsz, L, dg = LM_SHAPE
+    a = chip_smoke.grouped_args(torch, bsz, L, 1, dg, torch.float32, dev, 0)
+    y = torch.empty_like(a[0])
+    ins = [t.data_ptr() for t in (a[0], a[1], a[3], a[4], a[2], a[5], a[6])]
+    stream = torch.cuda.current_stream().cuda_stream
+    return (a, y), {"selective_scan_fwd(scoring)": (
+        "selective_scan_fwd", "fwd_group",
+        lambda f: f(*ins, y.data_ptr(), None, None, bsz, 1, L, dg, 16, 1, 0,
+                    stream), bsz * -(-dg // 32))}
 
 
 def main() -> int:
@@ -239,16 +311,23 @@ def main() -> int:
             "selective_scan_bwd": group_sources("selective_scan_bwd"),
             "selective_scan_folded_bwd": group_sources(
                 "selective_scan_folded_bwd"),
+            "selective_scan_fwd": fwd_group_sources("selective_scan_fwd"),
+            "selective_scan_folded_fwd": fwd_group_sources(
+                "selective_scan_folded_fwd"),
         }
         kernels = {name: build(src, Path(tmp), name)
                    for name, src in sources.items()}
-        for L, dg in SHAPES:
-            keep, calls = launches(torch, dev, L, dg)
-            for name, (fn, read) in kernels.items():
-                call, blocks = calls[name]
+        cases = [(L, dg, lambda L=L, dg=dg: launches(torch, dev, L, dg))
+                 for L, dg in SHAPES]
+        cases.append((LM_SHAPE[1], LM_SHAPE[2],
+                      lambda: lm_launches(torch, dev)))
+        for L, dg, make in cases:
+            keep, calls = make()
+            for label, (name, kind, call, blocks) in calls.items():
+                fn, read = kernels[name]
                 ms, err = chip_smoke.cuda_ms(torch, lambda: call(fn), 5)
                 if err:
-                    raise SystemExit(f"{name} launch failed: {err}")
+                    raise SystemExit(f"{label} launch failed: {err}")
                 buf = (ctypes.c_longlong * (MAX_BLOCKS * 8))()
                 torch.cuda.synchronize()
                 if read(buf):
@@ -256,8 +335,9 @@ def main() -> int:
                 cyc = torch.tensor(list(buf), dtype=torch.float64).reshape(
                     MAX_BLOCKS, 8)[:2 * blocks, :6].mean(0)
                 total = cyc.sum().item()
-                phases = PHASES["fwd" if name.endswith("fwd") else "bwd"]
-                print(f"[phases] kernel={name} L={L} dg={dg} batch={BATCH} "
+                phases = PHASES[kind]
+                bsz = LM_SHAPE[0] if label.endswith("(scoring)") else BATCH
+                print(f"[phases] kernel={label} L={L} dg={dg} batch={bsz} "
                       f"ms={ms:.4f} cycles_per_group={total:.0f} " + " ".join(
                           f"{p}={100 * c / total:.1f}%" for p, c in
                           zip(phases, cyc.tolist())), flush=True)

@@ -15,6 +15,10 @@ rule ``chip_smoke.py`` applies too). The unidirectional grouped forward
 (y and the final state) is held to the same rule at 1e-4, and its training
 pair (state-saving forward, backward) as the bidirectional one; so are the
 batch-folded kernels (serving forward, state-saving forward, backward).
+The grouped and folded cases include an odd dg, ragged L against the
+forwards' 32-step chunks and 16-step state chunks, and views one element
+into their buffer (no 16-byte alignment), which the kernels meet with
+single-value copies.
 """
 
 import pytest
@@ -182,6 +186,19 @@ def test_autograd_on_card_matches_cpu(cuda):
                             f"d{name}")
 
 
+def _offset(args, k):
+    """``args`` with u, delta, B and C moved ``k`` elements into a buffer of
+    their own: contiguous views whose data pointers lose the 16-byte (and,
+    for odd k in bf16, the 4-byte) alignment."""
+    out = list(args)
+    for i in (0, 1, 3, 4) if k else ():
+        t = args[i]
+        buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+        out[i] = buf[k:].view(t.shape)
+        out[i].copy_(t)
+    return out
+
+
 def _grouped_args(bsz, G, L, dg, dtype, n=16, seed=0):
     """A and D differ in every channel (and A in every state), so that a
     kernel reading the wrong channel's or group's row disagrees."""
@@ -198,19 +215,29 @@ def _grouped_args(bsz, G, L, dg, dtype, n=16, seed=0):
     return args
 
 
+# (G, L, dg, offset) of the grouped serving kernel's checks at batch 2:
+# ragged L and dg, G = 4 groups, the mamba-130m width, an odd dg (its last
+# group one channel wide), L = 1, L = 17 and 33 (a partial 32-step chunk
+# holding a full 16-step state chunk, and one step past a full chunk), and
+# views one element into their buffer
+GROUPED_SHAPES = [(1, 50, 40, 0), (1, 7, 130, 0), (4, 257, 192, 0),
+                  (1, 1000, 1536, 0), (1, 1, 129, 0), (1, 17, 129, 0),
+                  (2, 33, 64, 0), (2, 33, 64, 1), (1, 17, 130, 1)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("G,L,dg", [(1, 50, 40), (1, 7, 130), (4, 257, 192),
-                                    (1, 1000, 1536)])
-def test_grouped_kernel_matches_plain_version(cuda, dtype, G, L, dg):
-    """Kernel #3 and its final state: ragged L and dg, G = 4 groups, bf16
-    and the mamba-130m width; the same rule as the training kernels."""
+@pytest.mark.parametrize("G,L,dg,offset", GROUPED_SHAPES)
+def test_grouped_kernel_matches_plain_version(cuda, dtype, G, L, dg, offset):
+    """Kernel #3 and its final state against the plain version at
+    GROUPED_SHAPES, bf16 too; the same rule as the training kernels."""
     from mamba_unet_torch.ops.selective_scan_grouped import (
         selective_scan_grouped,
         selective_scan_grouped_ref,
     )
 
-    args = [a.to(cuda) for a in _grouped_args(2, G, L, dg, dtype, seed=L)]
+    args = _offset([a.to(cuda) for a in _grouped_args(2, G, L, dg, dtype,
+                                                      seed=L)], offset)
     before = selective_scan_grouped.launches
     y, last = selective_scan_grouped(*args, True, True)
     torch.cuda.synchronize()
@@ -312,25 +339,29 @@ def test_selective_scan_dispatcher_on_card_matches_cpu(cuda):
     assert_close_to_max(last.cpu(), want_last, 1e-4, "last state")
 
 
-# (G, L, dg) of the grouped training kernels' checks at batch 2: the four
-# SS2D stage shapes of the tm branch (G = 4), the mamba-130m width over a
-# long L, a ragged L and dg with a partial last 16-step chunk, and an odd dg
-# (bf16 loaded by single values, the entry states by 4-byte copies)
-TM_SHAPES = [(4, L, dg) for L, dg in STAGES] + [(1, 1000, 1536), (1, 7, 130),
-                                                (1, 7, 129)]
+# (G, L, dg, offset) of the grouped training kernels' checks at batch 2:
+# the four SS2D stage shapes of the tm branch (G = 4), the mamba-130m width
+# over a long L, a ragged L and dg with a partial last 16-step chunk, an odd
+# dg (bf16 loaded by single values, the entry states by 4-byte copies),
+# L = 1, 17 and 33 against the forward's 32-step chunks, and views one
+# element into their buffer
+TM_SHAPES = [(4, L, dg, 0) for L, dg in STAGES] + [
+    (1, 1000, 1536, 0), (1, 7, 130, 0), (1, 7, 129, 0), (1, 1, 129, 0),
+    (1, 17, 129, 0), (2, 33, 48, 0), (2, 33, 48, 1)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("G,L,dg", TM_SHAPES)
-def test_grouped_training_kernels_match_plain_versions(cuda, dtype, G, L, dg):
+@pytest.mark.parametrize("G,L,dg,offset", TM_SHAPES)
+def test_grouped_training_kernels_match_plain_versions(cuda, dtype, G, L, dg,
+                                                       offset):
     """The grouped state-saving forward (y and cs) and backward (all seven
     gradients) against their plain versions, batch 2, the rule of the
     bidirectional training kernels."""
     from mamba_unet_torch.ops import selective_scan_grouped as sg
 
-    args = [a.to(cuda) for a in _grouped_args(2, G, L, dg, dtype,
-                                              seed=L + dg)]
+    args = _offset([a.to(cuda) for a in _grouped_args(2, G, L, dg, dtype,
+                                                      seed=L + dg)], offset)
     before = (sg.selective_scan_grouped_fwd_states.launches,
               sg.selective_scan_grouped_bwd.launches)
     y, cs = sg.selective_scan_grouped_fwd_states(*args)
@@ -433,28 +464,33 @@ def _folded_args(bsz, L, dg, dtype, bidir, G=4, n=16, seed=0):
     return args
 
 
-# (batch, L, dg, bidir) of the folded kernels' checks: the four SS2D stage
-# shapes at batch 2, a ragged shape (390 lanes, L not a multiple of the
-# 16-step chunk, the last channel tile of each batch 2 wide) both ways, and
-# an odd dg both ways (odd batches' lanes start at an odd offset, so bf16
-# cannot be copied by channel pairs)
-FOLDED_SHAPES = [(2, L, dg, True) for L, dg in STAGES] + [
-    (3, 7, 130, True), (3, 7, 130, False), (3, 7, 129, True),
-    (3, 7, 129, False)]
+# (batch, L, dg, bidir, offset) of the folded kernels' checks: the four
+# SS2D stage shapes at batch 2, a ragged shape (390 lanes, L not a multiple
+# of the 16-step chunk, the last channel tile of each batch 2 wide) both
+# ways, an odd dg both ways (odd batches' lanes start at an odd offset, so
+# bf16 cannot be copied by channel pairs), L = 1, 17 and 33 against the
+# forward's 32-step chunks (the reversed directions start in a partial
+# chunk), and views one element into their buffer
+FOLDED_SHAPES = [(2, L, dg, True, 0) for L, dg in STAGES] + [
+    (3, 7, 130, True, 0), (3, 7, 130, False, 0), (3, 7, 129, True, 0),
+    (3, 7, 129, False, 0), (3, 1, 129, True, 0), (3, 17, 129, True, 0),
+    (3, 33, 129, False, 0), (2, 33, 48, True, 0), (2, 33, 48, True, 1),
+    (3, 17, 24, False, 1)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("bsz,L,dg,bidir", FOLDED_SHAPES)
-def test_folded_kernels_match_plain_versions(cuda, dtype, bsz, L, dg, bidir):
+@pytest.mark.parametrize("bsz,L,dg,bidir,offset", FOLDED_SHAPES)
+def test_folded_kernels_match_plain_versions(cuda, dtype, bsz, L, dg, bidir,
+                                             offset):
     """The folded serving forward (y), state-saving forward (y and cs) and
     backward (all seven gradients) against their plain versions; the rule
     of the other training kernels."""
     from mamba_unet_torch.ops import selective_scan_folded as sf
 
-    args = [a.to(cuda) for a in _folded_args(bsz, L, dg, dtype, bidir,
-                                             G=4 if bidir else 2,
-                                             seed=L + dg)]
+    args = _offset([a.to(cuda) for a in _folded_args(
+        bsz, L, dg, dtype, bidir, G=4 if bidir else 2, seed=L + dg)],
+        offset)
     kernels = (sf.selective_scan_folded_fwd,
                sf.selective_scan_folded_fwd_states,
                sf.selective_scan_folded_bwd)
@@ -480,10 +516,12 @@ def test_folded_kernels_match_plain_versions(cuda, dtype, bsz, L, dg, bidir):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind", ["grouped", "folded", "folded_uni"])
-def test_grouped_and_folded_backwards_are_deterministic(cuda, kind, dtype):
-    """Two launches of the grouped or the folded backward (both ways) on the
-    same inputs give bitwise equal gradients: the folded pair merges du and
-    both reduce their partial sums in a fixed order, with no atomics."""
+def test_grouped_and_folded_kernels_are_deterministic(cuda, kind, dtype):
+    """Two launches of each grouped or folded kernel (both ways) on the same
+    inputs give bitwise equal outputs: the serving forward's y (and the
+    grouped one's final state), the state-saving forward's y and cs, and
+    the backward's gradients (the folded pair merges du and both reduce
+    their partial sums in a fixed order, with no atomics)."""
     from functools import partial
 
     from mamba_unet_torch.ops import selective_scan_folded as sf
@@ -492,6 +530,8 @@ def test_grouped_and_folded_backwards_are_deterministic(cuda, kind, dtype):
     if kind == "grouped":
         args = [a.to(cuda) for a in _grouped_args(2, 2, 97, 70, dtype,
                                                   seed=11)]
+        serve = partial(sg.selective_scan_grouped, softplus=True,
+                        return_last_state=True)
         fwd, bwd = (sg.selective_scan_grouped_fwd_states,
                     sg.selective_scan_grouped_bwd)
     else:
@@ -499,12 +539,17 @@ def test_grouped_and_folded_backwards_are_deterministic(cuda, kind, dtype):
         args = [a.to(cuda) for a in _folded_args(3, 97, 70, dtype, bidir,
                                                  G=4 if bidir else 2,
                                                  seed=11)]
+        serve = partial(sf.selective_scan_folded_fwd, bidir=bidir)
         fwd = partial(sf.selective_scan_folded_fwd_states, bidir=bidir)
         bwd = partial(sf.selective_scan_folded_bwd, bidir=bidir)
-    y, cs = fwd(*args)
-    gy = torch.randn(y.shape, generator=torch.Generator().manual_seed(4)
-                     ).to(cuda, y.dtype)
-    runs = [bwd(*args, cs, gy) for _ in range(2)]
+    gy = torch.randn(args[1].shape, generator=torch.Generator().manual_seed(
+        4)).to(cuda, args[0].dtype)
+    runs = []
+    for _ in range(2):
+        served = serve(*args)
+        y, cs = fwd(*args)
+        runs.append([*(served if isinstance(served, tuple) else (served,)),
+                     y, cs, *bwd(*args, cs, gy)])
     for k, (a, b) in enumerate(zip(*runs)):
         assert torch.equal(a, b), k
 
