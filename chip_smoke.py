@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths on one CUDA card:
 Mamba-UNet serving and training, Mamba-LM serving, Mamba-UNet training on
-SS2D's time-major branch and the 1-D Mamba stack's gradients, then
-Mamba-UNet training and serving on SS2D's batch-folded branch.
+SS2D's time-major branch and the 1-D Mamba stack's gradients, Mamba-UNet
+training and serving on SS2D's batch-folded branch, then the main path's
+other entry points: activation recomputation, the ``torch.export``
+artifact and the CLIs (SS2D's xla route, which the port runs as the tm
+branch, among them).
 
     python3 chip_smoke.py
 
@@ -111,9 +114,25 @@ exits non-zero; nothing is caught):
               per step beside the earlier backward's
               (FOLDED_STEP_DEVICE_MS_BASELINE) and the earlier forward's
               (FOLDED_STEP_DEVICE_MS_BEFORE_FWD).
+19. remat   - one bs24 bf16 step of the bidir branch at drop_path 0.2 with
+              and without ``use_remat`` from the same weights, batch and
+              DropPath seed: equal loss and gradients, 28 state-saving
+              forward and 14 backward launches with remat, peak memory of
+              each.
+20. export  - ``export_predict`` of full-width ``ViM_seg`` with a symbolic
+              batch, saved to build/ and reloaded: batches 2 and 24 against
+              the eager predict function (14 serving launches per call),
+              fp32 and bf16, both timed at bs24 beside eager; then the tm
+              and folded branches exported with the same weights.
+21. entry_points - ``cli.train`` (``--synthetic_hard``,
+              ``--pretrained_ckpt``, ``--exp``, ``--scan_impl xla``),
+              ``cli.test`` (``--ckpt_name``, ``--save_nii_dir``: the NIfTI
+              files hold the predictions) and ``cli.export`` (the artifact
+              serves the snapshot's logits), in a temporary directory.
 
-Then one JSON line with the kernel table, and the last line
-``{"ok": true, "device": {...}}``. It imports nothing of JAX.
+``[phase_seconds]`` follows each group of phases. Then one JSON line with
+the kernel table, and the last line ``{"ok": true, "device": {...}}``. It
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -199,6 +218,13 @@ LM_TRAIN_SHAPE = (8, 1024)  # (batch, L) of the timed mamba-130m-shape call
 # a full 16-step state chunk (where a reversed direction starts); L = 33
 FOLDED_EDGES = ((3, 7, 130), (3, 17, 129), (2, 33, 48))
 LM_GRAD_BATCH, LM_GRAD_LEN = 2, 128  # phase 15's tokens
+# remat against no remat, one bf16 step: the same kernels on the same
+# inputs recomputed, so the loss and every gradient agree to fp32 noise
+REMAT_TOL = 1e-5
+REMAT_TIMED_STEPS = 5  # forward + backward (no optimizer) timed per side
+# [entry_points]: the CLIs' phantom scale (train cases, slices per case,
+# val and test volumes, slice size), batch and steps
+ENTRY_SPEC, ENTRY_BATCH, ENTRY_ITERS = (4, 8, 1, 2, 224), 8, 4
 LM_PROMPTS, LM_PROMPT_LEN, LM_NEW_TOKENS = 4, 128, 64
 # full mamba-130m, card vs CPU, fp32 with TF32 off: 24 scans plus fp32
 # matmuls in another summation order, on logits of magnitude ~2; the
@@ -678,8 +704,9 @@ def branch_logits_phase(torch, dev, model, scan_impl):
 
 
 def training_phase(torch, dev, scan_impl="auto"):
-    """Phases 8, 14 and 18; returns the launch counts (serve, fwd_states,
-    bwd) of the ``scan_impl`` branch's kernels in the training run."""
+    """Phases 8, 14 and 18: TRAIN_ITERS steps with one eval after step
+    TRAIN_EVAL_AT; returns the launch counts (serve,
+    fwd_states, bwd) of the ``scan_impl`` branch's kernels in the run."""
     from mamba_unet_torch.data.acdc import SliceDataset
     from mamba_unet_torch.data.augment import RandomGenerator
     from mamba_unet_torch.data.loader import Loader
@@ -768,12 +795,13 @@ def training_phase(torch, dev, scan_impl="auto"):
         "train" if scan_impl == "auto" else f"train_{scan_impl}")
     baseline = {"auto": BIDIR_STEP_DEVICE_MS_BASELINE,
                 "tm": TM_STEP_DEVICE_MS_BASELINE,
-                "folded": FOLDED_STEP_DEVICE_MS_BASELINE}[scan_impl]
+                "folded": FOLDED_STEP_DEVICE_MS_BASELINE}.get(scan_impl)
     before_fwd = {"tm": TM_STEP_DEVICE_MS_BEFORE_FWD,
                   "folded": FOLDED_STEP_DEVICE_MS_BEFORE_FWD}.get(scan_impl)
     log(phase, device_ms_per_step=f"{device_ms:.2f}",
-        baseline_device_ms_per_step=baseline,
-        change=f"{device_ms / baseline - 1:+.1%}",
+        **({} if baseline is None else {
+            "baseline_device_ms_per_step": baseline,
+            "change": f"{device_ms / baseline - 1:+.1%}"}),
         **({} if before_fwd is None else {
             "before_fwd_device_ms_per_step": before_fwd,
             "change_fwd": f"{device_ms / before_fwd - 1:+.1%}"}))
@@ -1314,6 +1342,308 @@ def lm_grad_phase(torch, dev):
                              f"{worst} at {worst_key}, loss rel err "
                              f"{loss_err}")
 
+def launch_counts(kernels):
+    return [k.launches for k in kernels]
+
+
+def remat_phase(torch, dev):
+    """``[remat]``: one bs24 bf16 train step of the full-width bidir branch
+    at drop_path 0.2 with ``use_remat`` and one without, from the same
+    weights, batch and DropPath generator seed: the loss and every gradient
+    agree (the recomputation drops what the first forward dropped), the
+    remat step launches 28 state-saving forwards (14 recomputed) and 14
+    backwards; peak memory of each."""
+    from mamba_unet_torch.models.vssm import MambaUnet
+    from mamba_unet_torch.nn.layers import set_drop_path_generator
+    from mamba_unet_torch.objectives import supervised_ce_dice
+
+    kernels, others = scan_kernels("auto")
+    seeded = MambaUnet(num_classes=4, drop_path_rate=0.2,
+                       generator=torch.Generator().manual_seed(1337))
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn(TRAIN_BATCH, PATCH, PATCH, 1, generator=gen).to(dev)
+    label = torch.randint(0, 4, (TRAIN_BATCH, PATCH, PATCH),
+                          generator=gen).to(dev)
+    out = {}
+    # deterministic convolution backwards, so that only remat can differ
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for remat in (False, True):
+        model = MambaUnet(num_classes=4, drop_path_rate=0.2,
+                          use_remat=remat, device=dev).train()
+        model.load_state_dict(seeded.state_dict())
+        set_drop_path_generator(model,
+                                torch.Generator(dev).manual_seed(7))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = launch_counts(kernels + others)
+        t0 = time.perf_counter()
+        with torch.autocast("cuda", torch.bfloat16):
+            loss = supervised_ce_dice(model(x), label)
+        loss.backward()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = [a - b for a, b in
+                    zip(launch_counts(kernels + others), before)]
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        out[remat] = (loss.item(), {k: p.grad.float().cpu()
+                                    for k, p in model.named_parameters()})
+
+        def step():
+            with torch.autocast("cuda", torch.bfloat16):
+                supervised_ce_dice(model(x), label).backward()
+
+        step_ms, _ = cuda_ms(torch, step, REMAT_TIMED_STEPS)
+        log("remat", use_remat=remat, batch=TRAIN_BATCH, dtype="bf16",
+            drop_path=0.2, loss=out[remat][0], first_step_s=f"{secs:.3f}",
+            step_ms=f"{step_ms:.2f}", peak_step_gb=f"{peak:.2f}",
+            launches_serve_fwd_states_bwd=tuple(launched[:3]))
+        want = [0, (2 if remat else 1) * SS2D_PER_FORWARD,
+                SS2D_PER_FORWARD] + [0] * len(others)
+        if launched != want:
+            raise AssertionError(f"use_remat={remat}: launches {launched}, "
+                                 f"expected {want}")
+        del model, loss
+    torch.backends.cudnn.deterministic = deterministic
+    (loss, grads), (loss_r, grads_r) = out[False], out[True]
+    worst, worst_key = 0.0, None
+    for k, want in grads.items():
+        rel = (grads_r[k] - want).abs().max().item() / max(
+            want.abs().max().item(), 1e-30)
+        if not math.isfinite(rel) or rel > worst:
+            worst, worst_key = rel, k
+    log("remat", compare="remat_vs_plain", loss_diff=f"{loss_r - loss:.3e}",
+        worst_grad_rel_err=f"{worst:.2e}", worst_param=worst_key,
+        tol=REMAT_TOL)
+    if abs(loss_r - loss) > REMAT_TOL * abs(loss) or worst > REMAT_TOL:
+        raise AssertionError(f"remat changed the step: loss {loss} vs "
+                             f"{loss_r}, worst gradient {worst} at "
+                             f"{worst_key}")
+
+
+def export_phase(torch, dev):
+    """``[export]``: ``export_predict`` of full-width ``ViM_seg`` (seed-0
+    weights) with a symbolic batch, saved to build/ and reloaded, served at
+    batches 2 and 24 (14 serving launches per call) against the eager
+    ``make_predict_fn``: fp32 with TF32 off, and bf16 against fp32; both
+    timed at bs24 beside eager. Then the tm and folded branches exported
+    with the same weights, at batch 2, against eager."""
+    from mamba_unet_torch.models.vssm import MambaUnet
+    from mamba_unet_torch.utils.checkpoint import load_model_snapshot
+    from mamba_unet_torch.utils.export import (
+        export_predict,
+        load_exported,
+        make_predict_fn,
+        save_exported,
+    )
+
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    model = load_model_snapshot("ViM_seg", 4, 1, device=dev)
+    gen = torch.Generator().manual_seed(8)
+    xs = {b: torch.randn(b, PATCH, PATCH, 1, generator=gen).to(dev)
+          for b in (2, TRAIN_BATCH)}
+    eager32 = make_predict_fn(model)
+    want = {b: eager32(x) for b, x in xs.items()}
+    for tag, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        t0 = time.perf_counter()
+        exported = export_predict(model, (PATCH, PATCH), dtype=dtype)
+        export_s = time.perf_counter() - t0
+        path = save_exported(exported, str(out_dir / f"vim_{tag}.pt2"))
+        served = load_exported(path).module()
+        eager = make_predict_fn(model, dtype)
+        for b, x in xs.items():
+            (serve, *_), others = scan_kernels("auto")
+            before = launch_counts([serve, *others])
+            got = served(x)
+            torch.cuda.synchronize()
+            launched = [a - b_ for a, b_ in
+                        zip(launch_counts([serve, *others]), before)]
+            same = (got - eager(x)).abs().max().item()
+            err = (got - want[b]).abs().max().item()
+            agree = (got.argmax(-1) == want[b].argmax(-1)).float().mean(
+            ).item()
+            tol = LOGIT_TOL if dtype is None else BF16_LOGIT_TOL
+            log("export", dtype=tag, batch=b, vs_eager=f"{same:.3e}",
+                vs_fp32_eager=f"{err:.3e}", argmax_agree=f"{agree:.6f}",
+                tol=tol, launches=launched[0])
+            if launched != [SS2D_PER_FORWARD] + [0] * (len(launched) - 1):
+                raise AssertionError(f"the exported program launched "
+                                     f"{launched}")
+            if (not torch.isfinite(got).all() or same > LOGIT_TOL
+                    or err > tol or (dtype is not None
+                                     and agree < BF16_MIN_ARGMAX_AGREEMENT)):
+                raise AssertionError(f"exported {tag} logits at batch {b}: "
+                                     f"{same} vs eager, {err} vs fp32")
+        x = xs[TRAIN_BATCH]
+        # wall (host enqueue included) and device time (calls queued behind
+        # a sleep on the card), the exported program and eager in turns
+        times = {}
+        for name, fn in (("exported", served), ("eager", eager)) * 2:
+            wall, _ = cuda_ms(torch, lambda: fn(x), 10)
+            dev_ms, _ = device_ms(torch, lambda: fn(x), 10)
+            times.setdefault(name, []).append((wall, dev_ms))
+        log("export", dtype=tag, batch=TRAIN_BATCH, **{
+            f"{name}_{kind}_ms": " ".join(f"{t[i]:.2f}" for t in runs)
+            for name, runs in times.items()
+            for i, kind in enumerate(("forward", "device"))},
+            export_s=f"{export_s:.1f}",
+            artifact_mib=f"{Path(path).stat().st_size / 2**20:.1f}")
+    for scan_impl in ("tm", "folded"):
+        (serve, *_), others = scan_kernels(scan_impl)
+        other = MambaUnet(num_classes=4, scan_impl=scan_impl, device=dev)
+        other.load_state_dict(model.state_dict())
+        path = save_exported(export_predict(other, (PATCH, PATCH)),
+                             str(out_dir / f"vim_{scan_impl}.pt2"))
+        served = load_exported(path).module()
+        before = launch_counts([serve, *others])
+        got = served(xs[2])
+        torch.cuda.synchronize()
+        launched = [a - b for a, b in
+                    zip(launch_counts([serve, *others]), before)]
+        err = (got - make_predict_fn(other)(xs[2])).abs().max().item()
+        log("export", scan_impl=scan_impl, batch=2, vs_eager=f"{err:.3e}",
+            vs_bidir=f"{(got - want[2]).abs().max().item():.3e}",
+            launches=launched[0], tol=LOGIT_TOL)
+        if launched != [SS2D_PER_FORWARD] + [0] * (len(launched) - 1) or (
+                err > LOGIT_TOL):
+            raise AssertionError(f"exported {scan_impl}: launches "
+                                 f"{launched}, {err} vs eager")
+        del other
+
+
+def entry_points_phase(torch, np, dev):
+    """``[entry_points]``: the CLIs on the card, on hard synthetic
+    phantoms (the test CLI's handed to :func:`cli.test.run_inference`, as
+    the card has no h5 set), in a temporary directory: ``cli.train`` with
+    ``--pretrained_ckpt`` (an encoder checkpoint this phase writes from a
+    seeded model, wrapped as upstream files are, one tensor of the wrong
+    shape), ``--exp``, ``--synthetic_hard`` and ``--scan_impl xla``, whose
+    warm-start report and launches are checked; ``cli.test`` on its
+    snapshot with ``--ckpt_name best --save_nii_dir``, whose NIfTI files
+    must hold the labels and the predictions; ``cli.export`` of the
+    snapshot, whose artifact must reload and serve the snapshot's
+    logits."""
+    import logging
+    import tempfile
+
+    class Records(logging.Handler):
+        """Keeps the log records it is handed."""
+
+        def __init__(self):
+            super().__init__()
+            self.records = []
+
+        def emit(self, record):
+            self.records.append(record)
+
+    from mamba_unet_torch.cli import export as export_cli
+    from mamba_unet_torch.cli import test as test_cli
+    from mamba_unet_torch.cli import train as train_cli
+    from mamba_unet_torch.data.nifti import read_nifti
+    from mamba_unet_torch.data.synthetic import phantom_acdc
+    from mamba_unet_torch.eval.inference import _zoom0
+    from mamba_unet_torch.models.vssm import MambaUnet
+    from mamba_unet_torch.utils.checkpoint import load_model_snapshot
+    from mamba_unet_torch.utils.export import load_exported, make_predict_fn
+
+    spec = [str(v) for v in ENTRY_SPEC]
+    kernels, others = scan_kernels("tm")  # the xla route is the tm branch
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s",
+                        datefmt="%H:%M:%S", stream=sys.stdout)
+    records = Records()
+    logging.getLogger().addHandler(records)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        source = MambaUnet(num_classes=4,
+                           generator=torch.Generator().manual_seed(11))
+        names = source.mamba_unet.state_dict()
+        sd = {f"mamba_unet.{k}": v for k, v in names.items()
+              if k.startswith(("layers.", "patch_embed."))}
+        sd["mamba_unet.patch_embed.proj.weight"] = torch.zeros(96, 3, 2, 2)
+        torch.save({"model": sd}, tmp / "vmamba_encoder.pth")
+        # the expected report: every encoder tensor but the reshaped one,
+        # and the encoder blocks mirrored onto decoder stages 1-3
+        mirrored = [k for k in names if k.startswith(
+            ("layers_up.1.blocks.", "layers_up.2.blocks.",
+             "layers_up.3.blocks."))]
+        loaded = len(sd) - 1 + len(mirrored)
+        want_report = (loaded, len(names) - loaded - 1, 1)
+
+        before = launch_counts(kernels + others)
+        t0 = time.perf_counter()
+        train_cli.main([
+            "--synthetic", "--synthetic_hard", "--synthetic_spec", *spec,
+            "--pretrained_ckpt", str(tmp / "vmamba_encoder.pth"),
+            "--exp", "ACDC/Entry_Points", "--scan_impl", "xla", "--bf16",
+            "--patch_size", str(PATCH), str(PATCH), "--batch_size",
+            str(ENTRY_BATCH), "--max_iterations", str(ENTRY_ITERS),
+            "--eval_every", "2", "--drop_path", "0",
+            "--snapshot_dir", str(tmp / "snap"), "--device", "cuda"])
+        train_s = time.perf_counter() - t0
+        launched = [a - b for a, b in
+                    zip(launch_counts(kernels + others), before)]
+        report = [r.args for r in records.records
+                  if str(r.msg).startswith("pretrained:")]
+        log("entry_points", cli="train", seconds=f"{train_s:.1f}",
+            pretrained_report=report, expected=want_report,
+            launches_serve_fwd_states_bwd=tuple(launched[:3]))
+        if report != [want_report]:
+            raise AssertionError(f"warm-start report {report}, expected "
+                                 f"{want_report}")
+        want = [SS2D_PER_FORWARD * ENTRY_ITERS] * 2
+        if launched[1:3] != want or any(launched[3:]) or not launched[0]:
+            raise AssertionError(f"the xla training run launched {launched}")
+
+        cases = phantom_acdc(*ENTRY_SPEC[:4], ENTRY_SPEC[4],
+                             hard=True)["test"]
+        t0 = time.perf_counter()
+        test_cli.run_inference(test_cli.build_parser().parse_args([
+            "--patch_size", str(PATCH), str(PATCH), "--checkpoint",
+            str(tmp / "snap"), "--ckpt_name", "best", "--save_nii_dir",
+            str(tmp / "nii"), "--device", "cuda"]), dataset=cases)
+        test_s = time.perf_counter() - t0
+        model = load_model_snapshot("ViM_seg", 4, 1, str(tmp / "snap"),
+                                    device=dev, ckpt_name="best")
+        predict = make_predict_fn(model)
+        for case in cases:
+            image, label = case["image"], case["label"]
+            small, _ = test_cli.infer_volume(image, label, predict, 4,
+                                             (PATCH, PATCH))
+            pred = np.stack([_zoom0(p, label.shape[1:]) for p in small])
+            got, spacing = read_nifti(str(tmp / "nii" /
+                                          f"{case['case']}_pred.nii.gz"))
+            gt, _ = read_nifti(str(tmp / "nii" / f"{case['case']}_gt.nii.gz"))
+            if not (np.array_equal(got, pred.astype(np.uint8).transpose(
+                    1, 2, 0)) and np.array_equal(gt, label.transpose(1, 2, 0))
+                    and tuple(spacing) == (1, 1, 10)):
+                raise AssertionError(f"{case['case']}: the NIfTI files do "
+                                     f"not hold the prediction and label")
+        log("entry_points", cli="test", seconds=f"{test_s:.1f}",
+            volumes=len(cases), nifti_pairs_checked=len(cases))
+
+        t0 = time.perf_counter()
+        export_cli.main(["--checkpoint", str(tmp / "snap"), "--ckpt_name",
+                         "best", "--out", str(tmp / "vim.pt2"),
+                         "--patch_size", str(PATCH), str(PATCH)])
+        export_s = time.perf_counter() - t0
+        x = torch.randn(4, PATCH, PATCH, 1,
+                        generator=torch.Generator().manual_seed(12)).to(dev)
+        (serve, *_), _ = scan_kernels("auto")
+        before = serve.launches
+        got = load_exported(str(tmp / "vim.pt2")).module()(x)
+        torch.cuda.synchronize()
+        launched = serve.launches - before
+        err = (got - predict(x)).abs().max().item()
+        log("entry_points", cli="export", seconds=f"{export_s:.1f}",
+            served_batch=4, vs_eager=f"{err:.3e}", launches=launched,
+            tol=LOGIT_TOL)
+        if launched != SS2D_PER_FORWARD or err > LOGIT_TOL:
+            raise AssertionError(f"the exported snapshot: {err} vs eager")
+    logging.getLogger().removeHandler(records)
+
 
 def main() -> int:
     import numpy as np
@@ -1347,6 +1677,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    clock = [time.perf_counter()]
+
+    def phase_done(name):
+        """``[phase_seconds]``: the seconds since the last mark."""
+        now = time.perf_counter()
+        log("phase_seconds", group=name, seconds=f"{now - clock[0]:.1f}")
+        clock[0] = now
 
     # --- 2. build
     t0 = time.perf_counter()
@@ -1354,6 +1691,7 @@ def main() -> int:
     log("build", seconds=f"{time.perf_counter() - t0:.2f}",
         lib=_build.build().name)
     kernel_occ_phase(torch)
+    phase_done("1-2 device, build")
 
     # --- 3. kernel vs plain at batch 2 and the ragged shapes, then timed
     # and compared at batch 24
@@ -1395,6 +1733,7 @@ def main() -> int:
             bf16_plain_ms=f"{times['bfloat16'][1]:.2f}")
     log("kernel_time", per_forward_ms=f"{ms_fwd:.4f}",
         plain_per_forward_ms=f"{plain_ms_fwd:.2f}", calls=SS2D_PER_FORWARD)
+    phase_done("3 kernel")
 
     # --- 4. full-width model: card (kernel) vs CPU copy (plain scan)
     from mamba_unet_torch.data.synthetic import phantom_volumes
@@ -1479,6 +1818,7 @@ def main() -> int:
             volume_latency_ms=f"{1e3 * sum(lat) / len(lat):.1f}",
             volume_slices_per_s=f"{10 * len(lat) / sum(lat):.1f}")
     branch_serving_phase(torch, dev, model, batch)
+    phase_done("4-5 parity, serving")
 
     # --- 6-8. the training path
     train_kernels = kernel_bwd_phase(torch, dev)
@@ -1490,6 +1830,7 @@ def main() -> int:
     del model, fns
     torch.cuda.empty_cache()
     _, train_fwd, train_bwd = training_phase(torch, dev)
+    phase_done("6-8 training")
 
     # --- 9-11. the Mamba-LM serving path (mamba-130m)
     lm_err, lm_times = lm_kernel_phase(torch, dev)
@@ -1501,6 +1842,7 @@ def main() -> int:
     lm_launches = lm_serving_phase(torch, np, dev, lm_model)
     del lm_model
     torch.cuda.empty_cache()
+    phase_done("9-11 lm")
 
     # --- 12-15. Mamba-UNet training on SS2D's time-major branch, and the
     # gradients of the 1-D Mamba stack (mamba-130m)
@@ -1518,6 +1860,7 @@ def main() -> int:
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32_defaults
     torch.cuda.empty_cache()
+    phase_done("12-15 tm, lm_grad")
 
     # --- 16-18. Mamba-UNet training and serving on SS2D's batch-folded
     # branch
@@ -1530,6 +1873,22 @@ def main() -> int:
      torch.backends.cudnn.allow_tf32) = tf32_defaults
     torch.cuda.empty_cache()
     folded_launches = training_phase(torch, dev, "folded")
+    phase_done("16-18 folded")
+
+    # --- the main path's remaining entry points: activation
+    # recomputation, the exported artifact and the CLIs
+    torch.cuda.empty_cache()
+    remat_phase(torch, dev)
+    phase_done("remat")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    export_phase(torch, dev)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32_defaults
+    phase_done("export")
+    torch.cuda.empty_cache()
+    entry_points_phase(torch, np, dev)
+    phase_done("entry_points")
 
     serve_bound = sum(calls * scan_bound("fwd", SERVE_BATCH, L, dg, 4)[0]
                       for L, dg, calls in STAGES)

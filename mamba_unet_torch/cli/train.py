@@ -5,11 +5,17 @@ and the ``ViM_seg``/``mambaunet`` models, with that CLI's flags for this
 path plus ``--device`` (default ``cuda``; it raises when there is no card
 rather than run on the CPU). Other methods raise "not ported yet".
 ``--synthetic`` trains on in-memory phantom slices
-(``data.synthetic.phantom_acdc``) instead of writing an h5 set.
-``--scan_impl`` picks SS2D's scan branch: ``auto``/``bidir`` (the
-bidirectional kernels), ``tm``/``pallas`` (the time-major grouped ones) or
-``folded`` (the batch-folded ones, at every batch); ``xla`` is not ported
-yet.
+(``data.synthetic.phantom_acdc``; ``--synthetic_hard`` the hard phantom)
+instead of writing an h5 set. ``--scan_impl`` picks SS2D's scan branch:
+``auto``/``bidir`` (the bidirectional kernels), ``tm``/``pallas`` (the
+time-major grouped ones), ``folded`` (the batch-folded ones, at every
+batch) or ``xla`` (the JAX route's name for the tm branch's function;
+the port runs it as the tm branch). ``--pretrained_ckpt`` warm-starts from
+an upstream torch ``.pth`` (``utils.convert.load_upstream_state``, decoder
+mirrored from the encoder). ``--exp`` is accepted and stored for
+command-line compatibility with the JAX CLI, which reads it nowhere else
+either. Activation recomputation (``use_remat``) is a model option, as in
+the JAX package, and has no flag.
 
     python -m mamba_unet_torch.cli.train --root_path ../data/ACDC \\
         --patch_size 224 224 --batch_size 24 --bf16 --snapshot_dir snap
@@ -33,6 +39,10 @@ PORTED_METHODS = ("fully_supervised",)
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Mamba-UNet training (PyTorch)")
     p.add_argument("--root_path", type=str, default="../data/ACDC")
+    p.add_argument("--exp", type=str, default="ACDC/Fully_Supervised",
+                   help="experiment name, accepted for command-line "
+                        "compatibility with the JAX CLI (stored; nothing "
+                        "reads it)")
     p.add_argument("--model", type=str, default="ViM_seg",
                    choices=["ViM_seg", "mambaunet"])
     p.add_argument("--method", type=str, default="fully_supervised")
@@ -66,12 +76,17 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "bidir", "tm", "pallas", "xla", "folded"],
                    help="SS2D scan path (default auto = the bidirectional "
                         "kernels; tm/pallas = the time-major grouped ones; "
-                        "folded = the batch-folded ones; xla is not ported "
-                        "yet)")
+                        "folded = the batch-folded ones; xla = the tm "
+                        "branch, as the JAX route computes its function)")
     p.add_argument("--drop_path", type=float, default=None,
                    help="stochastic depth rate (model default 0.2)")
+    p.add_argument("--pretrained_ckpt", type=str, default=None,
+                   help="upstream torch .pth to warm-start from")
     p.add_argument("--synthetic", action="store_true",
                    help="train on in-memory phantom slices")
+    p.add_argument("--synthetic_hard", action="store_true",
+                   help="the discriminating phantom (wobbly boundaries, "
+                        "distractors, bias field, apical no-RV slices)")
     p.add_argument("--synthetic_spec", type=int, nargs=5, default=None,
                    metavar=("CASES", "SLICES", "VAL", "TEST", "SIZE"),
                    help="phantom scale: train cases, slices per case, val "
@@ -132,7 +147,8 @@ def main(argv=None) -> int:
     if args.synthetic:
         cases, slices, n_val, n_test, size = (
             args.synthetic_spec or [8, 8, 2, 0, args.patch_size[0]])
-        splits = phantom_acdc(cases, slices, n_val, n_test, size)
+        splits = phantom_acdc(cases, slices, n_val, n_test, size,
+                              hard=args.synthetic_hard)
         train = splits["train"][:args.labeled_slices]
         train_ds = SliceDataset.from_samples(train, transform=transform)
         val_ds = splits["val"]
@@ -148,6 +164,17 @@ def main(argv=None) -> int:
     model = net_factory(args.model, **kwargs)
     trainer = Trainer(model, cfg, make_optimizer=_make_optimizer(args),
                       device=device)
+    if args.pretrained_ckpt:
+        from mamba_unet_torch.utils.convert import (
+            load_torch_checkpoint,
+            load_upstream_state,
+        )
+
+        report = load_upstream_state(
+            trainer.model, load_torch_checkpoint(args.pretrained_ckpt))
+        logging.info("pretrained: loaded %d tensors, %d missing, %d "
+                     "shape-skipped", len(report["loaded"]),
+                     len(report["missing"]), len(report["shape_skipped"]))
     loader = Loader(train_ds, EpochShuffleSampler(len(train_ds),
                                                   cfg.batch_size,
                                                   seed=args.seed),

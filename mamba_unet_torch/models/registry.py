@@ -24,7 +24,7 @@ def list_models():
 
 def net_factory(net_type: str, **kwargs) -> nn.Module:
     """Build a model by registry name with keyword overrides (``device``,
-    ``generator``, ``num_classes``, ...)."""
+    ``generator``, ``num_classes``, ``scan_impl``, ``use_remat``, ...)."""
     if net_type not in _LAZY:
         raise KeyError(f"unknown model {net_type!r}; known: {list_models()}")
     module, attr = _LAZY[net_type]

@@ -12,7 +12,9 @@ Topology, for depths (2, 2, 2, 2) and dims (96, 192, 384, 768)::
   norm_up -> FinalPatchExpand (x4 up) -> 1x1 conv head
 
 All tensors are channels-last; logits come out fp32 as (B, H, W, classes).
-``scan_impl`` picks every SS2D's scan branch (``nn/ss2d.py``).
+``scan_impl`` picks every SS2D's scan branch (``nn/ss2d.py``);
+``use_remat`` recomputes every VSS block's activations in the backward
+(``nn/vss.py``).
 Module names follow the upstream torch checkpoints, with ``MambaUnet``
 holding the network as ``mamba_unet``.
 """
@@ -41,11 +43,13 @@ class VSSM(nn.Module):
     def __init__(self, num_classes: int = 4, in_chans: int = 3,
                  depths: Sequence[int] = (2, 2, 2, 2),
                  dims: Sequence[int] = (96, 192, 384, 768),
-                 drop_path_rate: float = 0.2, scan_impl: str = "auto", *,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 drop_path_rate: float = 0.2, scan_impl: str = "auto",
+                 use_remat: bool = False, *, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         n = len(depths)
-        kw = dict(scan_impl=scan_impl, device=device, generator=generator)
+        kw = dict(scan_impl=scan_impl, use_remat=use_remat, device=device,
+                  generator=generator)
         # stochastic depth: linear 0 -> drop_path_rate over the encoder
         # blocks; each decoder stage reuses its mirrored encoder stage's rates
         dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
@@ -104,14 +108,15 @@ class MambaUnet(nn.Module):
     def __init__(self, num_classes: int = 4, in_chans: int = 1,
                  depths: Sequence[int] = (2, 2, 2, 2),
                  dims: Sequence[int] = (96, 192, 384, 768),
-                 drop_path_rate: float = 0.2, scan_impl: str = "auto", *,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 drop_path_rate: float = 0.2, scan_impl: str = "auto",
+                 use_remat: bool = False, *, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.mamba_unet = VSSM(num_classes, 3 if in_chans == 1 else in_chans,
                                depths=depths, dims=dims,
                                drop_path_rate=drop_path_rate,
-                               scan_impl=scan_impl, device=device,
-                               generator=generator)
+                               scan_impl=scan_impl, use_remat=use_remat,
+                               device=device, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[-1] == 1:

@@ -70,16 +70,28 @@ class DropPath(nn.Module):
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def draw(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The per-sample keep mask for ``x`` from ``self.generator``, or
+        None where this is the identity (rate 0 or eval mode)."""
         if self.rate == 0.0 or not self.training:
-            return x
+            return None
         if self.generator is None:
             raise RuntimeError("DropPath in training needs a generator: "
                                "set_drop_path_generator(model, generator)")
-        keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, device=x.device,
-                          generator=self.generator) < keep
+        return torch.rand(shape, device=x.device,
+                          generator=self.generator) < 1.0 - self.rate
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask``, from :meth:`draw`, is applied instead of a new draw: a
+        recomputed forward (activation checkpointing) must drop what the
+        first one dropped."""
+        if mask is None:
+            mask = self.draw(x)
+        if mask is None:
+            return x
+        keep = 1.0 - self.rate
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -9,7 +9,7 @@ Port of the bidirectional, time-major and batch-folded branches of
     row / column streams (B, 2, L, d_inner)
     per-direction x_proj (k = 2*j + m: stream m, reversal j) -> dt, B, C
     dt_projs -> bidirectional scan (pair-summed, fp32) -> row + col merge
-  tm (scan_impl "tm", "pallas"):
+  tm (scan_impl "tm", "pallas", "xla"):
     cross-scan: [row, col, row-rev, col-rev] copies (B, 4, L, d_inner)
     per-direction x_proj (direction k) -> dt, B, C
     dt_projs -> grouped scan, G = 4 (y in the compute dtype) -> cross-merge
@@ -26,16 +26,21 @@ Port of the bidirectional, time-major and batch-folded branches of
 Direction k of the tm and folded branches is direction 2*j + m of the
 bidir branch, so all three compute the same function of the same weights
 (the folded branch rounds dt differently: its collapsed matrix is one
-product, not two). The scans are ``selective_scan_bidir``,
-``selective_scan_grouped`` and ``selective_scan_folded_bidir``: CUDA
-kernels on CUDA tensors, their plain versions on CPU tensors. The JAX
-package folds only when B * d_inner is a multiple of 128 (TPU lane
-padding) and otherwise warns and takes its XLA route, which computes the
-same function; the port runs the folded kernels at every batch. The JAX
-package's other scan routes (``xla``, ``hwbc_folded``, the sharded ones)
-are not ported. Parameter names follow the upstream torch checkpoints
-(``in_proj``, ``conv2d``, ``x_proj_weight``, ``dt_projs_weight``,
-``dt_projs_bias``, ``A_logs``, ``Ds``, ``out_norm``, ``out_proj``).
+product, not two). The JAX xla route computes the tm branch's function
+channel-major, (B, 4, d_inner, L), through the public selective scan; the
+port runs it as the tm branch, which launches the same grouped kernels
+without the layout's transposes (it sums the directions in fp32 where the
+JAX route sums y in the compute dtype). The scans are
+``selective_scan_bidir``, ``selective_scan_grouped`` and
+``selective_scan_folded_bidir``: CUDA kernels on CUDA tensors, their plain
+versions on CPU tensors. The JAX package folds only when B * d_inner is a
+multiple of 128 (TPU lane padding) and otherwise warns and takes its XLA
+route, which computes the same function; the port runs the folded kernels
+at every batch. The JAX package's other scan routes (``hwbc_folded``, the
+sharded ones) are not ported. Parameter names follow the upstream torch
+checkpoints (``in_proj``, ``conv2d``, ``x_proj_weight``,
+``dt_projs_weight``, ``dt_projs_bias``, ``A_logs``, ``Ds``, ``out_norm``,
+``out_proj``).
 """
 
 from __future__ import annotations
@@ -68,9 +73,9 @@ K = 4  # scan directions: [row, col, row-reversed, col-reversed]
 EXPAND, D_CONV = 2, 3
 DT_MIN, DT_MAX, DT_INIT_FLOOR = 0.001, 0.1, 1e-4
 # scan_impl values of the JAX SS2D that the port runs: the bidirectional
-# branch, the time-major one and the batch-folded one; and those it does
-# not run, with why
-BIDIR_IMPLS, TM_IMPLS = ("auto", "bidir"), ("tm", "pallas")
+# branch, the time-major one (which the xla route names too) and the
+# batch-folded one; and those it does not run, with why
+BIDIR_IMPLS, TM_IMPLS = ("auto", "bidir"), ("tm", "pallas", "xla")
 FOLDED_IMPLS = ("folded",)
 PORTED_IMPLS = BIDIR_IMPLS + TM_IMPLS + FOLDED_IMPLS
 _PARALLELISM = ("it waits for the parallelism item (ROADMAP.md, queue 1, "
@@ -79,9 +84,6 @@ NOT_PORTED = {"hwbc_folded": "the hwbc layout is TPU-only machinery (its "
                              "time-major batch-minor maps make the folded "
                              "scan's stream setup a free reshape on the TPU) "
                              "and is not ported; use scan_impl='folded'",
-              "xla": "the route (cross_scan, the plain selective_scan on "
-                     "(B, 4 * d_inner, L), cross_merge) needs no mesh but "
-                     "is not ported yet (ROADMAP.md, queue 1, item 4b)",
               "seq_sharded": _PARALLELISM, "tp_sharded": _PARALLELISM}
 
 

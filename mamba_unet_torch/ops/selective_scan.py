@@ -1,10 +1,13 @@
-"""Selective scan (S6): the plain fp32 loop and the public dispatcher.
+"""Selective scan (S6): the plain fp32 loop, its plain backward and the
+public dispatcher.
 
 Port of ``mamba_unet_tpu/ops/selective_scan.py``: ``selective_scan_ref``
 (with its ``_prep``/``_finalize`` semantics) and the public
-:func:`selective_scan`. ``selective_scan_xla`` cuts L into chunks and
-carries the fp32 state across them; a sequential fp32 loop gives the same
-outputs in one piece, so :func:`selective_scan_ref` stands for both::
+:func:`selective_scan`; :func:`selective_scan_ref_bwd` is the reverse-time
+loop that every scan's plain backward runs. ``selective_scan_xla`` cuts L
+into chunks and carries the fp32 state across them; a sequential fp32 loop
+gives the same outputs in one piece, so :func:`selective_scan_ref` stands
+for both::
 
     delta = softplus(delta + delta_bias)            (both optional)
     x_t   = exp(delta_t * A) * x_{t-1} + delta_t * B_t * u_t     (x_0 = 0)
@@ -101,6 +104,62 @@ def selective_scan_ref(
     extra = ((x.reshape(bsz, dim, n),) if return_last_state else ()) + (
         (torch.stack(states, dim=1),) if state_chunk else ())
     return (out, *extra) if extra else out
+
+
+def selective_scan_ref_bwd(u, delta, A, B, C, D, delta_bias, delta_softplus,
+                           gy):
+    """Plain backward of :func:`selective_scan_ref` (without ``z`` and the
+    last state) for the cotangent ``gy`` of its output: the forward loop
+    keeps the state entering every step, then one loop backwards in time
+    carries the state's cotangent. Returns fp32 (du, ddelta, dA, dB, dC,
+    dD, ddelta_bias) in the operands' shapes; dD and ddelta_bias are None
+    for a missing D or delta_bias. It needs no autograd, so the training
+    ops' CPU implementations, which run below autograd, can call it."""
+    u_f, dt, A_f, B_f, C_f = _prep(u, delta, A, B, C, delta_bias,
+                                   delta_softplus)
+    bsz, dim, L = u_f.shape
+    G, n = B_f.shape[1], A_f.shape[1]
+    dg = dim // G
+    A_g = A_f.reshape(G, dg, n)
+    u_g = u_f.reshape(bsz, G, dg, L)
+    dt_g = dt.reshape(bsz, G, dg, L)
+    gy_g = gy.float().reshape(bsz, G, dg, L)
+    D_g = (torch.zeros(G, dg) if D is None else D.float().reshape(G, dg)
+           ).to(u_f.device)
+    x = u_f.new_zeros(bsz, G, dg, n)
+    entering = []
+    for t in range(L):
+        entering.append(x)
+        d_t = dt_g[..., t, None]
+        x = torch.exp(d_t * A_g) * x + (
+            d_t * B_f[:, :, None, :, t] * u_g[..., t, None])
+    du, ddt = torch.empty_like(u_g), torch.empty_like(dt_g)
+    dB, dC = torch.empty_like(B_f), torch.empty_like(C_f)
+    dA = torch.zeros_like(A_g)
+    h = torch.zeros_like(x)  # cotangent of the state after step t
+    for t in reversed(range(L)):
+        d_t, u_t, g_t = dt_g[..., t, None], u_g[..., t], gy_g[..., t]
+        a_t = torch.exp(d_t * A_g)
+        dC[..., t] = torch.einsum("bgdn,bgd->bgn", x, g_t)
+        h = h + g_t[..., None] * C_f[:, :, None, :, t]
+        hB = torch.einsum("bgdn,bgn->bgd", h, B_f[..., t])
+        h_a_x = h * a_t * entering[t]          # d/d(a_t) times a_t
+        du[..., t] = hB * d_t[..., 0] + D_g * g_t
+        ddt[..., t] = (h_a_x * A_g).sum(-1) + hB * u_t
+        dB[..., t] = torch.einsum("bgdn,bgd->bgn", h, d_t[..., 0] * u_t)
+        dA += (h_a_x * d_t).sum(0)
+        x = entering[t]
+        h = h * a_t
+    if delta_softplus:
+        pre = delta.float().reshape(bsz, G, dg, L)
+        if delta_bias is not None:
+            pre = pre + delta_bias.float().reshape(G, dg, 1)
+        ddt = ddt * torch.sigmoid(pre)
+    ddelta = ddt.reshape(bsz, dim, L)
+    dD = None if D is None else (gy_g * u_g).sum((0, 3)).reshape(dim)
+    ddb = None if delta_bias is None else ddelta.sum((0, 2))
+    return (du.reshape(bsz, dim, L), ddelta, dA.reshape(dim, n),
+            dB.reshape(B.shape), dC.reshape(C.shape), dD, ddb)
 
 
 def selective_scan(

@@ -94,17 +94,35 @@ def selective_scan_bidir_ref(u2, delta4, A, B4, C4, D, delta_bias):
                                            delta_bias)[0]
 
 
+def _scan_order(x):
+    """(B, 4, L, ...) in data order <-> scan order: directions 2 and 3
+    reversed in time; its own inverse."""
+    return torch.cat([x[:, :2], x[:, 2:].flip(2)], dim=1)
+
+
 def selective_scan_bidir_bwd_ref(u2, delta4, A, B4, C4, D, delta_bias, gy):
-    """Plain version of the backward: autograd through
-    :func:`selective_scan_bidir_ref` on fp32 copies, for the pair-summed
-    cotangent ``gy``. Returns the seven gradients, each in its operand's
-    dtype."""
+    """Plain version of the backward, for the pair-summed cotangent ``gy``:
+    the four directions in scan order through the grouped scan's plain
+    backward (G = 4; a reverse-time loop, no autograd), the reversed
+    directions' gradients flipped back and the two directions of each
+    stream summed into du2. Returns the seven gradients, each in its
+    operand's dtype."""
+    # imported here: the grouped module imports this one
+    from mamba_unet_torch.ops.selective_scan_grouped import (
+        selective_scan_grouped_bwd_ref,
+    )
+
+    u4 = torch.cat([u2, u2], dim=1).float()
+    gy4 = torch.cat([gy, gy], dim=1).float()
+    du4, dd4, dA, dB4, dC4, dD, ddb = selective_scan_grouped_bwd_ref(
+        _scan_order(u4), _scan_order(delta4.float()), A,
+        _scan_order(B4.float()), _scan_order(C4.float()), D, delta_bias,
+        _scan_order(gy4))
+    du4 = _scan_order(du4)
+    grads = (du4[:, :2] + du4[:, 2:], _scan_order(dd4), dA,
+             _scan_order(dB4), _scan_order(dC4), dD, ddb)
     args = (u2, delta4, A, B4, C4, D, delta_bias)
-    with torch.enable_grad():
-        leaves = [t.detach().float().requires_grad_() for t in args]
-        grads = torch.autograd.grad(selective_scan_bidir_ref(*leaves), leaves,
-                                    gy.float())
-    return tuple(g.to(t.dtype) for g, t in zip(grads, args))
+    return tuple(g.to(t.dtype).contiguous() for g, t in zip(grads, args))
 
 
 def _check(u2, delta4, A, B4, C4, D, delta_bias):
@@ -198,50 +216,107 @@ def kernel_occupancy(kind: str, bsz: int, L: int, dg: int,
     return dict(zip(OCCUPANCY_KEYS, out))
 
 
-def selective_scan_bidir_fwd_states(u2, delta4, A, B4, C4, D, delta_bias):
-    """The training forward -> (fp32 pair-summed y, fp32 cs).
-
-    CPU tensors run :func:`selective_scan_bidir_states_ref`; CUDA tensors
-    launch the forward kernel with state saving on, or raise. Each launch
-    adds one to ``selective_scan_bidir_fwd_states.launches``."""
-    args = (u2, delta4, A, B4, C4, D, delta_bias)
+def _check_bwd(args, cs, gy):
+    """The backward's operand checks: :func:`_check`, then ``cs`` and
+    ``gy``."""
     _check(*args)
-    if not _on_cuda(*args):
-        return selective_scan_bidir_states_ref(*args)
+    u2 = args[0]
     bsz, _, L, dg = u2.shape
-    nc = -(-L // STATE_CHUNK)
-    cs = torch.empty(bsz, 4, nc, dg, KERNEL_N, dtype=torch.float32,
-                     device=u2.device)
-    out = _launch_fwd(args, cs)
-    selective_scan_bidir_fwd_states.launches += 1
-    return out, cs
-
-
-def selective_scan_bidir_bwd(u2, delta4, A, B4, C4, D, delta_bias, cs, gy):
-    """The backward -> (du2, ddelta4, dA, dB4, dC4, dD, ddelta_bias), each
-    in its operand's dtype (du2, ddelta4, dB4, dC4 in the I/O dtype; the
-    kernel accumulates in fp32).
-
-    ``cs`` is the state-saving forward's second output and ``gy`` the fp32
-    cotangent of its pair-summed output. CPU tensors run
-    :func:`selective_scan_bidir_bwd_ref` (which recomputes instead of reading
-    ``cs``); CUDA tensors launch the backward kernel and reduce its fp32
-    partial sums here (over channel tiles for dB/dC, over the batch for
-    dA/dD/ddelta_bias: a fixed order, so the result is deterministic), or
-    raise. Each launch adds one to ``selective_scan_bidir_bwd.launches``."""
-    args = (u2, delta4, A, B4, C4, D, delta_bias)
-    _check(*args)
-    bsz, _, L, dg = u2.shape
-    n = A.shape[-1]
-    want = (bsz, 4, -(-L // STATE_CHUNK), dg, n)
+    want = (bsz, 4, -(-L // STATE_CHUNK), dg, args[2].shape[-1])
     if tuple(cs.shape) != want or cs.dtype != torch.float32:
         raise ValueError(f"cs must be float32 {want}, got {cs.dtype} "
                          f"{tuple(cs.shape)}")
     if tuple(gy.shape) != tuple(u2.shape) or gy.dtype != torch.float32:
         raise ValueError(f"gy must be float32 {tuple(u2.shape)}, got "
                          f"{gy.dtype} {tuple(gy.shape)}")
-    if not _on_cuda(*args, cs, gy):
-        return selective_scan_bidir_bwd_ref(*args, gy)
+
+
+# The three kernel entry points as custom ops: a CPU implementation (the
+# plain version), a CUDA one (the kernel, or raise) and a fake one (shapes
+# and dtypes only, for torch.export). The checks run in all three.
+
+@torch.library.custom_op("mamba_unet::selective_scan_bidir", mutates_args=(),
+                         device_types="cpu")
+def _serve_op(u2: torch.Tensor, delta4: torch.Tensor, A: torch.Tensor,
+              B4: torch.Tensor, C4: torch.Tensor, D: torch.Tensor,
+              delta_bias: torch.Tensor) -> torch.Tensor:
+    args = (u2, delta4, A, B4, C4, D, delta_bias)
+    _check(*args)
+    return selective_scan_bidir_ref(*args).contiguous()
+
+
+@_serve_op.register_kernel("cuda")
+def _serve_cuda(u2, delta4, A, B4, C4, D, delta_bias):
+    args = (u2, delta4, A, B4, C4, D, delta_bias)
+    _check(*args)
+    _on_cuda(*args)
+    out = _launch_fwd(args, None)
+    selective_scan_bidir.launches += 1
+    return out
+
+
+@_serve_op.register_fake
+def _serve_fake(u2, delta4, A, B4, C4, D, delta_bias):
+    args = (u2, delta4, A, B4, C4, D, delta_bias)
+    _check(*args)
+    _on_cuda(*args)
+    return torch.empty_like(u2, dtype=torch.float32)
+
+
+@torch.library.custom_op("mamba_unet::selective_scan_bidir_fwd_states",
+                         mutates_args=(), device_types="cpu")
+def _fwd_states_op(u2: torch.Tensor, delta4: torch.Tensor, A: torch.Tensor,
+                   B4: torch.Tensor, C4: torch.Tensor, D: torch.Tensor,
+                   delta_bias: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    args = (u2, delta4, A, B4, C4, D, delta_bias)
+    _check(*args)
+    out, cs = selective_scan_bidir_states_ref(*args)
+    return out.contiguous(), cs.contiguous()
+
+
+@_fwd_states_op.register_kernel("cuda")
+def _fwd_states_cuda(u2, delta4, A, B4, C4, D, delta_bias):
+    args = (u2, delta4, A, B4, C4, D, delta_bias)
+    _check(*args)
+    _on_cuda(*args)
+    bsz, _, L, dg = u2.shape
+    cs = torch.empty(bsz, 4, -(-L // STATE_CHUNK), dg, KERNEL_N,
+                     dtype=torch.float32, device=u2.device)
+    out = _launch_fwd(args, cs)
+    selective_scan_bidir_fwd_states.launches += 1
+    return out, cs
+
+
+@_fwd_states_op.register_fake
+def _fwd_states_fake(u2, delta4, A, B4, C4, D, delta_bias):
+    args = (u2, delta4, A, B4, C4, D, delta_bias)
+    _check(*args)
+    _on_cuda(*args)
+    bsz, _, L, dg = u2.shape
+    return torch.empty_like(u2, dtype=torch.float32), u2.new_empty(
+        bsz, 4, -(-L // STATE_CHUNK), dg, A.shape[-1], dtype=torch.float32)
+
+
+@torch.library.custom_op("mamba_unet::selective_scan_bidir_bwd",
+                         mutates_args=(), device_types="cpu")
+def _bwd_op(u2: torch.Tensor, delta4: torch.Tensor, A: torch.Tensor,
+            B4: torch.Tensor, C4: torch.Tensor, D: torch.Tensor,
+            delta_bias: torch.Tensor, cs: torch.Tensor, gy: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                       torch.Tensor, torch.Tensor, torch.Tensor]:
+    args = (u2, delta4, A, B4, C4, D, delta_bias)
+    _check_bwd(args, cs, gy)
+    return selective_scan_bidir_bwd_ref(*args, gy)
+
+
+@_bwd_op.register_kernel("cuda")
+def _bwd_cuda(u2, delta4, A, B4, C4, D, delta_bias, cs, gy):
+    args = (u2, delta4, A, B4, C4, D, delta_bias)
+    _check_bwd(args, cs, gy)
+    _on_cuda(*args, cs, gy)
+    bsz, _, L, dg = u2.shape
+    n = A.shape[-1]
     ntile = -(-dg // KERNEL_TILE)
     lib = _build.library()
     with torch.cuda.device(u2.device):
@@ -268,6 +343,40 @@ def selective_scan_bidir_bwd(u2, delta4, A, B4, C4, D, delta_bias, cs, gy):
                 dC_part.sum(0).to(io), dD_part.sum(0), ddb_part.sum(0))
 
 
+@_bwd_op.register_fake
+def _bwd_fake(u2, delta4, A, B4, C4, D, delta_bias, cs, gy):
+    args = (u2, delta4, A, B4, C4, D, delta_bias)
+    _check_bwd(args, cs, gy)
+    _on_cuda(*args, cs, gy)
+    return tuple(torch.empty_like(t) for t in args)
+
+
+def selective_scan_bidir_fwd_states(u2, delta4, A, B4, C4, D, delta_bias):
+    """The training forward -> (fp32 pair-summed y, fp32 cs): the op
+    ``mamba_unet::selective_scan_bidir_fwd_states``.
+
+    CPU tensors run :func:`selective_scan_bidir_states_ref`; CUDA tensors
+    launch the forward kernel with state saving on, or raise. Each launch
+    adds one to ``selective_scan_bidir_fwd_states.launches``."""
+    return _fwd_states_op(u2, delta4, A, B4, C4, D, delta_bias)
+
+
+def selective_scan_bidir_bwd(u2, delta4, A, B4, C4, D, delta_bias, cs, gy):
+    """The backward -> (du2, ddelta4, dA, dB4, dC4, dD, ddelta_bias), each
+    in its operand's dtype (du2, ddelta4, dB4, dC4 in the I/O dtype; the
+    kernel accumulates in fp32): the op
+    ``mamba_unet::selective_scan_bidir_bwd``.
+
+    ``cs`` is the state-saving forward's second output and ``gy`` the fp32
+    cotangent of its pair-summed output. CPU tensors run
+    :func:`selective_scan_bidir_bwd_ref` (which recomputes instead of reading
+    ``cs``); CUDA tensors launch the backward kernel and reduce its fp32
+    partial sums (over channel tiles for dB/dC, over the batch for
+    dA/dD/ddelta_bias: a fixed order, so the result is deterministic), or
+    raise. Each launch adds one to ``selective_scan_bidir_bwd.launches``."""
+    return _bwd_op(u2, delta4, A, B4, C4, D, delta_bias, cs, gy)
+
+
 class _ScanBidir(torch.autograd.Function):
     """The training scan: the state-saving forward, and the backward kernel
     on the pair-summed fp32 cotangent."""
@@ -291,7 +400,8 @@ def selective_scan_bidir(u2, delta4, A, B4, C4, D, delta_bias):
     With grad enabled and an operand that requires grad, this is the
     differentiable training scan: the state-saving forward and the backward
     (kernels on CUDA tensors, their plain versions on CPU tensors).
-    Otherwise it is the serving forward: CPU tensors run
+    Otherwise it is the serving forward, the op
+    ``mamba_unet::selective_scan_bidir``: CPU tensors run
     :func:`selective_scan_bidir_ref`, CUDA tensors launch the forward kernel
     without saved states on the current stream, or raise: there is no
     fallback. Each serving launch adds one to
@@ -299,12 +409,7 @@ def selective_scan_bidir(u2, delta4, A, B4, C4, D, delta_bias):
     args = (u2, delta4, A, B4, C4, D, delta_bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _ScanBidir.apply(*args)
-    _check(*args)
-    if not _on_cuda(*args):
-        return selective_scan_bidir_ref(*args)
-    out = _launch_fwd(args, None)
-    selective_scan_bidir.launches += 1
-    return out
+    return _serve_op(*args)
 
 
 selective_scan_bidir.launches = 0

@@ -144,16 +144,43 @@ def selective_scan_folded_states_ref(u, delta, A, B, C, D, delta_bias,
 
 def selective_scan_folded_bwd_ref(u, delta, A, B, C, D, delta_bias, gy,
                                   softplus=True, bidir=True):
-    """Plain version of the backward: autograd through
-    :func:`selective_scan_folded_ref` on fp32 copies, for the cotangent
-    ``gy``. Returns the seven gradients, each in its operand's dtype (du
-    pair-summed with ``bidir``, as u holds the two streams)."""
+    """Plain version of the backward, for the cotangent ``gy``: the
+    directions unfolded to the grouped layout (B, G, L, dg) in scan order,
+    through the grouped scan's plain backward (a reverse-time loop, no
+    autograd), then folded back; with ``bidir`` du sums the two directions
+    that read each stream. Returns the seven gradients, each in its
+    operand's dtype."""
+    # imported here: the grouped module imports the bidir one, as this does
+    from mamba_unet_torch.ops.selective_scan_grouped import (
+        selective_scan_grouped_bwd_ref,
+    )
+
+    G, L, BD = delta.shape
+    bsz = B.shape[-1]
+    dg = BD // bsz
+
+    def unfold(t):  # (·, L, B * dg) -> scan-order fp32 (B, ·, L, dg)
+        t = t.float().reshape(t.shape[0], L, bsz, dg)
+        return _scan_order(t, bidir).permute(2, 0, 1, 3)
+
+    def unfold_bc(t):  # (G, L, N, B) -> scan-order fp32 (B, G, L, N)
+        return _scan_order(t.float(), bidir).permute(3, 0, 1, 2)
+
+    def fold(t):  # inverse of unfold
+        t = _scan_order(t.permute(1, 2, 0, 3), bidir)
+        return t.reshape(t.shape[0], L, BD)
+
+    uu = u[[0, 1, 0, 1]] if bidir else u
+    du, dd, dA, dB, dC, dD, ddb = selective_scan_grouped_bwd_ref(
+        unfold(uu), unfold(delta), A, unfold_bc(B), unfold_bc(C), D,
+        delta_bias, unfold(gy), softplus)
+    du = fold(du)
+    if bidir:
+        du = du[:2] + du[2:]
+    grads = (du, fold(dd), dA, _scan_order(dB.permute(1, 2, 3, 0), bidir),
+             _scan_order(dC.permute(1, 2, 3, 0), bidir), dD, ddb)
     args = (u, delta, A, B, C, D, delta_bias)
-    with torch.enable_grad():
-        leaves = [t.detach().float().requires_grad_() for t in args]
-        y = selective_scan_folded_ref(*leaves, softplus, bidir)
-        grads = torch.autograd.grad(y, leaves, gy.float())
-    return tuple(g.to(t.dtype) for g, t in zip(grads, args))
+    return tuple(g.to(t.dtype).contiguous() for g, t in zip(grads, args))
 
 
 def _check(u, delta, A, B, C, D, delta_bias, bidir):
@@ -264,34 +291,71 @@ def kernel_occupancy(kind: str, bsz: int, L: int, dg: int,
     return dict(zip(OCCUPANCY_KEYS, out))
 
 
-def selective_scan_folded_fwd(u, delta, A, B, C, D, delta_bias,
-                              softplus=True, bidir=True):
-    """The serving forward -> y in the dtype of ``u``.
+def _check_bwd(args, cs, gy, bidir):
+    """The backward's operand checks: :func:`_check`, then ``cs`` and
+    ``gy``."""
+    _check(*args, bidir)
+    u, delta, A, B = args[:4]
+    G, L, bsz, dg = _dims(delta, B)
+    want = (G, -(-L // STATE_CHUNK), A.shape[-1], bsz * dg)
+    if tuple(cs.shape) != want or cs.dtype != torch.float32:
+        raise ValueError(f"cs must be float32 {want}, got {cs.dtype} "
+                         f"{tuple(cs.shape)}")
+    if tuple(gy.shape) != tuple(delta.shape) or gy.dtype != u.dtype:
+        raise ValueError(f"gy must be {u.dtype} {tuple(delta.shape)}, got "
+                         f"{gy.dtype} {tuple(gy.shape)}")
 
-    CPU tensors run :func:`selective_scan_folded_ref`; CUDA tensors launch
-    the forward kernel without saved states on the current stream, or
-    raise: there is no fallback. Each launch adds one to
-    ``selective_scan_folded_fwd.launches``."""
+
+# The three kernel entry points as custom ops: a CPU implementation (the
+# plain version), a CUDA one (the kernel, or raise) and a fake one (shapes
+# and dtypes only, for torch.export). The checks run in all three.
+
+@torch.library.custom_op("mamba_unet::selective_scan_folded_fwd",
+                         mutates_args=(), device_types="cpu")
+def _serve_op(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
+              B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+              delta_bias: torch.Tensor, softplus: bool, bidir: bool
+              ) -> torch.Tensor:
     args = (u, delta, A, B, C, D, delta_bias)
     _check(*args, bidir)
-    if not _on_cuda(*args):
-        return selective_scan_folded_ref(*args, softplus, bidir)
+    return selective_scan_folded_ref(*args, softplus, bidir).contiguous()
+
+
+@_serve_op.register_kernel("cuda")
+def _serve_cuda(u, delta, A, B, C, D, delta_bias, softplus, bidir):
+    args = (u, delta, A, B, C, D, delta_bias)
+    _check(*args, bidir)
+    _on_cuda(*args)
     y = _launch_fwd(args, softplus, bidir, None)
     selective_scan_folded_fwd.launches += 1
     return y
 
 
-def selective_scan_folded_fwd_states(u, delta, A, B, C, D, delta_bias,
-                                     softplus=True, bidir=True):
-    """The training forward -> (y in the dtype of ``u``, fp32 cs).
-
-    CPU tensors run :func:`selective_scan_folded_states_ref`; CUDA tensors
-    launch the forward kernel with state saving on, or raise. Each launch
-    adds one to ``selective_scan_folded_fwd_states.launches``."""
+@_serve_op.register_fake
+def _serve_fake(u, delta, A, B, C, D, delta_bias, softplus, bidir):
     args = (u, delta, A, B, C, D, delta_bias)
     _check(*args, bidir)
-    if not _on_cuda(*args):
-        return selective_scan_folded_states_ref(*args, softplus, bidir)
+    _on_cuda(*args)
+    return torch.empty_like(delta)
+
+
+@torch.library.custom_op("mamba_unet::selective_scan_folded_fwd_states",
+                         mutates_args=(), device_types="cpu")
+def _fwd_states_op(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                   delta_bias: torch.Tensor, softplus: bool, bidir: bool
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    args = (u, delta, A, B, C, D, delta_bias)
+    _check(*args, bidir)
+    y, cs = selective_scan_folded_states_ref(*args, softplus, bidir)
+    return y.contiguous(), cs.contiguous()
+
+
+@_fwd_states_op.register_kernel("cuda")
+def _fwd_states_cuda(u, delta, A, B, C, D, delta_bias, softplus, bidir):
+    args = (u, delta, A, B, C, D, delta_bias)
+    _check(*args, bidir)
+    _on_cuda(*args)
     G, L, BD = delta.shape
     cs = torch.empty(G, -(-L // STATE_CHUNK), KERNEL_N, BD,
                      dtype=torch.float32, device=u.device)
@@ -300,32 +364,36 @@ def selective_scan_folded_fwd_states(u, delta, A, B, C, D, delta_bias,
     return y, cs
 
 
-def selective_scan_folded_bwd(u, delta, A, B, C, D, delta_bias, cs, gy,
-                              softplus=True, bidir=True):
-    """The backward -> (du, ddelta, dA, dB, dC, dD, ddelta_bias), each in
-    its operand's dtype (the kernel accumulates in fp32).
-
-    ``cs`` is the state-saving forward's second output and ``gy`` the
-    cotangent of its y, in the I/O dtype. CPU tensors run
-    :func:`selective_scan_folded_bwd_ref` (which recomputes instead of
-    reading ``cs``); CUDA tensors launch the backward kernel, which sums du
-    over each pair of directions itself, and reduce its fp32 partial sums
-    here in a fixed order (dB/dC over channel tiles, dA/dD/ddelta_bias over
-    the batch: deterministic, no atomics), or raise. Each launch adds one to
-    ``selective_scan_folded_bwd.launches``."""
+@_fwd_states_op.register_fake
+def _fwd_states_fake(u, delta, A, B, C, D, delta_bias, softplus, bidir):
     args = (u, delta, A, B, C, D, delta_bias)
     _check(*args, bidir)
+    _on_cuda(*args)
+    G, L, BD = delta.shape
+    return torch.empty_like(delta), u.new_empty(
+        G, -(-L // STATE_CHUNK), A.shape[-1], BD, dtype=torch.float32)
+
+
+@torch.library.custom_op("mamba_unet::selective_scan_folded_bwd",
+                         mutates_args=(), device_types="cpu")
+def _bwd_op(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
+            B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+            delta_bias: torch.Tensor, cs: torch.Tensor, gy: torch.Tensor,
+            softplus: bool, bidir: bool
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                       torch.Tensor, torch.Tensor, torch.Tensor]:
+    args = (u, delta, A, B, C, D, delta_bias)
+    _check_bwd(args, cs, gy, bidir)
+    return selective_scan_folded_bwd_ref(*args, gy, softplus, bidir)
+
+
+@_bwd_op.register_kernel("cuda")
+def _bwd_cuda(u, delta, A, B, C, D, delta_bias, cs, gy, softplus, bidir):
+    args = (u, delta, A, B, C, D, delta_bias)
+    _check_bwd(args, cs, gy, bidir)
+    _on_cuda(*args, cs, gy)
     G, L, bsz, dg = _dims(delta, B)
     n = A.shape[-1]
-    want = (G, -(-L // STATE_CHUNK), n, bsz * dg)
-    if tuple(cs.shape) != want or cs.dtype != torch.float32:
-        raise ValueError(f"cs must be float32 {want}, got {cs.dtype} "
-                         f"{tuple(cs.shape)}")
-    if tuple(gy.shape) != tuple(delta.shape) or gy.dtype != u.dtype:
-        raise ValueError(f"gy must be {u.dtype} {tuple(delta.shape)}, got "
-                         f"{gy.dtype} {tuple(gy.shape)}")
-    if not _on_cuda(*args, cs, gy):
-        return selective_scan_folded_bwd_ref(*args, gy, softplus, bidir)
     ntile = -(-dg // KERNEL_TILE[bool(bidir)])
     lib = _build.library()
     with torch.cuda.device(u.device):
@@ -356,6 +424,54 @@ def selective_scan_folded_bwd(u, delta, A, B, C, D, delta_bias, cs, gy,
 
         return (du.to(io), ddelta, dA_part.sum(0), per_batch_last(dB_part),
                 per_batch_last(dC_part), dD_part.sum(0), ddb_part.sum(0))
+
+
+@_bwd_op.register_fake
+def _bwd_fake(u, delta, A, B, C, D, delta_bias, cs, gy, softplus, bidir):
+    args = (u, delta, A, B, C, D, delta_bias)
+    _check_bwd(args, cs, gy, bidir)
+    _on_cuda(*args, cs, gy)
+    return tuple(torch.empty_like(t) for t in args)
+
+
+def selective_scan_folded_fwd(u, delta, A, B, C, D, delta_bias,
+                              softplus=True, bidir=True):
+    """The serving forward -> y in the dtype of ``u``: the op
+    ``mamba_unet::selective_scan_folded_fwd``.
+
+    CPU tensors run :func:`selective_scan_folded_ref`; CUDA tensors launch
+    the forward kernel without saved states on the current stream, or
+    raise: there is no fallback. Each launch adds one to
+    ``selective_scan_folded_fwd.launches``."""
+    return _serve_op(u, delta, A, B, C, D, delta_bias, softplus, bidir)
+
+
+def selective_scan_folded_fwd_states(u, delta, A, B, C, D, delta_bias,
+                                     softplus=True, bidir=True):
+    """The training forward -> (y in the dtype of ``u``, fp32 cs): the op
+    ``mamba_unet::selective_scan_folded_fwd_states``.
+
+    CPU tensors run :func:`selective_scan_folded_states_ref`; CUDA tensors
+    launch the forward kernel with state saving on, or raise. Each launch
+    adds one to ``selective_scan_folded_fwd_states.launches``."""
+    return _fwd_states_op(u, delta, A, B, C, D, delta_bias, softplus, bidir)
+
+
+def selective_scan_folded_bwd(u, delta, A, B, C, D, delta_bias, cs, gy,
+                              softplus=True, bidir=True):
+    """The backward -> (du, ddelta, dA, dB, dC, dD, ddelta_bias), each in
+    its operand's dtype (the kernel accumulates in fp32): the op
+    ``mamba_unet::selective_scan_folded_bwd``.
+
+    ``cs`` is the state-saving forward's second output and ``gy`` the
+    cotangent of its y, in the I/O dtype. CPU tensors run
+    :func:`selective_scan_folded_bwd_ref` (which recomputes instead of
+    reading ``cs``); CUDA tensors launch the backward kernel, which sums du
+    over each pair of directions itself, and reduce its fp32 partial sums in
+    a fixed order (dB/dC over channel tiles, dA/dD/ddelta_bias over the
+    batch: deterministic, no atomics), or raise. Each launch adds one to
+    ``selective_scan_folded_bwd.launches``."""
+    return _bwd_op(u, delta, A, B, C, D, delta_bias, cs, gy, softplus, bidir)
 
 
 class _ScanFolded(torch.autograd.Function):

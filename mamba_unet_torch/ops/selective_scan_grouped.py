@@ -65,6 +65,11 @@ def silu_gate(y, z, out_dtype):
     return (y.float() * F.silu(z.float())).to(out_dtype)
 
 
+def _channels_first(t):
+    """(B, G, L, w) -> (B, G * w, L)."""
+    return t.transpose(2, 3).reshape(t.shape[0], -1, t.shape[2])
+
+
 def _plain(u, delta, A, B, C, D, delta_bias, softplus, return_last_state,
            state_chunk=0):
     """``ops/selective_scan.py``'s sequential fp32 loop on the (B, D, L)
@@ -73,12 +78,8 @@ def _plain(u, delta, A, B, C, D, delta_bias, softplus, return_last_state,
     from mamba_unet_torch.ops.selective_scan import selective_scan_ref
 
     bsz, G, L, dg = u.shape
-
-    def channels_first(t):  # (B, G, L, w) -> (B, G * w, L)
-        return t.transpose(2, 3).reshape(bsz, -1, L)
-
     out = selective_scan_ref(
-        channels_first(u), channels_first(delta), A, B.transpose(2, 3),
+        _channels_first(u), _channels_first(delta), A, B.transpose(2, 3),
         C.transpose(2, 3), D, None, delta_bias, softplus, return_last_state,
         state_chunk=state_chunk)
     y, *extra = out if isinstance(out, tuple) else (out,)
@@ -108,15 +109,25 @@ def selective_scan_grouped_states_ref(u, delta, A, B, C, D, delta_bias,
 
 def selective_scan_grouped_bwd_ref(u, delta, A, B, C, D, delta_bias, gy,
                                    softplus=True):
-    """Plain version of the backward: autograd through
-    :func:`selective_scan_grouped_ref` on fp32 copies, for the cotangent
-    ``gy``. Returns the seven gradients, each in its operand's dtype."""
+    """Plain version of the backward: ``ops/selective_scan.py``'s
+    reverse-time loop (``selective_scan_ref_bwd``, no autograd) on the
+    (B, D, L) view, for the cotangent ``gy``. Returns the seven gradients,
+    each in its operand's dtype."""
+    # imported here: ops/selective_scan.py imports this module
+    from mamba_unet_torch.ops.selective_scan import selective_scan_ref_bwd
+
+    bsz, G, L, dg = u.shape
+    du, ddelta, dA, dB, dC, dD, ddb = selective_scan_ref_bwd(
+        _channels_first(u), _channels_first(delta), A, B.transpose(2, 3),
+        C.transpose(2, 3), D, delta_bias, softplus, _channels_first(gy))
+
+    def time_major(t):  # (B, G * dg, L) -> (B, G, L, dg)
+        return t.reshape(bsz, G, dg, L).transpose(2, 3)
+
+    grads = (time_major(du), time_major(ddelta), dA, dB.transpose(2, 3),
+             dC.transpose(2, 3), dD, ddb)
     args = (u, delta, A, B, C, D, delta_bias)
-    with torch.enable_grad():
-        leaves = [t.detach().float().requires_grad_() for t in args]
-        y = selective_scan_grouped_ref(*leaves, softplus)
-        grads = torch.autograd.grad(y, leaves, gy.float())
-    return tuple(g.to(t.dtype) for g, t in zip(grads, args))
+    return tuple(g.to(t.dtype).contiguous() for g, t in zip(grads, args))
 
 
 def _check(u, delta, A, B, C, D, delta_bias):
@@ -206,17 +217,85 @@ def kernel_occupancy(kind: str, bsz: int, G: int, L: int, dg: int,
     return dict(zip(OCCUPANCY_KEYS, out))
 
 
-def selective_scan_grouped_fwd_states(u, delta, A, B, C, D, delta_bias,
-                                      softplus=True):
-    """The training forward -> (y in the dtype of ``u``, fp32 cs).
+def _check_bwd(args, cs, gy):
+    """The backward's operand checks: :func:`_check`, then ``cs`` and
+    ``gy``."""
+    _check(*args)
+    u = args[0]
+    bsz, G, L, dg = u.shape
+    want = (bsz, G, -(-L // STATE_CHUNK), args[2].shape[-1], dg)
+    if tuple(cs.shape) != want or cs.dtype != torch.float32:
+        raise ValueError(f"cs must be float32 {want}, got {cs.dtype} "
+                         f"{tuple(cs.shape)}")
+    if tuple(gy.shape) != tuple(u.shape) or gy.dtype != u.dtype:
+        raise ValueError(f"gy must be {u.dtype} {tuple(u.shape)}, got "
+                         f"{gy.dtype} {tuple(gy.shape)}")
 
-    CPU tensors run :func:`selective_scan_grouped_states_ref`; CUDA tensors
-    launch the forward kernel with state saving on, or raise. Each launch
-    adds one to ``selective_scan_grouped_fwd_states.launches``."""
+
+def _no_last_state(u):
+    """The serving op's second output when no final state is asked for."""
+    return u.new_empty(0, dtype=torch.float32)
+
+
+# The three kernel entry points as custom ops: a CPU implementation (the
+# plain version), a CUDA one (the kernel, or raise) and a fake one (shapes
+# and dtypes only, for torch.export). The checks run in all three.
+
+@torch.library.custom_op("mamba_unet::selective_scan_grouped",
+                         mutates_args=(), device_types="cpu")
+def _serve_op(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
+              B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+              delta_bias: torch.Tensor, softplus: bool,
+              return_last_state: bool) -> tuple[torch.Tensor, torch.Tensor]:
     args = (u, delta, A, B, C, D, delta_bias)
     _check(*args)
-    if not _on_cuda(*args):
-        return selective_scan_grouped_states_ref(*args, softplus)
+    y, *last = _plain(*args, softplus, return_last_state)
+    return y.contiguous(), last[0] if last else _no_last_state(u)
+
+
+@_serve_op.register_kernel("cuda")
+def _serve_cuda(u, delta, A, B, C, D, delta_bias, softplus,
+                return_last_state):
+    args = (u, delta, A, B, C, D, delta_bias)
+    _check(*args)
+    _on_cuda(*args)
+    bsz, G, L, dg = u.shape
+    last = (torch.empty(bsz, G * dg, KERNEL_N, dtype=torch.float32,
+                        device=u.device) if return_last_state else None)
+    y = _launch_fwd(args, softplus, last, None)
+    selective_scan_grouped.launches += 1
+    return y, _no_last_state(u) if last is None else last
+
+
+@_serve_op.register_fake
+def _serve_fake(u, delta, A, B, C, D, delta_bias, softplus,
+                return_last_state):
+    args = (u, delta, A, B, C, D, delta_bias)
+    _check(*args)
+    _on_cuda(*args)
+    bsz, G, L, dg = u.shape
+    last = (u.new_empty(bsz, G * dg, A.shape[-1], dtype=torch.float32)
+            if return_last_state else _no_last_state(u))
+    return torch.empty_like(u), last
+
+
+@torch.library.custom_op("mamba_unet::selective_scan_grouped_fwd_states",
+                         mutates_args=(), device_types="cpu")
+def _fwd_states_op(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                   delta_bias: torch.Tensor, softplus: bool
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    args = (u, delta, A, B, C, D, delta_bias)
+    _check(*args)
+    y, cs = selective_scan_grouped_states_ref(*args, softplus)
+    return y.contiguous(), cs
+
+
+@_fwd_states_op.register_kernel("cuda")
+def _fwd_states_cuda(u, delta, A, B, C, D, delta_bias, softplus):
+    args = (u, delta, A, B, C, D, delta_bias)
+    _check(*args)
+    _on_cuda(*args)
     bsz, G, L, dg = u.shape
     cs = torch.empty(bsz, G, -(-L // STATE_CHUNK), KERNEL_N, dg,
                      dtype=torch.float32, device=u.device)
@@ -225,31 +304,36 @@ def selective_scan_grouped_fwd_states(u, delta, A, B, C, D, delta_bias,
     return y, cs
 
 
-def selective_scan_grouped_bwd(u, delta, A, B, C, D, delta_bias, cs, gy,
-                               softplus=True):
-    """The backward -> (du, ddelta, dA, dB, dC, dD, ddelta_bias), each in
-    its operand's dtype (the kernel accumulates in fp32).
-
-    ``cs`` is the state-saving forward's second output and ``gy`` the
-    cotangent of its y, in the I/O dtype. CPU tensors run
-    :func:`selective_scan_grouped_bwd_ref` (which recomputes instead of
-    reading ``cs``); CUDA tensors launch the backward kernel and reduce its
-    fp32 partial sums here (over channel tiles for dB/dC, over the batch for
-    dA/dD/ddelta_bias: a fixed order, so the result is deterministic), or
-    raise. Each launch adds one to ``selective_scan_grouped_bwd.launches``."""
+@_fwd_states_op.register_fake
+def _fwd_states_fake(u, delta, A, B, C, D, delta_bias, softplus):
     args = (u, delta, A, B, C, D, delta_bias)
     _check(*args)
+    _on_cuda(*args)
+    bsz, G, L, dg = u.shape
+    return torch.empty_like(u), u.new_empty(
+        bsz, G, -(-L // STATE_CHUNK), A.shape[-1], dg, dtype=torch.float32)
+
+
+@torch.library.custom_op("mamba_unet::selective_scan_grouped_bwd",
+                         mutates_args=(), device_types="cpu")
+def _bwd_op(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
+            B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+            delta_bias: torch.Tensor, cs: torch.Tensor, gy: torch.Tensor,
+            softplus: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                     torch.Tensor, torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    args = (u, delta, A, B, C, D, delta_bias)
+    _check_bwd(args, cs, gy)
+    return selective_scan_grouped_bwd_ref(*args, gy, softplus)
+
+
+@_bwd_op.register_kernel("cuda")
+def _bwd_cuda(u, delta, A, B, C, D, delta_bias, cs, gy, softplus):
+    args = (u, delta, A, B, C, D, delta_bias)
+    _check_bwd(args, cs, gy)
+    _on_cuda(*args, cs, gy)
     bsz, G, L, dg = u.shape
     n = A.shape[-1]
-    want = (bsz, G, -(-L // STATE_CHUNK), n, dg)
-    if tuple(cs.shape) != want or cs.dtype != torch.float32:
-        raise ValueError(f"cs must be float32 {want}, got {cs.dtype} "
-                         f"{tuple(cs.shape)}")
-    if tuple(gy.shape) != tuple(u.shape) or gy.dtype != u.dtype:
-        raise ValueError(f"gy must be {u.dtype} {tuple(u.shape)}, got "
-                         f"{gy.dtype} {tuple(gy.shape)}")
-    if not _on_cuda(*args, cs, gy):
-        return selective_scan_grouped_bwd_ref(*args, gy, softplus)
     ntile = -(-dg // KERNEL_TILE)
     lib = _build.library()
     with torch.cuda.device(u.device):
@@ -274,6 +358,41 @@ def selective_scan_grouped_bwd(u, delta, A, B, C, D, delta_bias, cs, gy,
         io = u.dtype
         return (du, ddelta, dA_part.sum(0), dB_part.sum(0).to(io),
                 dC_part.sum(0).to(io), dD_part.sum(0), ddb_part.sum(0))
+
+
+@_bwd_op.register_fake
+def _bwd_fake(u, delta, A, B, C, D, delta_bias, cs, gy, softplus):
+    args = (u, delta, A, B, C, D, delta_bias)
+    _check_bwd(args, cs, gy)
+    _on_cuda(*args, cs, gy)
+    return tuple(torch.empty_like(t) for t in args)
+
+
+def selective_scan_grouped_fwd_states(u, delta, A, B, C, D, delta_bias,
+                                      softplus=True):
+    """The training forward -> (y in the dtype of ``u``, fp32 cs): the op
+    ``mamba_unet::selective_scan_grouped_fwd_states``.
+
+    CPU tensors run :func:`selective_scan_grouped_states_ref`; CUDA tensors
+    launch the forward kernel with state saving on, or raise. Each launch
+    adds one to ``selective_scan_grouped_fwd_states.launches``."""
+    return _fwd_states_op(u, delta, A, B, C, D, delta_bias, softplus)
+
+
+def selective_scan_grouped_bwd(u, delta, A, B, C, D, delta_bias, cs, gy,
+                               softplus=True):
+    """The backward -> (du, ddelta, dA, dB, dC, dD, ddelta_bias), each in
+    its operand's dtype (the kernel accumulates in fp32): the op
+    ``mamba_unet::selective_scan_grouped_bwd``.
+
+    ``cs`` is the state-saving forward's second output and ``gy`` the
+    cotangent of its y, in the I/O dtype. CPU tensors run
+    :func:`selective_scan_grouped_bwd_ref` (which recomputes instead of
+    reading ``cs``); CUDA tensors launch the backward kernel and reduce its
+    fp32 partial sums (over channel tiles for dB/dC, over the batch for
+    dA/dD/ddelta_bias: a fixed order, so the result is deterministic), or
+    raise. Each launch adds one to ``selective_scan_grouped_bwd.launches``."""
+    return _bwd_op(u, delta, A, B, C, D, delta_bias, cs, gy, softplus)
 
 
 class _ScanGrouped(torch.autograd.Function):
@@ -305,7 +424,8 @@ def selective_scan_grouped(u, delta, A, B, C, D, delta_bias, softplus=True,
     differentiable training scan: the state-saving forward and the backward
     (kernels on CUDA tensors, their plain versions on CPU tensors); it has
     no ``return_last_state`` (prefill runs under ``torch.no_grad``).
-    Otherwise it is the serving forward: CPU tensors run
+    Otherwise it is the serving forward, the op
+    ``mamba_unet::selective_scan_grouped``: CPU tensors run
     :func:`selective_scan_grouped_ref`, CUDA tensors launch the kernel on the
     current stream, or raise: there is no fallback. Each serving launch adds
     one to ``selective_scan_grouped.launches``."""
@@ -315,14 +435,7 @@ def selective_scan_grouped(u, delta, A, B, C, D, delta_bias, softplus=True,
             raise ValueError("return_last_state is a serving option: run "
                              "the prefill under torch.no_grad()")
         return _ScanGrouped.apply(*args, softplus)
-    _check(*args)
-    if not _on_cuda(*args):
-        return selective_scan_grouped_ref(*args, softplus, return_last_state)
-    bsz, G, L, dg = u.shape
-    last = (torch.empty(bsz, G * dg, KERNEL_N, dtype=torch.float32,
-                        device=u.device) if return_last_state else None)
-    y = _launch_fwd(args, softplus, last, None)
-    selective_scan_grouped.launches += 1
+    y, last = _serve_op(*args, softplus, return_last_state)
     return (y, last) if return_last_state else y
 
 

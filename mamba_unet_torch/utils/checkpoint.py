@@ -97,15 +97,20 @@ def load_model_snapshot(
     in_ch: int,
     path: Optional[str] = None,
     device="cuda",
+    ckpt_name: Optional[str] = None,
 ) -> nn.Module:
     """Build ``name`` via ``net_factory`` in eval mode on ``device``: the
     card unless the caller asks for the CPU (raises when CUDA is asked for
     and not available).
 
     ``path=None`` keeps the initialization drawn from a generator seeded
-    with 0; otherwise the ``state_dict`` saved at ``path`` is loaded
-    strictly. bf16 serving is chosen later, in ``make_predict_fn``: the
-    weights stay fp32."""
+    with 0. A file ``path`` is a saved ``state_dict``. A directory ``path``
+    is a training ``--snapshot_dir``: the newest ``{ckpt_name}_{step}``
+    (multi-model trainers save ``best``/``best2``/``best3``); without
+    ``ckpt_name`` the newest ``best_{step}``, or else the ``"model"`` entry
+    of the newest periodic ``state_{step}``. The weights load strictly.
+    bf16 serving is chosen later, in ``make_predict_fn``: the weights stay
+    fp32."""
     from mamba_unet_torch.models import net_factory  # lazy: avoid a cycle
 
     device = require_device(device)
@@ -113,6 +118,20 @@ def load_model_snapshot(
                         device=device,
                         generator=torch.Generator().manual_seed(0))
     if path:
-        state = torch.load(path, map_location=device, weights_only=True)
-        model.load_state_dict(state)
+        model.load_state_dict(_snapshot_state(path, ckpt_name, device))
     return model.eval()
+
+
+def _snapshot_state(path: str, ckpt_name: Optional[str], device):
+    """The ``state_dict`` that :func:`load_model_snapshot` loads from
+    ``path``."""
+    if not os.path.isdir(path):
+        return torch.load(path, map_location=device, weights_only=True)
+    name = ckpt_name or "best"
+    step = latest_step(path, name)
+    if step is not None:
+        return restore_checkpoint(path, step, name, map_location=device)
+    step = None if ckpt_name else latest_step(path)
+    if step is None:
+        raise FileNotFoundError(f"no {name!r} checkpoint under {path}")
+    return restore_checkpoint(path, step, map_location=device)["model"]

@@ -1,4 +1,4 @@
-"""JAX (flax) -> port parameter conversion.
+"""JAX (flax) -> port parameter conversion, and the upstream warm start.
 
 ``params_from_jax`` is the inverse of ``mamba_unet_tpu/utils/convert.py``'s
 ``torch_key_for`` + ``_transform``: it takes a flax parameter tree flattened
@@ -14,12 +14,20 @@ Layout transforms (flax -> torch):
   depthwise (kh, kw, 1, C)            -> (C, 1, kh, kw)
   LayerNorm scale / bias              -> weight / bias
   SS2D raw params (x_proj_weight, dt_projs_*, A_logs, Ds) -> unchanged
+
+``load_torch_checkpoint``, ``mirror_encoder_keys`` and
+``load_upstream_state`` port the warm start from an upstream torch ``.pth``
+(the ImageNet VMamba encoder, or a whole Mamba-UNet) of
+``mamba_unet_tpu/utils/convert.py`` (``load_torch_checkpoint``,
+``mirror_encoder_keys``, ``convert_vssm``). The port's parameter names are
+the upstream ones, so no key map or layout transform is needed: the load is
+a shape-checked, non-strict ``load_state_dict``.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -111,3 +119,67 @@ def params_from_jax(
                 raise ValueError(f"{key}: converted shape {tuple(t.shape)} "
                                  f"!= {tuple(like[key].shape)}")
     return sd
+
+
+_UPSTREAM_PREFIXES = ("mamba_unet.", "swin_unet.", "module.")
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """Read a ``.pth`` state dict on the CPU (``weights_only``), unwrapping
+    the ``{"model": sd}`` of the VMamba/Swin pretrained files and a
+    ``{"state_dict": sd}``."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and isinstance(obj.get("model"), dict):
+        obj = obj["model"]
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return dict(obj)
+
+
+def mirror_encoder_keys(sd: Mapping[str, Any], num_layers: int = 4
+                        ) -> Dict[str, Any]:
+    """An encoder-only checkpoint's ``layers.i.*`` also as
+    ``layers_up.(num_layers - 1 - i).*``, where that key is absent: the
+    decoder stages start from their mirrored encoder stages."""
+    out = dict(sd)
+    for k, v in sd.items():
+        if k.startswith("layers."):
+            i = int(k.split(".")[1])
+            mirrored = f"layers_up.{num_layers - 1 - i}" + k[len(f"layers.{i}"):]
+            if mirrored not in sd:
+                out[mirrored] = v
+    return out
+
+
+def load_upstream_state(model: torch.nn.Module, sd: Mapping[str, Any],
+                        mirror_decoder: bool = True) -> Dict[str, List]:
+    """Load an upstream torch state dict into ``model`` (its ``mamba_unet``
+    network when it has one), in place.
+
+    The ``mamba_unet.``/``swin_unet.``/``module.`` prefixes are stripped,
+    and with ``mirror_decoder`` the encoder stages are mirrored onto the
+    decoder (:func:`mirror_encoder_keys`). Every parameter whose key is
+    present with the same shape is loaded; the rest keep their values.
+    Returns ``{"loaded": [key], "missing": [key], "shape_skipped": [(key,
+    checkpoint shape, model shape)]}`` over the model's keys."""
+    sd = dict(sd)
+    for prefix in _UPSTREAM_PREFIXES:
+        if any(k.startswith(prefix) for k in sd):
+            sd = {k[len(prefix):] if k.startswith(prefix) else k: v
+                  for k, v in sd.items()}
+    if mirror_decoder:
+        sd = mirror_encoder_keys(sd)
+    root = getattr(model, "mamba_unet", model)
+    loaded, missing, skipped, update = [], [], [], {}
+    for key, own in root.state_dict().items():
+        if key not in sd:
+            missing.append(key)
+            continue
+        value = torch.as_tensor(sd[key])
+        if tuple(value.shape) != tuple(own.shape):
+            skipped.append((key, tuple(value.shape), tuple(own.shape)))
+            continue
+        update[key] = value
+        loaded.append(key)
+    root.load_state_dict(update, strict=False)
+    return {"loaded": loaded, "missing": missing, "shape_skipped": skipped}

@@ -602,3 +602,151 @@ def test_folded_mamba_unet_gradients_on_card_match_cpu(cuda):
     for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
         assert p.grad is not None, f"{name} got no gradient on the card"
         assert_close_to_max(p.grad.cpu(), q.grad, 1e-3, name)
+
+
+def _op_cases(dev):
+    """(name, op, arguments) of the nine custom ops at toy shapes (batch 2,
+    L = 37, dg = 20: a partial 16-step chunk and a ragged channel tile),
+    fp32, on ``dev``; the cs and cotangent operands come from the plain
+    versions, so both devices' backwards read the same ones."""
+    from mamba_unet_torch.ops import selective_scan_folded as sf
+    from mamba_unet_torch.ops import selective_scan_grouped as sg
+
+    g = torch.Generator().manual_seed(9)
+    bsz, L, dg, n = 2, 37, 20, 16
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g)
+
+    def params():
+        return [-torch.exp(0.5 * r(4 * dg, n)), r(4 * dg), 0.1 * r(4 * dg)]
+
+    A, D, db = params()
+    bidir = [r(bsz, 2, L, dg), 0.5 * r(bsz, 4, L, dg), A, r(bsz, 4, L, n),
+             r(bsz, 4, L, n), D, db]
+    A, D, db = params()
+    grouped = [r(bsz, 4, L, dg), 0.5 * r(bsz, 4, L, dg), A, r(bsz, 4, L, n),
+               r(bsz, 4, L, n), D, db]
+    A, D, db = params()
+    folded = [r(2, L, bsz * dg), 0.5 * r(4, L, bsz * dg), A,
+              r(4, L, n, bsz), r(4, L, n, bsz), D, db]
+    _, cs_b = selective_scan_bidir_states_ref(*bidir)
+    _, cs_g = sg.selective_scan_grouped_states_ref(*grouped)
+    _, cs_f = sf.selective_scan_folded_states_ref(*folded)
+    cases = [
+        ("bidir_serve", "selective_scan_bidir", bidir),
+        ("bidir_fwd_states", "selective_scan_bidir_fwd_states", bidir),
+        ("bidir_bwd", "selective_scan_bidir_bwd",
+         bidir + [cs_b, r(bsz, 2, L, dg)]),
+        ("grouped_serve", "selective_scan_grouped", grouped + [True, True]),
+        ("grouped_fwd_states", "selective_scan_grouped_fwd_states",
+         grouped + [True]),
+        ("grouped_bwd", "selective_scan_grouped_bwd",
+         grouped + [cs_g, r(bsz, 4, L, dg), True]),
+        ("folded_serve", "selective_scan_folded_fwd",
+         folded + [True, True]),
+        ("folded_fwd_states", "selective_scan_folded_fwd_states",
+         folded + [True, True]),
+        ("folded_bwd", "selective_scan_folded_bwd",
+         folded + [cs_f, r(4, L, bsz * dg), True, True]),
+    ]
+    return [(name, getattr(torch.ops.mamba_unet, op),
+             [a.to(dev) if torch.is_tensor(a) else a for a in args])
+            for name, op, args in cases]
+
+
+OP_CASES = ("bidir_serve", "bidir_fwd_states", "bidir_bwd", "grouped_serve",
+            "grouped_fwd_states", "grouped_bwd", "folded_serve",
+            "folded_fwd_states", "folded_bwd")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", OP_CASES)
+def test_custom_op_cuda_matches_its_cpu_implementation(cuda, case):
+    """Each ``torch.ops.mamba_unet`` op: its CUDA implementation (the
+    kernel) against its CPU implementation (the plain version) on the same
+    operands, each output at 1e-4 of its max (1e-3 for the sums dA, dD,
+    ddelta_bias)."""
+    (name, op, args), = [c for c in _op_cases("cpu") if c[0] == case]
+    want = op(*args)
+    got = op(*[a.to(cuda) if torch.is_tensor(a) else a for a in args])
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        rel = 1e-3 if name.endswith("bwd") and i in (2, 5, 6) else 1e-4
+        assert g.device.type == "cuda" and g.shape == w.shape
+        assert_close_to_max(g.cpu(), w, rel, f"{name} output {i}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan_impl", ["auto", "tm", "folded"])
+def test_exported_toy_model_on_card_matches_eager(cuda, tmp_path,
+                                                  scan_impl):
+    """``export_predict`` of a toy Mamba-UNet on the card (symbolic batch),
+    saved and reloaded, serves batches 2 and 5 through its branch's serving
+    kernel (3 launches per call) with the eager predict function's
+    logits."""
+    from mamba_unet_torch.models.vssm import MambaUnet
+    from mamba_unet_torch.ops import selective_scan_folded as sf
+    from mamba_unet_torch.ops import selective_scan_grouped as sg
+    from mamba_unet_torch.utils.export import (
+        export_predict,
+        load_exported,
+        make_predict_fn,
+        save_exported,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernel = {"auto": selective_scan_bidir, "tm": sg.selective_scan_grouped,
+              "folded": sf.selective_scan_folded_fwd}[scan_impl]
+    model = MambaUnet(num_classes=4, depths=(1, 1), dims=(16, 32),
+                      scan_impl=scan_impl, device=cuda)
+    path = save_exported(export_predict(model, (32, 32)),
+                         str(tmp_path / "toy.pt2"))
+    served = load_exported(path).module()
+    eager = make_predict_fn(model)
+    for bsz in (2, 5):
+        x = torch.randn(bsz, 32, 32, 1, device=cuda)
+        before = kernel.launches
+        got = served(x)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 3
+        torch.testing.assert_close(got, eager(x), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan_impl", ["auto", "xla"])
+def test_remat_gradients_on_card_equal_without_remat(cuda, scan_impl):
+    """A toy Mamba-UNet on the card at drop_path 0.5, one generator seed:
+    the step with ``use_remat`` gives the gradients of the step without, and
+    launches the state-saving forward twice per block (the recomputation)
+    and the backward once."""
+    from mamba_unet_torch.models.vssm import MambaUnet
+    from mamba_unet_torch.nn.layers import set_drop_path_generator
+    from mamba_unet_torch.ops import selective_scan_grouped as sg
+
+    fwd_states, bwd = {
+        "auto": (selective_scan_bidir_fwd_states, selective_scan_bidir_bwd),
+        "xla": (sg.selective_scan_grouped_fwd_states,
+                sg.selective_scan_grouped_bwd)}[scan_impl]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.randn(4, 32, 32, 1, generator=torch.Generator().manual_seed(1))
+    grads = {}
+    for remat in (False, True):
+        model = MambaUnet(num_classes=4, depths=(1, 1), dims=(16, 32),
+                          drop_path_rate=0.5, scan_impl=scan_impl,
+                          use_remat=remat,
+                          generator=torch.Generator().manual_seed(0)).to(cuda)
+        set_drop_path_generator(model,
+                                torch.Generator(cuda).manual_seed(2))
+        before = (fwd_states.launches, bwd.launches)
+        (model.train()(x.to(cuda)) ** 2).mean().backward()
+        torch.cuda.synchronize()
+        assert (fwd_states.launches - before[0],
+                bwd.launches - before[1]) == ((6 if remat else 3), 3)
+        grads[remat] = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    for k, g in grads[False].items():
+        assert_close_to_max(grads[True][k], g, 1e-5, k)

@@ -374,25 +374,34 @@ def test_train_cli_scan_impl_tm_on_cpu(monkeypatch):
     assert len(calls) == 2 * 14  # two steps, 14 SS2D per forward
 
 
-@pytest.mark.parametrize("impl,reason", [
-    ("hwbc_folded", "TPU-only"), ("xla", "queue 1, item 4b"),
-    ("seq_sharded", "parallelism item"), ("tp_sharded", "parallelism item")])
-def test_unported_scan_impl_names_its_reason(impl, reason):
+@pytest.mark.parametrize("impl,error,reason", [
+    ("hwbc_folded", NotImplementedError, "TPU-only"),
+    ("no_such_route", ValueError, "unknown SS2D scan_impl"),
+    ("seq_sharded", NotImplementedError, "parallelism item"),
+    ("tp_sharded", NotImplementedError, "parallelism item")])
+def test_unported_scan_impl_names_its_reason(impl, error, reason):
     """Each refused route of the JAX SS2D says why it is refused: the TPU
-    layout, the unported mesh-free xla route, or the parallelism item."""
-    with pytest.raises(NotImplementedError, match=reason):
+    layout, or the parallelism item it waits for; a value the JAX SS2D
+    does not know is refused as such."""
+    with pytest.raises(error, match=reason):
         tss2d.check_scan_impl(impl)
-    if impl != "xla":
-        assert "4b" not in tss2d.NOT_PORTED[impl]
 
 
-@pytest.mark.parametrize("impl", ["hwbc_folded", "xla"])
+@pytest.mark.parametrize("impl", tss2d.PORTED_IMPLS)
+def test_ported_scan_impl_passes(impl):
+    """Every ported route passes the check, the xla route among them (it
+    names the tm branch)."""
+    assert impl not in tss2d.NOT_PORTED
+    assert tss2d.check_scan_impl(impl) is None
+
+
+@pytest.mark.parametrize("impl", ["hwbc_folded", "seq_sharded"])
 def test_train_cli_unported_scan_impl_raises(impl):
-    """The model refuses both; the CLI offers ``xla`` (not the TPU-only
-    hwbc layout) and refuses it before loading data."""
-    if impl == "xla":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            train_cli.main(["--synthetic", "--device", "cpu", "--scan_impl",
-                            impl])
+    """The model refuses both; the CLI offers neither (its parser refuses
+    them before any data is loaded) and offers the ported ``xla``."""
+    with pytest.raises(SystemExit):
+        train_cli.build_parser().parse_args(["--scan_impl", impl])
+    assert train_cli.build_parser().parse_args(
+        ["--scan_impl", "xla"]).scan_impl == "xla"
     with pytest.raises(NotImplementedError, match="not ported"):
         TMambaUnet(depths=(1,), dims=(8,), scan_impl=impl)
