@@ -2,10 +2,11 @@
 """Drive the PyTorch port's serving and training paths on one CUDA card:
 Mamba-UNet serving and training, Mamba-LM serving, Mamba-UNet training on
 SS2D's time-major branch and the 1-D Mamba stack's gradients, Mamba-UNet
-training and serving on SS2D's batch-folded branch, then the main path's
-other entry points: activation recomputation, the ``torch.export``
-artifact and the CLIs (SS2D's xla route, which the port runs as the tm
-branch, among them).
+training and serving on SS2D's batch-folded branch, the main path's
+other entry points (activation recomputation, the ``torch.export``
+artifact and the CLIs, SS2D's xla route among them), then the UNet
+family and Swin-UNet, and the semi-supervised methods: Semi-Mamba-UNet's
+cross-teaching, mean teacher and UAMT.
 
     python3 chip_smoke.py
 
@@ -129,6 +130,41 @@ exits non-zero; nothing is caught):
               ``cli.test`` (``--ckpt_name``, ``--save_nii_dir``: the NIfTI
               files hold the predictions) and ``cli.export`` (the artifact
               serves the snapshot's logits), in a temporary directory.
+22. zoo_parity - full-width ``unet`` and ``ViT_seg`` (img 224), batch 2,
+              dropout and drop_path 0, fp32 with TF32 off: eval-mode and
+              train-mode logits on the card against a CPU copy, the
+              BatchNorm running statistics after the train-mode forward,
+              bf16 against fp32 on the card; no scan kernel launches.
+23. cross_teaching_parity - one ``CrossTeachingTrainer`` step of two
+              full-width ``ViM_seg``, batch 4 (2 labeled + 2 unlabeled),
+              fp32 with TF32 off, drop_path 0: the loss and both models'
+              every gradient card vs CPU; 28 + 28 bidir training launches.
+24. zoo_training - ``Trainer.fit`` of ``unet`` and ``ViT_seg``, bs24, bf16,
+              ZOO_ITERS steps with one eval: a falling loss, moved weights
+              and BatchNorm buffers, no scan launch; step ms, slices/s, peak
+              memory, a profile's device ms per step.
+25. cross_teaching - ``CrossTeachingTrainer.fit`` of two full-width
+              ``ViM_seg``, bs24 with 8 labeled, bf16, drop_path 0.2,
+              CROSS_ITERS steps, one eval (at CROSS_EVAL_EVERY): per step
+              28 + 28 bidir training launches and no other kernel, 14
+              serving launches per eval forward of each model, both
+              models moving, a falling loss, ``best_{step}`` and
+              ``best2_{step}`` written exactly where each model's val Dice
+              beat 0 and its earlier evals, with their marks; step ms,
+              peak memory, device ms per step beside the bidir baseline;
+              then a fresh pair's one step with an eval after it writes
+              ``best_1`` and ``best2_1`` (from scratch both models predict
+              only background after their second update).
+26. mean_teacher, uamt - ``fit`` of full-width ``ViM_seg``, bs24 with 8
+              labeled, bf16, EMA_ITERS steps: per step 14 (mean teacher) or
+              126 (UAMT, 9 teacher passes) serving launches under no grad
+              plus 14 + 14 training ones; the EMA equals alpha * ema + (1 -
+              alpha) * param after a step; step ms, peak memory, device ms.
+27. entry_points - ``cli.train --synthetic`` with ``--method
+              mean_teacher``, ``uamt``, ``cross_teaching --model2 unet`` and
+              ``--model unet``, ``--model ViT_seg`` (launch counts checked),
+              then ``cli.test --model unet`` and ``--model ViT_seg`` on the
+              snapshots written.
 
 ``[phase_seconds]`` follows each group of phases. Then one JSON line with
 the kernel table, and the last line ``{"ok": true, "device": {...}}``. It
@@ -226,6 +262,23 @@ REMAT_TIMED_STEPS = 5  # forward + backward (no optimizer) timed per side
 # val and test volumes, slice size), batch and steps
 ENTRY_SPEC, ENTRY_BATCH, ENTRY_ITERS = (4, 8, 1, 2, 224), 8, 4
 LM_PROMPTS, LM_PROMPT_LEN, LM_NEW_TOKENS = 4, 128, 64
+# [zoo_*]: the UNet family's and Swin-UNet's parity batch, training steps
+# and eval step; bf16 against fp32 logits on the card within this share of
+# the fp32 logits' max abs (the ViM bound BF16_LOGIT_TOL is 5 % of its
+# logits' max); BatchNorm running statistics card vs CPU within this share
+# of each tensor's max abs
+ZOO_ITERS, ZOO_EVAL_AT = 10, 6
+ZOO_BF16_REL_TOL, ZOO_STATS_TOL = 0.05, 1e-5
+# the semi-supervised phases: labeled slices per bs24 batch; the cross-
+# teaching parity step's batch (labeled + unlabeled); fit steps of
+# [cross_teaching] and its eval cadence, and of [mean_teacher] / [uamt];
+# UAMT's teacher passes (the consistency target + T = 8 MC passes)
+SEMI_LABELED = 8
+CROSS_PARITY_BATCH, CROSS_PARITY_LABELED = 4, 2
+CROSS_ITERS, CROSS_EVAL_EVERY, EMA_ITERS = 10, 6, 5
+UAMT_TEACHER_PASSES = 9
+# EMA after a step: alpha * ema + (1 - alpha) * param in fp32
+EMA_TOL = 1e-6
 # full mamba-130m, card vs CPU, fp32 with TF32 off: 24 scans plus fp32
 # matmuls in another summation order, on logits of magnitude ~2; the
 # decode states within 1e-3 of their own max
@@ -1354,7 +1407,7 @@ def remat_phase(torch, dev):
     remat step launches 28 state-saving forwards (14 recomputed) and 14
     backwards; peak memory of each."""
     from mamba_unet_torch.models.vssm import MambaUnet
-    from mamba_unet_torch.nn.layers import set_drop_path_generator
+    from mamba_unet_torch.nn.layers import set_generator
     from mamba_unet_torch.objectives import supervised_ce_dice
 
     kernels, others = scan_kernels("auto")
@@ -1372,8 +1425,7 @@ def remat_phase(torch, dev):
         model = MambaUnet(num_classes=4, drop_path_rate=0.2,
                           use_remat=remat, device=dev).train()
         model.load_state_dict(seeded.state_dict())
-        set_drop_path_generator(model,
-                                torch.Generator(dev).manual_seed(7))
+        set_generator(model, torch.Generator(dev).manual_seed(7))
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1645,6 +1697,534 @@ def entry_points_phase(torch, np, dev):
     logging.getLogger().removeHandler(records)
 
 
+def all_scan_kernels():
+    """The nine scan wrappers: the bidir branch's (serving, state-saving
+    forward, backward), then the tm and folded branches'."""
+    kernels, others = scan_kernels("auto")
+    return kernels + others
+
+
+def zoo_model(torch, name, dev, seed=5, **kw):
+    """Full-width ``unet`` or ``ViT_seg`` (img 224) from a seeded
+    generator, on ``dev``."""
+    from mamba_unet_torch.models import net_factory
+
+    if name == "ViT_seg":
+        kw["img_size"] = PATCH
+    return net_factory(name, num_classes=4, device=dev,
+                       generator=torch.Generator().manual_seed(seed), **kw)
+
+
+def zoo_parity_phase(torch, dev):
+    """``[zoo_parity]``: full-width ``unet`` and ``ViT_seg``, batch 2 at
+    224², dropout and drop_path 0: eval-mode logits on the card against a
+    CPU copy (fp32, TF32 off by the caller), train-mode logits and the
+    BatchNorm running statistics after one train-mode forward, bf16 against
+    fp32 on the card; no scan kernel launches."""
+    from mamba_unet_torch.nn.layers import set_generator
+    from mamba_unet_torch.utils.export import make_predict_fn
+
+    kernels = all_scan_kernels()
+    before = launch_counts(kernels)
+    x = torch.randn(2, PATCH, PATCH, 1,
+                    generator=torch.Generator().manual_seed(13))
+    for name in ("unet", "ViT_seg"):
+        kw = ({"dropout": (0.0,) * 5} if name == "unet"
+              else {"drop_path_rate": 0.0})
+        cpu = zoo_model(torch, name, "cpu", **kw)
+        gpu = zoo_model(torch, name, dev, **kw)
+        gpu.load_state_dict(cpu.state_dict())
+        want = make_predict_fn(cpu)(x)
+        got = make_predict_fn(gpu)(x.to(dev)).cpu()
+        err = (got - want).abs().max().item()
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        bf16 = make_predict_fn(gpu, torch.bfloat16)(x.to(dev)).cpu()
+        err16 = (bf16 - got).abs().max().item() / got.abs().max().item()
+        agree16 = (bf16.argmax(-1) == got.argmax(-1)).float().mean().item()
+        for m, d in ((cpu, "cpu"), (gpu, dev)):
+            set_generator(m, torch.Generator(d).manual_seed(0))
+        with torch.no_grad():
+            t_want = cpu.train()(x)
+            t_got = gpu.train()(x.to(dev)).cpu()
+        t_err = (t_got - t_want).abs().max().item()
+        g_sd = gpu.state_dict()
+        stats = [k for k in cpu.state_dict()
+                 if k.endswith(("running_mean", "running_var"))]
+        s_err = max([(g_sd[k].cpu() - v).abs().max().item()
+                     / v.abs().max().item()
+                     for k, v in cpu.state_dict().items() if k in stats],
+                    default=0.0)
+        log("zoo_parity", model=name, shape=tuple(got.shape),
+            max_abs_err=f"{err:.3e}", logit_max=f"{want.abs().max():.3f}",
+            argmax_agree=f"{agree:.6f}", train_max_abs_err=f"{t_err:.3e}",
+            bn_stat_tensors=len(stats), bn_stats_rel_err=f"{s_err:.2e}",
+            bf16_rel_diff=f"{err16:.3e}", bf16_argmax_agree=f"{agree16:.6f}",
+            tol=LOGIT_TOL, bf16_tol=ZOO_BF16_REL_TOL)
+        if (got.shape != (2, PATCH, PATCH, 4)
+                or not bool(torch.isfinite(got).all())
+                or err > LOGIT_TOL or agree < MIN_ARGMAX_AGREEMENT
+                or t_err > LOGIT_TOL or s_err > ZOO_STATS_TOL
+                or (name == "unet") != bool(stats)):
+            raise AssertionError(f"{name}: card disagrees with the CPU")
+        if (not bool(torch.isfinite(bf16).all()) or err16 > ZOO_BF16_REL_TOL
+                or agree16 < BF16_MIN_ARGMAX_AGREEMENT):
+            raise AssertionError(f"{name}: bf16 logits stray from fp32: "
+                                 f"{err16}, {agree16}")
+        del cpu, gpu
+    launched = [a - b for a, b in zip(launch_counts(kernels), before)]
+    log("zoo_parity", scan_launches=sum(launched))
+    if any(launched):
+        raise AssertionError(f"unet/ViT_seg launched scan kernels "
+                             f"{launched}")
+
+
+def phantom_loader(torch, dev, batch, labeled=None, seed=1337):
+    """(val volumes, a Loader of phantom slices at 224²: shuffled batches
+    of ``batch``, or two-stream ones with ``labeled`` labeled slices
+    first)."""
+    from mamba_unet_torch.data.acdc import SliceDataset
+    from mamba_unet_torch.data.augment import RandomGenerator
+    from mamba_unet_torch.data.loader import Loader
+    from mamba_unet_torch.data.sampler import (
+        EpochShuffleSampler,
+        TwoStreamBatchSampler,
+    )
+    from mamba_unet_torch.data.synthetic import phantom_acdc
+
+    splits = phantom_acdc(8, 8, 2, 0, *NATIVE, seed=0)
+    ds = SliceDataset.from_samples(
+        splits["train"], transform=RandomGenerator((PATCH, PATCH), seed=seed))
+    if labeled is None:
+        sampler = EpochShuffleSampler(len(ds), batch, seed=seed)
+    else:
+        n_lab = len(ds) // 4
+        sampler = TwoStreamBatchSampler(range(n_lab), range(n_lab, len(ds)),
+                                        batch, batch - labeled, seed=seed)
+    return splits["val"], Loader(ds, sampler, device=dev)
+
+
+def counted_fit(torch, trainer, loader, val, iters, phase):
+    """``trainer.fit`` over ``iters`` batches of ``loader`` (evaluating on
+    ``val`` as its config says), every scan wrapper's count set to 0 just
+    before and read after each batch; returns (result, per-step launch
+    vectors over :func:`all_scan_kernels`, ms of each step, peak GB).
+    A step's ms runs from its batch's hand-out to the next one's."""
+    import itertools
+
+    kernels = all_scan_kernels()
+    marks = []
+
+    def counted(batches):
+        for batch in itertools.islice(batches, iters):
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), launch_counts(kernels)))
+            yield batch
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), launch_counts(kernels)))
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    result = trainer.fit(counted(loader), val)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = [[b - a for a, b in zip(c0, c1)]
+             for (_, c0), (_, c1) in zip(marks, marks[1:])]
+    ms = [1e3 * (t1 - t0) for (t0, _), (t1, _) in zip(marks, marks[1:])]
+    losses = [h["loss"] for h in result["history"] if "loss" in h]
+    if result["iterations"] != iters or len(losses) != iters or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"[{phase}] fit ran {result['iterations']} "
+                             f"iterations, losses {losses}")
+    return result, steps, ms, peak_gb
+
+
+def check_step_launches(phase, steps, per_step, eval_steps=(),
+                        per_eval=None):
+    """Raise unless every step launched ``per_step`` (and the steps in
+    ``eval_steps`` ``per_step`` + ``per_eval``) over all_scan_kernels."""
+    for i, got in enumerate(steps, start=1):
+        want = list(per_step)
+        if i in eval_steps:
+            want = [a + b for a, b in zip(want, per_eval)]
+        if got != want:
+            raise AssertionError(f"[{phase}] step {i}: launches {got} (bidir "
+                                 f"serve, fwd_states, bwd, then tm and "
+                                 f"folded), expected {want}")
+
+
+def check_best_marks(phase, snap, dice):
+    """The best-checkpoint protocol in ``snap`` after a fit: for each name
+    (``best``, ``best2``) with its (step, val Dice) evals, the checkpoints
+    ``{name}_{step}`` are the steps where the Dice beat every earlier one
+    and 0, and ``best_marks.json`` holds the highest (no entry when no eval
+    beat 0)."""
+    from mamba_unet_torch.utils.checkpoint import load_best_marks
+
+    marks = load_best_marks(snap)
+    files = {p.name for p in Path(snap).iterdir()}
+    for name, evals in dice.items():
+        best, want = 0.0, set()
+        for step, d in evals:
+            if d > best:
+                best = d
+                want.add(f"{name}_{step}")
+        got = {f for f in files if f.rsplit("_", 1)[0] == name
+               and f.rsplit("_", 1)[1].isdigit()}
+        if got != want or marks.get(name, 0.0) != best:
+            raise AssertionError(f"[{phase}] {name}: checkpoints {got}, "
+                                 f"mark {marks.get(name)}; expected {want}, "
+                                 f"{best}")
+
+
+def median_after_warmup(ms, skip=()):
+    """The median of ``ms`` after TRAIN_WARMUP steps, leaving out the
+    (1-based) steps in ``skip``."""
+    kept = sorted(v for i, v in enumerate(ms, start=1)
+                  if i > TRAIN_WARMUP and i not in skip)
+    return kept[len(kept) // 2], kept
+
+
+def zoo_training_phase(torch, dev):
+    """``[zoo_training]``: ``Trainer.fit`` of full-width ``unet`` and
+    ``ViT_seg`` on phantom slices, bs24 @ 224², bf16, drop_path 0.2
+    (ViT_seg), ZOO_ITERS steps with one eval: a falling loss, every
+    parameter moved (and unet's BatchNorm buffers), no scan launch; step
+    ms, slices/s, peak GB and a profile's device ms per step."""
+    from mamba_unet_torch.train import TrainConfig, Trainer
+
+    out = {}
+    for name in ("unet", "ViT_seg"):
+        cfg = TrainConfig(base_lr=0.01, max_iterations=1000,
+                          batch_size=TRAIN_BATCH, patch_size=(PATCH, PATCH),
+                          num_classes=4, eval_every=ZOO_EVAL_AT, log_every=1,
+                          seed=1337, bf16=True)
+        trainer = Trainer(zoo_model(torch, name, "cpu", seed=1337), cfg,
+                          device=dev)
+        before = {k: v.detach().clone()
+                  for k, v in trainer.model.state_dict().items()}
+        val, loader = phantom_loader(torch, dev, TRAIN_BATCH)
+        result, steps, ms, peak = counted_fit(torch, trainer, loader, val,
+                                              ZOO_ITERS, "zoo_training")
+        check_step_launches("zoo_training", steps, [0] * 9)
+        losses = [h["loss"] for h in result["history"] if "loss" in h]
+        after = trainer.model.state_dict()
+        moved = sum(not torch.equal(v, after[k]) for k, v in before.items()
+                    if v.is_floating_point())
+        buffers = [k for k in before if k.endswith(("running_mean",
+                                                    "running_var"))]
+        moved_buffers = sum(not torch.equal(before[k], after[k])
+                            for k in buffers)
+        floats = sum(v.is_floating_point() for v in before.values())
+        med, kept = median_after_warmup(ms, {ZOO_EVAL_AT})
+        dice = [h["val_dice"] for h in result["history"] if "val_dice" in h]
+        log("zoo_training", model=name, iterations=result["iterations"],
+            batch=TRAIN_BATCH, dtype="bf16", params_moved=f"{moved}/{floats}",
+            bn_buffers_moved=f"{moved_buffers}/{len(buffers)}",
+            val_dice=f"{dice[0]:.4f}", scan_launches=0)
+        log("zoo_training", model=name,
+            losses=" ".join(f"{v:.4f}" for v in losses))
+        device = profile_steps(torch, trainer, loader, f"train_{name}")
+        log("zoo_training", model=name, step_ms_median=f"{med:.2f}",
+            step_ms_min=f"{kept[0]:.2f}", step_ms_max=f"{kept[-1]:.2f}",
+            slices_per_s=f"{TRAIN_BATCH / med * 1e3:.1f}",
+            peak_mem_gb=f"{peak:.2f}", device_ms_per_step=f"{device:.2f}")
+        if not sum(losses[-3:]) < sum(losses[:3]) or len(dice) != 1:
+            raise AssertionError(f"{name}: the loss did not fall: {losses}")
+        if moved < 0.99 * floats or moved_buffers != len(buffers):
+            raise AssertionError(f"{name}: {moved}/{floats} tensors, "
+                                 f"{moved_buffers}/{len(buffers)} BatchNorm "
+                                 f"buffers moved")
+        out[name] = (med, device, peak)
+        del trainer, loader
+    return out
+
+
+def cross_teaching_parity_phase(torch, dev):
+    """``[cross_teaching_parity]``: one cross-teaching step of two
+    full-width ``ViM_seg`` (seeds 0 and 1), batch 4 (2 labeled + 2
+    unlabeled) at 224², fp32 (TF32 off by the caller), drop_path 0: the
+    loss and both models' every gradient on the card against a CPU copy;
+    28 state-saving forward and 28 backward bidir launches."""
+    from mamba_unet_torch.models.vssm import MambaUnet
+    from mamba_unet_torch.train import CrossTeachingTrainer, TrainConfig
+
+    cfg = TrainConfig(base_lr=0.01, max_iterations=1000,
+                      batch_size=CROSS_PARITY_BATCH,
+                      patch_size=(PATCH, PATCH), num_classes=4, seed=1337)
+    gen = torch.Generator().manual_seed(4)
+    batch = {"image": torch.randn(CROSS_PARITY_BATCH, PATCH, PATCH, 1,
+                                  generator=gen),
+             "label": torch.randint(0, 4, (CROSS_PARITY_BATCH, PATCH, PATCH),
+                                    generator=gen)}
+    kernels = all_scan_kernels()
+    grads, losses, secs = {}, {}, {}
+    for tag, d in (("gpu", dev), ("cpu", "cpu")):
+        m1, m2 = (MambaUnet(num_classes=4, drop_path_rate=0.0,
+                            generator=torch.Generator().manual_seed(s))
+                  for s in (0, 1))
+        trainer = CrossTeachingTrainer(m1, cfg, model2=m2,
+                                       labeled_bs=CROSS_PARITY_LABELED,
+                                       device=d)
+        before = launch_counts(kernels)
+        t0 = time.perf_counter()
+        logs = trainer.train_step(batch)
+        losses[tag] = float(logs["loss_total"])
+        secs[tag] = time.perf_counter() - t0
+        # the step leaves its gradients in .grad
+        grads[tag] = {f"m{i}.{k}": p.grad.cpu() for i, m in
+                      ((1, trainer.model), (2, trainer.model2))
+                      for k, p in m.named_parameters()}
+        if tag == "gpu":
+            launched = [a - b for a, b in zip(launch_counts(kernels),
+                                              before)]
+            want = [0, 2 * SS2D_PER_FORWARD, 2 * SS2D_PER_FORWARD] + [0] * 6
+            if launched != want:
+                raise AssertionError(f"one cross-teaching step launched "
+                                     f"{launched}, expected {want}")
+        del trainer, m1, m2
+    worst, worst_key = 0.0, None
+    for k, want in grads["cpu"].items():
+        rel = ((grads["gpu"][k] - want).abs().max().item()
+               / max(want.abs().max().item(), 1e-30))
+        if not math.isfinite(rel) or rel > worst:
+            worst, worst_key = rel, k
+    loss_err = abs(losses["gpu"] - losses["cpu"]) / abs(losses["cpu"])
+    log("cross_teaching_parity", params=len(grads["cpu"]),
+        loss_gpu=losses["gpu"], loss_cpu=losses["cpu"],
+        loss_rel_err=f"{loss_err:.2e}", worst_grad_rel_err=f"{worst:.2e}",
+        worst_param=worst_key, tol=MODEL_GRAD_TOL,
+        launches_fwd_states_bwd=(2 * SS2D_PER_FORWARD,) * 2,
+        gpu_s=f"{secs['gpu']:.2f}", cpu_s=f"{secs['cpu']:.2f}")
+    if not (worst <= MODEL_GRAD_TOL and loss_err <= LOSS_TOL):
+        raise AssertionError(f"cross-teaching gradients disagree with the "
+                             f"CPU: worst {worst} at {worst_key}, loss rel "
+                             f"err {loss_err}")
+
+
+def cross_teaching_phase(torch, dev):
+    """``[cross_teaching]``: ``CrossTeachingTrainer.fit`` of two full-width
+    ``ViM_seg`` on phantom slices, bs24 with 8 labeled, bf16, drop_path
+    0.2, CROSS_ITERS steps with an eval every CROSS_EVAL_EVERY: per step 28
+    + 28 bidir training launches and no other kernel, 14 serving launches
+    per eval forward of each model; both models' weights move, the loss
+    falls, and ``best`` / ``best2`` hold the protocol
+    (:func:`check_best_marks`); step ms (steps without an eval), peak GB
+    and a profile's device ms per step beside
+    BIDIR_STEP_DEVICE_MS_BASELINE. From scratch both models predict only
+    background after their second update, so a fresh pair then fits one
+    step with an eval after it, which must write ``best_1`` and
+    ``best2_1``. Returns (launches of the
+    bidir serving, state-saving and backward kernels in the run, step ms,
+    device ms per step, peak GB)."""
+    import itertools
+    import tempfile
+
+    from mamba_unet_torch.models.vssm import MambaUnet
+    from mamba_unet_torch.train import CrossTeachingTrainer, TrainConfig
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as snap:
+        cfg = TrainConfig(base_lr=0.01, max_iterations=1000,
+                          batch_size=TRAIN_BATCH, patch_size=(PATCH, PATCH),
+                          num_classes=4, eval_every=CROSS_EVAL_EVERY,
+                          log_every=1, seed=1337, bf16=True,
+                          snapshot_dir=snap)
+        m1, m2 = (MambaUnet(num_classes=4, drop_path_rate=0.2,
+                            generator=torch.Generator().manual_seed(s))
+                  for s in (1337, 1338))
+        trainer = CrossTeachingTrainer(m1, cfg, model2=m2,
+                                       labeled_bs=SEMI_LABELED, device=dev)
+        before = [{k: v.detach().clone() for k, v in m.state_dict().items()}
+                  for m in (trainer.model, trainer.model2)]
+        val, loader = phantom_loader(torch, dev, TRAIN_BATCH, SEMI_LABELED)
+        result, steps, ms, peak = counted_fit(torch, trainer, loader, val,
+                                              CROSS_ITERS, "cross_teaching")
+        eval_fwd = math.ceil(sum(len(v["image"]) for v in val)
+                             / cfg.eval_batch_size)
+        n = SS2D_PER_FORWARD
+        evals = range(CROSS_EVAL_EVERY, CROSS_ITERS + 1, CROSS_EVAL_EVERY)
+        check_step_launches("cross_teaching", steps, [0, 2 * n, 2 * n]
+                            + [0] * 6, evals, [2 * n * eval_fwd] + [0] * 8)
+        launches = [sum(s[i] for s in steps) for i in range(3)]
+        saved = sorted(p.name for p in Path(snap).iterdir())
+        dice = [(h["val_dice"], h["val_dice2"]) for h in result["history"]
+                if "val_dice" in h]
+        check_best_marks("cross_teaching", snap, {
+            "best": [(i, d[0]) for i, d in zip(evals, dice)],
+            "best2": [(i, d[1]) for i, d in zip(evals, dice)]})
+    moved = [sum(not torch.equal(v, m.state_dict()[k]) for k, v in b.items())
+             for b, m in zip(before, (trainer.model, trainer.model2))]
+    losses = [h["loss"] for h in result["history"] if "loss" in h]
+    med, kept = median_after_warmup(ms, set(evals))
+    log("cross_teaching", iterations=result["iterations"], batch=TRAIN_BATCH,
+        labeled=SEMI_LABELED, dtype="bf16", drop_path=0.2,
+        launches_serve_fwd_states_bwd=tuple(launches),
+        params_moved=f"{moved[0]}/{len(before[0])} {moved[1]}/"
+                     f"{len(before[1])}",
+        val_dice_dice2=" ".join(f"{a:.4f},{b:.4f}" for a, b in dice),
+        eval_forwards=eval_fwd, saved=" ".join(saved))
+    log("cross_teaching", losses=" ".join(f"{v:.4f}" for v in losses))
+    device = profile_steps(torch, trainer, loader, "train_cross_teaching")
+    log("cross_teaching", step_ms_median=f"{med:.2f}",
+        step_ms_min=f"{kept[0]:.2f}", step_ms_max=f"{kept[-1]:.2f}",
+        slices_per_s=f"{TRAIN_BATCH / med * 1e3:.1f}",
+        peak_mem_gb=f"{peak:.2f}", device_ms_per_step=f"{device:.2f}",
+        bidir_step_baseline_ms=BIDIR_STEP_DEVICE_MS_BASELINE,
+        ratio_to_baseline=f"{device / BIDIR_STEP_DEVICE_MS_BASELINE:.3f}")
+    if not sum(losses[-3:]) < sum(losses[:3]):
+        raise AssertionError(f"the cross-teaching loss did not fall: "
+                             f"{losses}")
+    if min(moved[0] / len(before[0]), moved[1] / len(before[1])) < 0.99:
+        raise AssertionError(f"weights moved {moved}")
+    del trainer
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as snap:
+        cfg.eval_every, cfg.snapshot_dir = 1, snap
+        m1, m2 = (MambaUnet(num_classes=4, drop_path_rate=0.2,
+                            generator=torch.Generator().manual_seed(s))
+                  for s in (1337, 1338))
+        trainer = CrossTeachingTrainer(m1, cfg, model2=m2,
+                                       labeled_bs=SEMI_LABELED, device=dev)
+        result = trainer.fit(itertools.islice(loader, 1), val)
+        dice = [(h["val_dice"], h["val_dice2"]) for h in result["history"]
+                if "val_dice" in h]
+        check_best_marks("cross_teaching", snap, {
+            "best": [(1, dice[0][0])], "best2": [(1, dice[0][1])]})
+        saved = sorted(p.name for p in Path(snap).iterdir())
+    log("cross_teaching", checkpoints_after_step=1,
+        val_dice_dice2=f"{dice[0][0]:.4f},{dice[0][1]:.4f}",
+        saved=" ".join(saved))
+    if not {"best_1", "best2_1"} <= set(saved):
+        raise AssertionError(f"best and best2 not both written: {saved}")
+    del trainer, loader
+    return launches, med, device, peak
+
+
+def ema_teacher_phase(torch, dev, method):
+    """``[mean_teacher]`` / ``[uamt]``: ``fit`` of full-width ``ViM_seg``
+    on two-stream phantom batches, bs24 with 8 labeled, bf16, drop_path
+    0.2, EMA_ITERS steps (consistency on from step 0): per step 14 (mean
+    teacher) or 126 (UAMT: 9 teacher passes) serving launches under no
+    grad, 14 state-saving forward and 14 backward ones; then one more step
+    after which a sampled EMA tensor equals alpha * ema + (1 - alpha) *
+    param; step ms, peak GB and a profile's device ms per step. Returns
+    (launches of the bidir serving, state-saving and backward kernels,
+    step ms, device ms per step, peak GB)."""
+    from mamba_unet_torch.models.vssm import MambaUnet
+    from mamba_unet_torch.train import (
+        MeanTeacherTrainer,
+        TrainConfig,
+        UAMTTrainer,
+    )
+
+    cls = MeanTeacherTrainer if method == "mean_teacher" else UAMTTrainer
+    passes = 1 if method == "mean_teacher" else UAMT_TEACHER_PASSES
+    cfg = TrainConfig(base_lr=0.01, max_iterations=1000,
+                      batch_size=TRAIN_BATCH, patch_size=(PATCH, PATCH),
+                      num_classes=4, log_every=1, seed=1337, bf16=True)
+    trainer = cls(MambaUnet(num_classes=4, drop_path_rate=0.2,
+                            generator=torch.Generator().manual_seed(1337)),
+                  cfg, labeled_bs=SEMI_LABELED, warmup_iters=0, device=dev)
+    _, loader = phantom_loader(torch, dev, TRAIN_BATCH, SEMI_LABELED)
+    result, steps, ms, peak = counted_fit(torch, trainer, loader, None,
+                                          EMA_ITERS, method)
+    n = SS2D_PER_FORWARD
+    check_step_launches(method, steps, [passes * n, n, n] + [0] * 6)
+    launches = [sum(s[i] for s in steps) for i in range(3)]
+    name = "mamba_unet.layers.0.blocks.0.self_attention.in_proj.weight"
+    ema_before = trainer.ema[name].clone()
+    batch = next(iter(loader))
+    trainer.train_step(batch)
+    alpha = min(1.0 - 1.0 / (trainer.step + 1.0), 0.99)
+    param = dict(trainer.model.named_parameters())[name].detach()
+    want = ema_before * alpha + param * (1.0 - alpha)
+    ema_err = (trainer.ema[name] - want).abs().max().item()
+    moved = (trainer.ema[name] - ema_before).abs().max().item()
+    losses = [h["loss"] for h in result["history"] if "loss" in h]
+    med, kept = median_after_warmup(ms)
+    log(method, iterations=result["iterations"], batch=TRAIN_BATCH,
+        labeled=SEMI_LABELED, dtype="bf16", drop_path=0.2,
+        teacher_passes=passes, launches_serve_fwd_states_bwd=tuple(launches),
+        losses=" ".join(f"{v:.4f}" for v in losses), ema_tensor=name,
+        ema_alpha=f"{alpha:.6f}", ema_err=f"{ema_err:.2e}",
+        ema_moved=f"{moved:.2e}", tol=EMA_TOL)
+    device = profile_steps(torch, trainer, loader, f"train_{method}")
+    log(method, step_ms_median=f"{med:.2f}", step_ms_min=f"{kept[0]:.2f}",
+        step_ms_max=f"{kept[-1]:.2f}",
+        slices_per_s=f"{TRAIN_BATCH / med * 1e3:.1f}",
+        peak_mem_gb=f"{peak:.2f}", device_ms_per_step=f"{device:.2f}",
+        bidir_step_baseline_ms=BIDIR_STEP_DEVICE_MS_BASELINE)
+    if ema_err > EMA_TOL or moved == 0.0:
+        raise AssertionError(f"EMA after a step: err {ema_err}, moved "
+                             f"{moved}")
+    del trainer, loader
+    return launches, med, device, peak
+
+
+def semi_entry_points_phase(torch, np, dev):
+    """``[entry_points]``, second part: ``cli.train --synthetic`` with
+    ``--method mean_teacher``, ``uamt`` (``ViM_seg``) and ``cross_teaching
+    --model2 unet``, and fully supervised ``--model unet`` and ``--model
+    ViT_seg``, each's scan launches checked; then ``cli.test --model unet``
+    and ``--model ViT_seg`` on the snapshots written (finite metrics, no
+    scan launch)."""
+    import tempfile
+
+    from mamba_unet_torch.cli import test as test_cli
+    from mamba_unet_torch.cli import train as train_cli
+    from mamba_unet_torch.data.synthetic import phantom_acdc
+
+    spec = [str(v) for v in ENTRY_SPEC]
+    kernels = all_scan_kernels()
+    n, iters = SS2D_PER_FORWARD, 2
+    # val: one volume of ENTRY_SPEC[1] slices, one eval forward per model
+    runs = (
+        ("mean_teacher", ["--method", "mean_teacher"],
+         [iters * n + n, iters * n, iters * n]),
+        ("uamt", ["--method", "uamt"],
+         [iters * UAMT_TEACHER_PASSES * n + n, iters * n, iters * n]),
+        ("cross_teaching", ["--method", "cross_teaching", "--model2",
+                            "unet"], [n, iters * n, iters * n]),
+        ("unet", ["--model", "unet"], [0, 0, 0]),
+        ("ViT_seg", ["--model", "ViT_seg"], [0, 0, 0]))
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for tag, extra, want in runs:
+            before = launch_counts(kernels)
+            t0 = time.perf_counter()
+            train_cli.main([
+                *extra, "--synthetic", "--synthetic_spec", *spec, "--bf16",
+                "--patch_size", str(PATCH), str(PATCH), "--batch_size",
+                str(ENTRY_BATCH), "--labeled_bs", str(ENTRY_BATCH // 2),
+                "--max_iterations", str(iters), "--eval_every", str(iters),
+                "--snapshot_dir", f"{tmp}/{tag}", "--device", "cuda"])
+            launched = [a - b for a, b in zip(launch_counts(kernels),
+                                              before)]
+            saved = sorted(p.name for p in Path(tmp, tag).iterdir())
+            log("entry_points", cli="train", run=tag,
+                seconds=f"{time.perf_counter() - t0:.1f}",
+                launches_serve_fwd_states_bwd=tuple(launched[:3]),
+                saved=" ".join(saved))
+            if launched != want + [0] * 6:
+                raise AssertionError(f"{tag}: launched {launched}, expected "
+                                     f"{want}")
+        cases = phantom_acdc(*ENTRY_SPEC[:4], ENTRY_SPEC[4])["test"]
+        for model in ("unet", "ViT_seg"):
+            before = launch_counts(kernels)
+            t0 = time.perf_counter()
+            out = test_cli.run_inference(test_cli.build_parser().parse_args([
+                "--model", model, "--patch_size", str(PATCH), str(PATCH),
+                "--checkpoint", f"{tmp}/{model}", "--device", "cuda"]),
+                dataset=cases)
+            launched = [a - b for a, b in zip(launch_counts(kernels),
+                                              before)]
+            log("entry_points", cli="test", model=model,
+                seconds=f"{time.perf_counter() - t0:.1f}", volumes=len(cases),
+                mean_dice=f"{out['mean'][0]:.4f}", scan_launches=sum(launched))
+            if any(launched) or not np.isfinite(out["per_case"]).all():
+                raise AssertionError(f"cli.test --model {model}: launches "
+                                     f"{launched}, metrics {out['mean']}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1889,6 +2469,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     entry_points_phase(torch, np, dev)
     phase_done("entry_points")
+
+    # --- the UNet family, Swin-UNet, and the semi-supervised methods
+    # (Semi-Mamba-UNet's cross-teaching, mean teacher, UAMT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    zoo_parity_phase(torch, dev)
+    cross_teaching_parity_phase(torch, dev)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32_defaults
+    torch.cuda.empty_cache()
+    zoo_training_phase(torch, dev)
+    phase_done("zoo, cross_teaching_parity")
+    cross_teaching_phase(torch, dev)
+    for method in ("mean_teacher", "uamt"):
+        ema_teacher_phase(torch, dev, method)
+    phase_done("cross_teaching, mean_teacher, uamt")
+    semi_entry_points_phase(torch, np, dev)
+    phase_done("entry_points: semi-supervised methods, unet, ViT_seg")
 
     serve_bound = sum(calls * scan_bound("fwd", SERVE_BATCH, L, dg, 4)[0]
                       for L, dg, calls in STAGES)

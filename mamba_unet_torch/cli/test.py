@@ -18,8 +18,9 @@ too; it is ``eval.inference.test_single_volume`` with the CLI's metrics.
     python -m mamba_unet_torch.cli.test --checkpoint snap/ --ckpt_name best \
         --save_nii_dir preds/
 
-``--device`` defaults to ``cuda`` and raises without a card; ``--device
-cpu`` runs on the CPU.
+``--model`` is any registered model (``ViM_seg``, the UNet family,
+``ViT_seg``, built for ``--patch_size``). ``--device`` defaults to
+``cuda`` and raises without a card; ``--device cpu`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -82,10 +83,12 @@ def run_inference(args, dataset=None) -> dict:
     from mamba_unet_torch.utils.device import require_device
     from mamba_unet_torch.utils.export import make_predict_fn
 
+    model_kw = ({"img_size": args.patch_size[0]} if args.model == "ViT_seg"
+                else {})
     model = load_model_snapshot(args.model, args.num_classes, 1,
                                 args.checkpoint,
                                 device=require_device(args.device),
-                                ckpt_name=args.ckpt_name)
+                                ckpt_name=args.ckpt_name, **model_kw)
     predict = make_predict_fn(model)
 
     ds = (VolumeDataset(args.root_path, args.split) if dataset is None

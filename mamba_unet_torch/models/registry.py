@@ -15,7 +15,16 @@ from torch import nn
 _LAZY: Dict[str, Tuple[str, str]] = {
     "ViM_seg": ("mamba_unet_torch.models.vssm", "MambaUnet"),
     "mambaunet": ("mamba_unet_torch.models.vssm", "MambaUnet"),
+    "unet": ("mamba_unet_torch.models.unet", "UNet"),
+    "unet_ds": ("mamba_unet_torch.models.unet", "UNetDS"),
+    "unet_urpc": ("mamba_unet_torch.models.unet", "UNetURPC"),
+    "unet_cct": ("mamba_unet_torch.models.unet", "UNetCCT"),
+    "TLunet": ("mamba_unet_torch.models.unet", "TLUNet"),
+    "ViT_seg": ("mamba_unet_torch.models.swin_unet", "SwinUnet"),
 }
+# the models that take SS2D's scan_impl, and those with stochastic depth
+SCAN_MODELS = frozenset({"ViM_seg", "mambaunet"})
+DROP_PATH_MODELS = frozenset({"ViM_seg", "mambaunet", "ViT_seg"})
 
 
 def list_models():
@@ -24,7 +33,9 @@ def list_models():
 
 def net_factory(net_type: str, **kwargs) -> nn.Module:
     """Build a model by registry name with keyword overrides (``device``,
-    ``generator``, ``num_classes``, ``scan_impl``, ``use_remat``, ...)."""
+    ``generator``, ``num_classes``, ``in_chans``; ``scan_impl`` and
+    ``use_remat`` for the Mamba models, ``drop_path_rate`` for those in
+    :data:`DROP_PATH_MODELS`, ``img_size`` for ``ViT_seg``, ...)."""
     if net_type not in _LAZY:
         raise KeyError(f"unknown model {net_type!r}; known: {list_models()}")
     module, attr = _LAZY[net_type]

@@ -1,10 +1,13 @@
-"""Shared initializers and ``DropPath``.
+"""Shared initializers, ``DropPath``, ``Dropout`` and ``BatchNorm2d``.
 
-Port of ``mamba_unet_tpu/nn/layers.py``. Initializers draw on the CPU from
-an explicit ``torch.Generator`` and copy into the parameter, so one seed
-gives the same weights on every device. ``DropPath`` draws its masks from
-a generator its owner (the trainer) hands it with
-:func:`set_drop_path_generator`, never from the global one.
+Port of ``mamba_unet_tpu/nn/layers.py``, plus flax's ``nn.Dropout`` and
+``nn.BatchNorm`` as the UNet family and Swin-UNet use them. Initializers
+draw on the CPU from an explicit ``torch.Generator`` and copy into the
+parameter, so one seed gives the same weights on every device. Every
+module that draws in training (:class:`Drawing`: ``DropPath``, ``Dropout``
+and the UNet family's feature perturbations) draws from a generator its
+owner (the trainer) hands it with :func:`set_generator`, never from the
+global one.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -58,29 +62,39 @@ def linear(in_features: int, out_features: int, bias: bool, device,
     return layer
 
 
-class DropPath(nn.Module):
+class Drawing(nn.Module):
+    """A module that draws random numbers in training, from
+    ``self.generator``: a ``torch.Generator`` on the input's device that
+    :func:`set_generator` sets. There is no default."""
+
+    def __init__(self):
+        super().__init__()
+        self.generator: Optional[torch.Generator] = None
+
+    def _generator(self) -> torch.Generator:
+        if self.generator is None:
+            raise RuntimeError(f"{type(self).__name__} in training needs a "
+                               f"generator: set_generator(model, generator)")
+        return self.generator
+
+
+class DropPath(Drawing):
     """Per-sample stochastic depth: drops the whole residual branch with
     probability ``rate`` in training and rescales by 1/keep. Identity in
-    eval mode. In training the mask comes from ``self.generator``, a
-    ``torch.Generator`` on the input's device that
-    :func:`set_drop_path_generator` sets; there is no default."""
+    eval mode."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
-        self.generator: Optional[torch.Generator] = None
 
     def draw(self, x: torch.Tensor) -> Optional[torch.Tensor]:
         """The per-sample keep mask for ``x`` from ``self.generator``, or
         None where this is the identity (rate 0 or eval mode)."""
         if self.rate == 0.0 or not self.training:
             return None
-        if self.generator is None:
-            raise RuntimeError("DropPath in training needs a generator: "
-                               "set_drop_path_generator(model, generator)")
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
         return torch.rand(shape, device=x.device,
-                          generator=self.generator) < 1.0 - self.rate
+                          generator=self._generator()) < 1.0 - self.rate
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -95,11 +109,60 @@ class DropPath(nn.Module):
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
-def set_drop_path_generator(model: nn.Module,
-                            generator: Optional[torch.Generator]) -> int:
-    """Hand ``generator`` to every ``DropPath`` in ``model``; returns how
-    many there are."""
-    paths = [m for m in model.modules() if isinstance(m, DropPath)]
-    for m in paths:
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """Elementwise dropout: keep with probability 1 - ``rate`` and rescale
+    by 1/keep (flax ``nn.Dropout``)."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class Dropout(Drawing):
+    """flax ``nn.Dropout(rate)`` in training, the identity in eval mode or
+    at rate 0; its mask comes from ``self.generator``
+    (``torch.nn.Dropout`` draws from the global generator)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        return dropout(x, self.rate, self._generator())
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """flax ``nn.BatchNorm`` on (B, C, H, W): epsilon 1e-5 and momentum 0.99
+    (torch's 0.01). In training it normalizes with the batch statistics and
+    averages the *biased* batch variance into ``running_var``, as flax
+    does (``torch.nn.BatchNorm2d`` averages the unbiased one); in eval mode
+    it normalizes with the running statistics."""
+
+    def __init__(self, num_features: int, *, device=None):
+        super().__init__(num_features, eps=1e-5, momentum=0.01,
+                         device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def set_generator(model: nn.Module,
+                  generator: Optional[torch.Generator]) -> int:
+    """Hand ``generator`` to every :class:`Drawing` module in ``model``;
+    returns how many there are."""
+    drawing = [m for m in model.modules() if isinstance(m, Drawing)]
+    for m in drawing:
         m.generator = generator
-    return len(paths)
+    return len(drawing)

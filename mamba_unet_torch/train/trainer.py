@@ -12,11 +12,19 @@ Port of ``TrainConfig``, ``fully_supervised_loss`` and ``Trainer`` from
   iterations, and resume from the newest periodic one.
 
 The trainer owns the model, the optimizer and its schedule, the step and
-the ``torch.Generator`` that ``DropPath`` draws from. That generator is
-reseeded from (seed, step) before every step, as the JAX trainer folds the
-step into its key, so a resumed run draws the same masks. With
+the ``torch.Generator`` that every random module (``DropPath``,
+``Dropout``, the UNet family's perturbations) draws from. That generator
+is reseeded from (seed, step) before every step, as the JAX trainer folds
+the step into its key, so a resumed run draws the same masks. With
 ``bf16=True`` the forward and the loss run under bf16 autocast; weights,
 gradients and the optimizer stay fp32, and the scan keeps an fp32 state.
+
+The hooks the semi-supervised methods (``train/methods.py``) extend:
+``supports_grad_accum``, ``_reseed`` (a further stream of the step's
+seed), ``_periodic_tree``/``_load_periodic`` (what the periodic checkpoint
+carries) and ``_best_models`` (the models evaluated, each with its best
+checkpoint name: ``best``, ``best2``, ...; ``_load_best_marks(names)``
+reads their marks).
 """
 
 from __future__ import annotations
@@ -24,14 +32,14 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from mamba_unet_torch.eval.inference import evaluate_slice_volumes
-from mamba_unet_torch.nn.layers import set_drop_path_generator
+from mamba_unet_torch.nn.layers import set_generator
 from mamba_unet_torch.objectives import supervised_ce_dice
 from mamba_unet_torch.train.optim import poly_sgd
 from mamba_unet_torch.utils.checkpoint import (
@@ -81,9 +89,10 @@ def fully_supervised_loss(model: nn.Module, batch: Dict[str, torch.Tensor]
     return loss, {"loss_total": loss.detach()}
 
 
-def _step_seed(seed: int, step: int) -> int:
-    """A 63-bit seed mixed from (seed, step)."""
-    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+def _step_seed(seed: int, step: int, *stream: int) -> int:
+    """A 63-bit seed mixed from (seed, step, *stream)."""
+    state = np.random.SeedSequence([seed, step, *stream]).generate_state(
+        1, np.uint64)
     return int(state[0]) >> 1
 
 
@@ -91,6 +100,11 @@ OptimizerFactory = Callable[[Any], Tuple[torch.optim.Optimizer, Any]]
 
 
 class Trainer:
+    # a subclass whose step is not the base step's microbatch loop sets
+    # this False, so that grad_accum_steps > 1 raises instead of being
+    # ignored
+    supports_grad_accum: bool = True
+
     def __init__(self, model: nn.Module, config: TrainConfig,
                  make_optimizer: Optional[OptimizerFactory] = None,
                  device="cuda"):
@@ -100,6 +114,9 @@ class Trainer:
         the card unless the caller asks for the CPU."""
         cfg = self.config = config
         k = cfg.grad_accum_steps
+        if k > 1 and not self.supports_grad_accum:
+            raise ValueError(f"{type(self).__name__} does not support "
+                             f"grad_accum_steps > 1")
         if k < 1 or cfg.batch_size % k:
             raise ValueError(f"batch_size={cfg.batch_size} is not divisible "
                              f"by grad_accum_steps={k}")
@@ -108,11 +125,21 @@ class Trainer:
         if make_optimizer is None:
             def make_optimizer(params):
                 return poly_sgd(params, cfg.base_lr, cfg.max_iterations)
+        self.make_optimizer = make_optimizer
         self.optimizer, self.scheduler = make_optimizer(
             self.model.parameters())
         self.step = 0
         self.generator = torch.Generator(device=self.device)
-        set_drop_path_generator(self.model, self.generator)
+        set_generator(self.model, self.generator)
+
+    def _reseed(self, *stream: int) -> None:
+        """Reseed the generator from (seed, step, *stream)."""
+        self.generator.manual_seed(
+            _step_seed(self.config.seed, self.step, *stream))
+
+    def _autocast(self):
+        return torch.autocast(self.device.type, torch.bfloat16,
+                              enabled=self.config.bf16)
 
     # --- one step --------------------------------------------------------
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
@@ -121,15 +148,14 @@ class Trainer:
         they come from the device (reading them synchronises)."""
         cfg = self.config
         self.model.train()
-        self.generator.manual_seed(_step_seed(cfg.seed, self.step))
+        self._reseed()
         image = batch["image"].to(self.device, non_blocking=True).float()
         label = batch["label"].to(self.device, non_blocking=True).long()
         k = cfg.grad_accum_steps
         self.optimizer.zero_grad(set_to_none=True)
         losses = []
         for img, lab in zip(image.chunk(k), label.chunk(k)):
-            with torch.autocast(self.device.type, torch.bfloat16,
-                                enabled=cfg.bf16):
+            with self._autocast():
                 loss, logs = fully_supervised_loss(
                     self.model, {"image": img, "label": lab})
             (loss / k).backward()
@@ -141,28 +167,32 @@ class Trainer:
                 "lr": self.scheduler.get_last_lr()[0]}
 
     # --- eval -------------------------------------------------------------
-    def predict_fn(self) -> Callable:
-        """(B, ps, ps, 1) fp32 -> logits, no grad, in eval mode: the serving
-        scan kernel (bf16 autocast when training in bf16)."""
-        return make_predict_fn(self.model,
+    def predict_fn(self, model: Optional[nn.Module] = None) -> Callable:
+        """(B, ps, ps, 1) fp32 -> logits of ``model`` (default the trained
+        one), no grad, in eval mode: the serving scan kernel (bf16 autocast
+        when training in bf16)."""
+        return make_predict_fn(self.model if model is None else model,
                                torch.bfloat16 if self.config.bf16 else None)
 
-    def evaluate(self, val_dataset, detailed: bool = False):
-        """Mean Dice over val volumes x foreground classes; with
-        ``detailed`` also the per-class (dice, hd95) means."""
+    def evaluate(self, val_dataset, model: Optional[nn.Module] = None
+                 ) -> float:
+        """Mean Dice of ``model`` (default the trained one) over val
+        volumes x foreground classes."""
         cfg = self.config
+        model = self.model if model is None else model
         try:
             arr = evaluate_slice_volumes(
                 (val_dataset[i] for i in range(len(val_dataset))),
-                self.predict_fn(), cfg.num_classes,
+                self.predict_fn(model), cfg.num_classes,
                 patch_size=cfg.patch_size, batch_size=cfg.eval_batch_size,
             )  # (cases, classes-1, 2)
         finally:
-            self.model.train()
-        mean_dice = float(arr[:, :, 0].mean())
-        if detailed:
-            return mean_dice, arr.mean(axis=0)
-        return mean_dice
+            model.train()
+        return float(arr[:, :, 0].mean())
+
+    def _best_models(self) -> List[Tuple[str, nn.Module]]:
+        """(best checkpoint name, model) of each model evaluated."""
+        return [("best", self.model)]
 
     # --- checkpoints --------------------------------------------------------
     def _periodic_tree(self) -> Dict[str, Any]:
@@ -171,10 +201,15 @@ class Trainer:
                 "scheduler": self.scheduler.state_dict(),
                 "step": self.step}
 
+    def _load_periodic(self, tree: Dict[str, Any]) -> None:
+        """Inverse of :meth:`_periodic_tree` (the step aside)."""
+        self.model.load_state_dict(tree["model"])
+        self.optimizer.load_state_dict(tree["optimizer"])
+        self.scheduler.load_state_dict(tree["scheduler"])
+
     def try_resume(self) -> int:
-        """Restore the newest periodic checkpoint of ``snapshot_dir`` (model,
-        optimizer, schedule, step) when ``resume``; returns the step, or 0
-        when there is none."""
+        """Restore the newest periodic checkpoint of ``snapshot_dir`` when
+        ``resume``; returns the step, or 0 when there is none."""
         cfg = self.config
         if not (cfg.resume and cfg.snapshot_dir):
             return 0
@@ -183,30 +218,33 @@ class Trainer:
             return 0
         tree = restore_checkpoint(cfg.snapshot_dir, step,
                                   map_location=self.device)
-        self.model.load_state_dict(tree["model"])
-        self.optimizer.load_state_dict(tree["optimizer"])
-        self.scheduler.load_state_dict(tree["scheduler"])
+        self._load_periodic(tree)
         self.step = int(tree["step"])
         log.info("resumed from %s @ step %d", cfg.snapshot_dir, self.step)
         return self.step
 
-    def _load_best_mark(self) -> float:
-        """The best Dice so far from the sidecar (0.0 when absent), so a
-        resumed run cannot overwrite a better ``best_*`` checkpoint."""
-        if not self.config.snapshot_dir:
-            return 0.0
-        return float(load_best_marks(self.config.snapshot_dir).get("best",
-                                                                   0.0))
+    def _load_best_marks(self, names: Sequence[str] = ("best",)
+                         ) -> List[float]:
+        """The best Dice so far of each of ``names`` from the sidecar (0.0
+        when absent), so a resumed run cannot overwrite a better ``best_*``
+        checkpoint."""
+        marks = (load_best_marks(self.config.snapshot_dir)
+                 if self.config.snapshot_dir else {})
+        return [float(marks.get(n, 0.0)) for n in names]
 
     # --- the loop -----------------------------------------------------------
     def fit(self, train_loader, val_dataset=None) -> Dict[str, Any]:
+        """Train to ``max_iterations``; returns ``iterations``, ``history``
+        and ``best_dice`` (``best_dice2``, ... for further models)."""
         cfg = self.config
         history = []
         it0 = self.try_resume()
-        # the mark loads whenever resume is asked for, not only when a
+        names = [name for name, _ in self._best_models()]
+        # the marks load whenever resume is asked for, not only when a
         # periodic checkpoint exists: a run killed after a best save but
         # before its first periodic save must keep its best
-        best_dice = self._load_best_mark() if cfg.resume else 0.0
+        best = dict(zip(names, self._load_best_marks(names) if cfg.resume
+                        else [0.0] * len(names)))
         t0 = time.time()
         for batch in train_loader:
             if self.step >= cfg.max_iterations:
@@ -219,17 +257,22 @@ class Trainer:
                          logs["lr"], (it - it0) / (time.time() - t0))
                 history.append({"iter": it, "loss": loss})
             if val_dataset is not None and it % cfg.eval_every == 0:
-                dice, _ = self.evaluate(val_dataset, detailed=True)
-                log.info("iter %d val mean dice %.4f (best %.4f)", it, dice,
-                         best_dice)
-                history.append({"iter": it, "val_dice": dice})
-                if dice > best_dice:
-                    best_dice = dice
-                    if cfg.snapshot_dir:
-                        save_checkpoint(cfg.snapshot_dir, it,
-                                        self.model.state_dict(), name="best")
-                        save_best_marks(cfg.snapshot_dir, {"best": best_dice})
+                entry = {"iter": it}
+                for name, model in self._best_models():
+                    dice = self.evaluate(val_dataset, model=model)
+                    log.info("iter %d val mean dice (%s) %.4f (best %.4f)",
+                             it, name, dice, best[name])
+                    entry["val_dice" + name[len("best"):]] = dice
+                    if dice > best[name]:
+                        best[name] = dice
+                        if cfg.snapshot_dir:
+                            save_checkpoint(cfg.snapshot_dir, it,
+                                            model.state_dict(), name=name)
+                            save_best_marks(cfg.snapshot_dir, {name: dice})
+                history.append(entry)
             if cfg.snapshot_dir and it % cfg.ckpt_every == 0:
                 save_checkpoint(cfg.snapshot_dir, it, self._periodic_tree())
-        return {"best_dice": best_dice, "iterations": self.step,
-                "history": history}
+        result = {"iterations": self.step, "history": history}
+        result.update({"best_dice" + name[len("best"):]: value
+                       for name, value in best.items()})
+        return result

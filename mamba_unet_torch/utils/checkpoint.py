@@ -98,6 +98,7 @@ def load_model_snapshot(
     path: Optional[str] = None,
     device="cuda",
     ckpt_name: Optional[str] = None,
+    **model_kw,
 ) -> nn.Module:
     """Build ``name`` via ``net_factory`` in eval mode on ``device``: the
     card unless the caller asks for the CPU (raises when CUDA is asked for
@@ -108,15 +109,17 @@ def load_model_snapshot(
     is a training ``--snapshot_dir``: the newest ``{ckpt_name}_{step}``
     (multi-model trainers save ``best``/``best2``/``best3``); without
     ``ckpt_name`` the newest ``best_{step}``, or else the ``"model"`` entry
-    of the newest periodic ``state_{step}``. The weights load strictly.
-    bf16 serving is chosen later, in ``make_predict_fn``: the weights stay
-    fp32."""
+    of the newest periodic ``state_{step}``. The weights load strictly, a
+    BatchNorm's running statistics with them. ``model_kw`` goes to
+    ``net_factory`` (``img_size`` for ``ViT_seg``). bf16 serving is chosen
+    later, in ``make_predict_fn``: the weights stay fp32."""
     from mamba_unet_torch.models import net_factory  # lazy: avoid a cycle
 
     device = require_device(device)
     model = net_factory(name, num_classes=num_classes, in_chans=in_ch,
                         device=device,
-                        generator=torch.Generator().manual_seed(0))
+                        generator=torch.Generator().manual_seed(0),
+                        **model_kw)
     if path:
         model.load_state_dict(_snapshot_state(path, ckpt_name, device))
     return model.eval()

@@ -2,18 +2,31 @@
 
 ``params_from_jax`` is the inverse of ``mamba_unet_tpu/utils/convert.py``'s
 ``torch_key_for`` + ``_transform``: it takes a flax parameter tree flattened
-to ``"/"``-joined paths (numpy leaves) and returns a ``state_dict`` for the
+to ``"/"``-joined paths (numpy leaves), and optionally the ``batch_stats``
+collection flattened the same way, and returns a ``state_dict`` for the
 port's module with the same structure. It works for the whole ``MambaUnet``
-(flax root ``vssm`` -> ``mamba_unet``) and for any of its submodules
-(``SS2D``, the patch ops, ...). The key map lives here, so the port does not
-import the JAX package.
+(flax root ``vssm`` -> ``mamba_unet``), ``SwinUnet`` (``swin_unet``), the
+UNet family (``encoder``, ``decoder``, ``main_decoder``,
+``aux_decoder{i}``, ``mask_encoder``, ``mask_decoder``; ``in_conv``,
+``down{i}`` -> ``down{i}.maxpool_conv.1``, ``up{i}``, ``out_conv``,
+``out_conv_dp{k}``; a conv block's ``Conv_0``, ``BatchNorm_0``, ``Conv_1``,
+``BatchNorm_1`` -> ``conv_conv.{0,1,4,5}``) and any of their submodules.
+The key map lives here, so the port does not import the JAX package.
 
 Layout transforms (flax -> torch):
   Dense kernel (in, out)              -> Linear weight (out, in)
   Conv kernel (kh, kw, in, out)       -> Conv2d weight (out, in, kh, kw)
   depthwise (kh, kw, 1, C)            -> (C, 1, kh, kw)
-  LayerNorm scale / bias              -> weight / bias
-  SS2D raw params (x_proj_weight, dt_projs_*, A_logs, Ds) -> unchanged
+  ConvTranspose kernel (kh, kw, in, out), the module ``up`` of an UpBlock
+                                      -> ConvTranspose2d weight
+                                         (in, out, kh, kw), flipped in kh
+                                         and kw (flax applies the kernel
+                                         unflipped, torch flipped)
+  LayerNorm / BatchNorm scale, bias   -> weight / bias
+  BatchNorm batch_stats mean, var     -> running_mean / running_var, with
+                                         num_batches_tracked set
+  SS2D raw params (x_proj_weight, dt_projs_*, A_logs, Ds) and the Swin
+  relative_position_bias_table        -> unchanged
 
 ``load_torch_checkpoint``, ``mirror_encoder_keys`` and
 ``load_upstream_state`` port the warm start from an upstream torch ``.pth``
@@ -40,15 +53,24 @@ _INDEXED = (
     (re.compile(r"downsample_(\d+)$"), "layers.{0}.downsample"),
     (re.compile(r"upsample_(\d+)$"), "layers_up.{0}.upsample"),
     (re.compile(r"concat_back_dim_(\d+)$"), "concat_back_dim.{0}"),
+    (re.compile(r"down(\d+)$"), "down{0}.maxpool_conv.1"),
+    (re.compile(r"(up\d+|aux_decoder\d+|out_conv_dp\d+)$"), "{0}"),
 )
-_RENAMED = {"vssm": "mamba_unet", "first_expand": "layers_up.0"}
+_RENAMED = {"vssm": "mamba_unet", "first_expand": "layers_up.0",
+            "Conv_0": "conv_conv.0", "BatchNorm_0": "conv_conv.1",
+            "Conv_1": "conv_conv.4", "BatchNorm_1": "conv_conv.5",
+            "mlp_fc1": "mlp.fc1", "mlp_fc2": "mlp.fc2"}
 _PLAIN = frozenset({
     "patch_embed", "proj", "norm", "norm_up", "up", "expand", "output",
     "reduction", "ln_1", "self_attention", "in_proj", "out_proj", "conv2d",
-    "out_norm",
+    "out_norm", "swin_unet", "attn", "qkv", "norm1", "norm2", "encoder",
+    "decoder", "main_decoder", "mask_encoder", "mask_decoder", "in_conv",
+    "conv", "out_conv",
 })
 _RAW_LEAVES = frozenset({"x_proj_weight", "dt_projs_weight", "dt_projs_bias",
-                         "A_logs", "Ds", "bias"})
+                         "A_logs", "Ds", "bias",
+                         "relative_position_bias_table"})
+_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def torch_key(path: str) -> str:
@@ -73,6 +95,8 @@ def torch_key(path: str) -> str:
         out.append("weight")
     elif leaf in _RAW_LEAVES:
         out.append(leaf)
+    elif leaf in _STATS:
+        out.append(_STATS[leaf])
     else:
         raise KeyError(f"no port parameter for flax leaf {leaf!r} in {path!r}")
     return ".".join(out)
@@ -83,6 +107,8 @@ def to_torch_layout(path: str, value: np.ndarray) -> np.ndarray:
     if path.endswith("/kernel"):
         if value.ndim == 2:
             return value.T
+        if value.ndim == 4 and path.split("/")[-2] == "up":
+            return value[::-1, ::-1].transpose(2, 3, 0, 1)  # ConvTranspose
         if value.ndim == 4:
             return value.transpose(3, 2, 0, 1)
         raise ValueError(f"kernel {path!r} has rank {value.ndim}")
@@ -92,21 +118,28 @@ def to_torch_layout(path: str, value: np.ndarray) -> np.ndarray:
 def params_from_jax(
     flat: Mapping[str, np.ndarray],
     like: Optional[Mapping[str, torch.Tensor]] = None,
+    batch_stats: Optional[Mapping[str, np.ndarray]] = None,
+    num_batches_tracked: int = 0,
 ) -> Dict[str, torch.Tensor]:
-    """Flattened flax params -> port ``state_dict`` (fp32 CPU tensors).
+    """Flattened flax params (and ``batch_stats``) -> port ``state_dict``
+    (fp32 CPU tensors; each BatchNorm's ``num_batches_tracked`` is
+    ``num_batches_tracked``, a count flax does not keep).
 
     Raises ``KeyError`` for a flax path with no port key, or two paths that
     map to one key. With ``like`` (the target module's ``state_dict``) it
     also raises ``KeyError`` when the key sets differ and ``ValueError`` on
     a shape mismatch."""
     sd: Dict[str, torch.Tensor] = {}
-    for path, value in flat.items():
+    for path, value in {**flat, **(batch_stats or {})}.items():
         key = torch_key(path)
         if key in sd:
             raise KeyError(f"two flax paths map to {key!r}")
         arr = np.array(to_torch_layout(path, np.asarray(value)),
                        dtype=np.float32, order="C")  # an owned, writable copy
         sd[key] = torch.from_numpy(arr)
+        if key.endswith(".running_mean"):
+            sd[key[:-len("running_mean")] + "num_batches_tracked"] = (
+                torch.tensor(num_batches_tracked))
     if like is not None:
         missing = sorted(set(like) - set(sd))
         extra = sorted(set(sd) - set(like))

@@ -34,7 +34,7 @@ from mamba_unet_torch.data import nifti as tnifti  # noqa: E402
 from mamba_unet_torch.data import synthetic as tsyn  # noqa: E402
 from mamba_unet_torch.models import net_factory  # noqa: E402
 from mamba_unet_torch.models import vssm as tvssm  # noqa: E402
-from mamba_unet_torch.nn.layers import set_drop_path_generator  # noqa: E402
+from mamba_unet_torch.nn.layers import set_generator  # noqa: E402
 from mamba_unet_torch.nn.vss import VSSLayer  # noqa: E402
 from mamba_unet_torch.utils import checkpoint as tckpt  # noqa: E402
 from mamba_unet_torch.utils.convert import (  # noqa: E402
@@ -149,7 +149,7 @@ def test_remat_gradients_equal_without_remat():
         model = tvssm.MambaUnet(drop_path_rate=0.5, use_remat=remat,
                                 generator=torch.Generator().manual_seed(0),
                                 **TOY).train()
-        set_drop_path_generator(model, torch.Generator().manual_seed(1))
+        set_generator(model, torch.Generator().manual_seed(1))
         loss = (model(x) ** 2).mean()
         loss.backward()
         got[remat] = (loss, {k: p.grad for k, p in model.named_parameters()})

@@ -724,7 +724,7 @@ def test_remat_gradients_on_card_equal_without_remat(cuda, scan_impl):
     launches the state-saving forward twice per block (the recomputation)
     and the backward once."""
     from mamba_unet_torch.models.vssm import MambaUnet
-    from mamba_unet_torch.nn.layers import set_drop_path_generator
+    from mamba_unet_torch.nn.layers import set_generator
     from mamba_unet_torch.ops import selective_scan_grouped as sg
 
     fwd_states, bwd = {
@@ -740,8 +740,7 @@ def test_remat_gradients_on_card_equal_without_remat(cuda, scan_impl):
                           drop_path_rate=0.5, scan_impl=scan_impl,
                           use_remat=remat,
                           generator=torch.Generator().manual_seed(0)).to(cuda)
-        set_drop_path_generator(model,
-                                torch.Generator(cuda).manual_seed(2))
+        set_generator(model, torch.Generator(cuda).manual_seed(2))
         before = (fwd_states.launches, bwd.launches)
         (model.train()(x.to(cuda)) ** 2).mean().backward()
         torch.cuda.synchronize()
@@ -750,3 +749,105 @@ def test_remat_gradients_on_card_equal_without_remat(cuda, scan_impl):
         grads[remat] = {k: p.grad.cpu() for k, p in model.named_parameters()}
     for k, g in grads[False].items():
         assert_close_to_max(grads[True][k], g, 1e-5, k)
+
+
+def _toy_vim(cuda, seed):
+    from mamba_unet_torch.models.vssm import MambaUnet
+
+    return MambaUnet(num_classes=4, depths=(1, 1), dims=(16, 32),
+                     drop_path_rate=0.0,
+                     generator=torch.Generator().manual_seed(seed)).to(cuda)
+
+
+def _semi_batch():
+    g = torch.Generator().manual_seed(5)
+    return {"image": torch.randn(4, 32, 32, 1, generator=g),
+            "label": torch.randint(0, 4, (4, 32, 32), generator=g)}
+
+
+def _semi_cfg():
+    from mamba_unet_torch.train import TrainConfig
+
+    return TrainConfig(base_lr=0.01, max_iterations=10, batch_size=4,
+                       patch_size=(32, 32), num_classes=4, seed=0)
+
+
+@pytest.mark.cuda
+def test_cross_teaching_step_gradients_on_card_match_cpu(cuda):
+    """One cross-teaching step of two toy Mamba-UNets, 2 labeled + 2
+    unlabeled, fp32 with TF32 off: the loss and both models' gradients on
+    the card against the CPU (1e-4 of each gradient's max); 3 + 3
+    state-saving forward and 3 + 3 backward launches, no serving one."""
+    from mamba_unet_torch.train import CrossTeachingTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for tag, dev in (("card", cuda), ("cpu", torch.device("cpu"))):
+        trainer = CrossTeachingTrainer(
+            _toy_vim(dev, 0), _semi_cfg(), model2=_toy_vim(dev, 1),
+            labeled_bs=2, consistency=30.0, device=dev)
+        before = [k.launches for k in (selective_scan_bidir,
+                                       selective_scan_bidir_fwd_states,
+                                       selective_scan_bidir_bwd)]
+        loss = float(trainer.train_step(_semi_batch())["loss_total"])
+        launched = [k.launches - b for k, b in zip(
+            (selective_scan_bidir, selective_scan_bidir_fwd_states,
+             selective_scan_bidir_bwd), before)]
+        out[tag] = (loss, launched, {
+            f"{i}.{k}": p.grad.cpu() for i, m in
+            ((1, trainer.model), (2, trainer.model2))
+            for k, p in m.named_parameters()})
+    assert out["card"][1] == [0, 6, 6]
+    assert out["card"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for k, g in out["cpu"][2].items():
+        assert_close_to_max(out["card"][2][k], g, 1e-4, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,passes", [("mean_teacher", 1),
+                                           ("uamt", 9)])
+def test_teacher_passes_launch_the_serving_kernel(cuda, method, passes):
+    """An EMA-teacher step on a toy Mamba-UNet: each no-grad teacher pass
+    (1 for mean teacher, 9 for UAMT) runs the serving kernel, 3 launches
+    each; the student's forward and backward the training ones."""
+    from mamba_unet_torch.train import MeanTeacherTrainer, UAMTTrainer
+
+    cls = MeanTeacherTrainer if method == "mean_teacher" else UAMTTrainer
+    trainer = cls(_toy_vim(cuda, 0), _semi_cfg(), labeled_bs=2,
+                  warmup_iters=0, device=cuda)
+    kernels = (selective_scan_bidir, selective_scan_bidir_fwd_states,
+               selective_scan_bidir_bwd)
+    before = [k.launches for k in kernels]
+    logs = trainer.train_step(_semi_batch())
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [
+        3 * passes, 3, 3]
+    assert torch.isfinite(logs["loss_total"]) and trainer.step == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["unet", "ViT_seg"])
+def test_zoo_logits_on_card_match_cpu(cuda, name):
+    """Toy unet and ViT_seg: eval logits card vs CPU, fp32 with TF32 off,
+    and no scan kernel launch."""
+    from mamba_unet_torch.models import net_factory
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = ({"ft_chns": (4, 8, 16, 32, 64)} if name == "unet" else
+          {"img_size": 64, "embed_dim": 24, "num_heads": (1, 2, 4, 8),
+           "window_size": 4})
+    size = 32 if name == "unet" else 64
+    cpu = net_factory(name, num_classes=4,
+                      generator=torch.Generator().manual_seed(0), **kw)
+    card = net_factory(name, num_classes=4, device=cuda, **kw)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, size, size, 1,
+                    generator=torch.Generator().manual_seed(1))
+    before = selective_scan_bidir.launches
+    with torch.no_grad():
+        got = card.eval()(x.to(cuda)).cpu()
+        want = cpu.eval()(x)
+    assert selective_scan_bidir.launches == before
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

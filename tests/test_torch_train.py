@@ -381,7 +381,7 @@ def test_train_cli_synthetic_on_cpu(tmp_path):
                                 device="cpu")
     assert not model.training
     with pytest.raises(NotImplementedError):
-        train_cli.main(["--method", "mean_teacher", "--device", "cpu"])
+        train_cli.main(["--method", "weak_scribble", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("cli", ["train", "test"])
