@@ -5,8 +5,9 @@ SS2D's time-major branch and the 1-D Mamba stack's gradients, Mamba-UNet
 training and serving on SS2D's batch-folded branch, the main path's
 other entry points (activation recomputation, the ``torch.export``
 artifact and the CLIs, SS2D's xla route among them), then the UNet
-family and Swin-UNet, and the semi-supervised methods: Semi-Mamba-UNet's
-cross-teaching, mean teacher and UAMT.
+family and Swin-UNet, the semi-supervised methods (Semi-Mamba-UNet's
+cross-teaching, mean teacher and UAMT), the scribble-supervised
+Weak-Mamba-UNet, and a from-scratch trainability check.
 
     python3 chip_smoke.py
 
@@ -124,7 +125,9 @@ exits non-zero; nothing is caught):
               batch, saved to build/ and reloaded: batches 2 and 24 against
               the eager predict function (14 serving launches per call),
               fp32 and bf16, both timed at bs24 beside eager; then the tm
-              and folded branches exported with the same weights.
+              and folded branches exported with the same weights; then
+              full-width ``unet`` and ``ViT_seg``, batches 2 and 24 against
+              eager, device ms at bs24 beside eager's.
 21. entry_points - ``cli.train`` (``--synthetic_hard``,
               ``--pretrained_ckpt``, ``--exp``, ``--scan_impl xla``),
               ``cli.test`` (``--ckpt_name``, ``--save_nii_dir``: the NIfTI
@@ -161,10 +164,31 @@ exits non-zero; nothing is caught):
               plus 14 + 14 training ones; the EMA equals alpha * ema + (1 -
               alpha) * param after a step; step ms, peak memory, device ms.
 27. entry_points - ``cli.train --synthetic`` with ``--method
-              mean_teacher``, ``uamt``, ``cross_teaching --model2 unet`` and
-              ``--model unet``, ``--model ViT_seg`` (launch counts checked),
-              then ``cli.test --model unet`` and ``--model ViT_seg`` on the
-              snapshots written.
+              mean_teacher``, ``uamt``, ``cross_teaching --model2 unet``
+              (``--model ViM_seg``), ``--model unet``, ``--model ViT_seg``
+              and ``--method weak_scribble`` (its default trio; launch
+              counts checked), then ``cli.test --model unet`` and ``--model
+              ViT_seg`` on the snapshots written, and ``--model ViM_seg
+              --ckpt_name best3`` on the weak run's.
+28. weak_scribble - ``WeakScribbleTrainer.fit`` of the trio on phantom
+              scribbles, bs24, bf16, WEAK_ITERS steps with one eval: per
+              step 14 + 14 bidir training launches (model 3), 14 serving
+              launches per eval forward of model 3, none for ``unet`` and
+              ``ViT_seg``; ``best``/``best2``/``best3`` written exactly
+              where each model's val Dice rose above 0; step ms, peak
+              memory, device ms per step beside the prediction.
+29. trainability - ``ViM_seg`` from scratch under ``warmup_adamw`` (1e-3)
+              on the easy phantom, bs24 bf16, 300 steps with evals at 150
+              and 300: every foreground class's val Dice above 0 at the
+              end.
+30. weak_parity - one Weak-Mamba-UNet step of the full-width trio
+              (``unet``, ``ViT_seg``, ``ViM_seg``), batch 2 at 224² on
+              phantom scribbles, dropout and drop_path 0, fp32 with TF32
+              off, the same mix weights and pseudo-labels: the losses and
+              the three models' every gradient card vs CPU (unet's against
+              its largest gradient: fp32 conditioning); 14 + 14 bidir
+              training launches. Last, as its CPU backward would share the
+              host with a timed phase.
 
 ``[phase_seconds]`` follows each group of phases. Then one JSON line with
 the kernel table, and the last line ``{"ok": true, "device": {...}}``. It
@@ -279,6 +303,23 @@ CROSS_ITERS, CROSS_EVAL_EVERY, EMA_ITERS = 10, 6, 5
 UAMT_TEACHER_PASSES = 9
 # EMA after a step: alpha * ema + (1 - alpha) * param in fp32
 EMA_TOL = 1e-6
+# [weak_parity]'s batch; [weak_scribble]'s fit steps and eval step, and
+# its prediction per bs24 bf16 step, made before its first card run from
+# the device ms of the bidir ViM_seg (74.35), unet (24.46) and ViT_seg
+# (31.86) steps on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 5)
+WEAK_PARITY_BATCH = 2
+# full-width unet's gradients at batch 2 are ill-conditioned in fp32: the
+# train-mode BatchNorms' backward cancels a per-channel mean, so the small
+# gradients of the BatchNorm-fed layers carry rounding of the large ones
+# (the card's, with cuDNN's convolutions, stand up to 4.5e-2 of such a
+# tensor's own max from the CPU's on an NVIDIA H100 80GB HBM3: [weak_parity]
+# prints it). So [weak_parity] holds each of unet's gradients within
+# MODEL_GRAD_TOL of unet's largest gradient; ViT_seg's and ViM_seg's
+# within MODEL_GRAD_TOL of their own
+WEAK_ITERS, WEAK_EVAL_AT = 10, 6
+WEAK_PREDICTED_DEVICE_MS, WEAK_PREDICTED_PEAK_GB = 131, 14.5
+# [trainability]: ViM_seg from scratch under warmup_adamw
+TRAINABILITY_ITERS, TRAINABILITY_EVAL_EVERY = 300, 150
 # full mamba-130m, card vs CPU, fp32 with TF32 off: 24 scans plus fp32
 # matmuls in another summation order, on logits of magnitude ~2; the
 # decode states within 1e-3 of their own max
@@ -1481,7 +1522,9 @@ def export_phase(torch, dev):
     batches 2 and 24 (14 serving launches per call) against the eager
     ``make_predict_fn``: fp32 with TF32 off, and bf16 against fp32; both
     timed at bs24 beside eager. Then the tm and folded branches exported
-    with the same weights, at batch 2, against eager."""
+    with the same weights, at batch 2, against eager; then full-width
+    ``unet`` and ``ViT_seg`` (img 224), fp32 at batches 2 and 24 against
+    eager (no scan launch), their device ms at bs24 beside eager's."""
     from mamba_unet_torch.models.vssm import MambaUnet
     from mamba_unet_torch.utils.checkpoint import load_model_snapshot
     from mamba_unet_torch.utils.export import (
@@ -1564,6 +1607,42 @@ def export_phase(torch, dev):
             raise AssertionError(f"exported {scan_impl}: launches "
                                  f"{launched}, {err} vs eager")
         del other
+    kernels = all_scan_kernels()
+    for name in ("unet", "ViT_seg"):
+        other = zoo_model(torch, name, dev)
+        t0 = time.perf_counter()
+        exported = export_predict(other, (PATCH, PATCH))
+        export_s = time.perf_counter() - t0
+        path = save_exported(exported, str(out_dir / f"{name}.pt2"))
+        served = load_exported(path).module()
+        eager = make_predict_fn(other)
+        errs = []
+        for b, x in xs.items():
+            before = launch_counts(kernels)
+            got = served(x)
+            torch.cuda.synchronize()
+            launched = [a - b_ for a, b_ in zip(launch_counts(kernels),
+                                                before)]
+            errs.append((got - eager(x)).abs().max().item())
+            if (got.shape != (b, PATCH, PATCH, 4) or any(launched)
+                    or not bool(torch.isfinite(got).all())
+                    or errs[-1] > LOGIT_TOL):
+                raise AssertionError(f"exported {name} at batch {b}: "
+                                     f"{errs[-1]} vs eager, launches "
+                                     f"{launched}")
+        x = xs[TRAIN_BATCH]
+        times = {}
+        for tag, fn in (("exported", served), ("eager", eager)) * 2:
+            dev_ms, _ = device_ms(torch, lambda: fn(x), 10)
+            times.setdefault(tag, []).append(dev_ms)
+        log("export", model=name, dtype="fp32",
+            vs_eager_b2_b24=" ".join(f"{e:.3e}" for e in errs),
+            tol=LOGIT_TOL, scan_launches=0, batch=TRAIN_BATCH,
+            **{f"{tag}_device_ms": " ".join(f"{t:.2f}" for t in runs)
+               for tag, runs in times.items()},
+            export_s=f"{export_s:.1f}",
+            artifact_mib=f"{Path(path).stat().st_size / 2**20:.1f}")
+        del other, served, exported
 
 
 def entry_points_phase(torch, np, dev):
@@ -1627,7 +1706,8 @@ def entry_points_phase(torch, np, dev):
         before = launch_counts(kernels + others)
         t0 = time.perf_counter()
         train_cli.main([
-            "--synthetic", "--synthetic_hard", "--synthetic_spec", *spec,
+            "--model", "ViM_seg", "--synthetic", "--synthetic_hard",
+            "--synthetic_spec", *spec,
             "--pretrained_ckpt", str(tmp / "vmamba_encoder.pth"),
             "--exp", "ACDC/Entry_Points", "--scan_impl", "xla", "--bf16",
             "--patch_size", str(PATCH), str(PATCH), "--batch_size",
@@ -1778,10 +1858,12 @@ def zoo_parity_phase(torch, dev):
                              f"{launched}")
 
 
-def phantom_loader(torch, dev, batch, labeled=None, seed=1337):
+def phantom_loader(torch, dev, batch, labeled=None, seed=1337,
+                   scribble=False):
     """(val volumes, a Loader of phantom slices at 224²: shuffled batches
     of ``batch``, or two-stream ones with ``labeled`` labeled slices
-    first)."""
+    first; with ``scribble`` the slices' scribbles are the labels, 4 in
+    the rotated-out corners)."""
     from mamba_unet_torch.data.acdc import SliceDataset
     from mamba_unet_torch.data.augment import RandomGenerator
     from mamba_unet_torch.data.loader import Loader
@@ -1791,9 +1873,11 @@ def phantom_loader(torch, dev, batch, labeled=None, seed=1337):
     )
     from mamba_unet_torch.data.synthetic import phantom_acdc
 
-    splits = phantom_acdc(8, 8, 2, 0, *NATIVE, seed=0)
+    splits = phantom_acdc(8, 8, 2, 0, *NATIVE, seed=0, scribble=scribble)
     ds = SliceDataset.from_samples(
-        splits["train"], transform=RandomGenerator((PATCH, PATCH), seed=seed))
+        splits["train"], sup_type="scribble" if scribble else "label",
+        transform=RandomGenerator((PATCH, PATCH), seed=seed,
+                                  label_cval=4 if scribble else 0))
     if labeled is None:
         sampler = EpochShuffleSampler(len(ds), batch, seed=seed)
     else:
@@ -2163,11 +2247,13 @@ def ema_teacher_phase(torch, dev, method):
 
 def semi_entry_points_phase(torch, np, dev):
     """``[entry_points]``, second part: ``cli.train --synthetic`` with
-    ``--method mean_teacher``, ``uamt`` (``ViM_seg``) and ``cross_teaching
-    --model2 unet``, and fully supervised ``--model unet`` and ``--model
-    ViT_seg``, each's scan launches checked; then ``cli.test --model unet``
-    and ``--model ViT_seg`` on the snapshots written (finite metrics, no
-    scan launch)."""
+    ``--method mean_teacher``, ``uamt`` (``--model ViM_seg``) and
+    ``cross_teaching --model ViM_seg --model2 unet``, fully supervised
+    ``--model unet`` and ``--model ViT_seg``, and ``--method
+    weak_scribble`` (its default trio), each's scan launches checked; then
+    ``cli.test --model unet`` and ``--model ViT_seg`` on the snapshots
+    written (finite metrics, no scan launch), and ``cli.test --model
+    ViM_seg --ckpt_name best3`` on the weak run's (its serving launches)."""
     import tempfile
 
     from mamba_unet_torch.cli import test as test_cli
@@ -2179,24 +2265,30 @@ def semi_entry_points_phase(torch, np, dev):
     n, iters = SS2D_PER_FORWARD, 2
     # val: one volume of ENTRY_SPEC[1] slices, one eval forward per model
     runs = (
-        ("mean_teacher", ["--method", "mean_teacher"],
+        ("mean_teacher", ["--method", "mean_teacher", "--model", "ViM_seg"],
          [iters * n + n, iters * n, iters * n]),
-        ("uamt", ["--method", "uamt"],
+        ("uamt", ["--method", "uamt", "--model", "ViM_seg"],
          [iters * UAMT_TEACHER_PASSES * n + n, iters * n, iters * n]),
-        ("cross_teaching", ["--method", "cross_teaching", "--model2",
-                            "unet"], [n, iters * n, iters * n]),
+        ("cross_teaching", ["--method", "cross_teaching", "--model",
+                            "ViM_seg", "--model2", "unet"],
+         [n, iters * n, iters * n]),
         ("unet", ["--model", "unet"], [0, 0, 0]),
-        ("ViT_seg", ["--model", "ViT_seg"], [0, 0, 0]))
+        ("ViT_seg", ["--model", "ViT_seg"], [0, 0, 0]),
+        # the default trio (unet, ViT_seg, ViM_seg), evaluated after both
+        # steps, so that model 3 has a best checkpoint to serve below
+        ("weak_scribble", ["--method", "weak_scribble", "--eval_every", "1"],
+         [iters * n, iters * n, iters * n]))
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         for tag, extra, want in runs:
             before = launch_counts(kernels)
             t0 = time.perf_counter()
             train_cli.main([
-                *extra, "--synthetic", "--synthetic_spec", *spec, "--bf16",
+                "--synthetic", "--synthetic_spec", *spec, "--bf16",
                 "--patch_size", str(PATCH), str(PATCH), "--batch_size",
                 str(ENTRY_BATCH), "--labeled_bs", str(ENTRY_BATCH // 2),
                 "--max_iterations", str(iters), "--eval_every", str(iters),
-                "--snapshot_dir", f"{tmp}/{tag}", "--device", "cuda"])
+                "--snapshot_dir", f"{tmp}/{tag}", "--device", "cuda",
+                *extra])
             launched = [a - b for a, b in zip(launch_counts(kernels),
                                               before)]
             saved = sorted(p.name for p in Path(tmp, tag).iterdir())
@@ -2208,21 +2300,282 @@ def semi_entry_points_phase(torch, np, dev):
                 raise AssertionError(f"{tag}: launched {launched}, expected "
                                      f"{want}")
         cases = phantom_acdc(*ENTRY_SPEC[:4], ENTRY_SPEC[4])["test"]
-        for model in ("unet", "ViT_seg"):
+        forwards = sum(math.ceil(len(c["image"]) / test_cli.BATCH_SIZE)
+                       for c in cases)
+        # (model, snapshot, checkpoint name, serving launches)
+        for model, snap, ckpt, serve in (
+                ("unet", "unet", "best", 0), ("ViT_seg", "ViT_seg", "best", 0),
+                ("ViM_seg", "weak_scribble", "best3", n * forwards)):
             before = launch_counts(kernels)
             t0 = time.perf_counter()
             out = test_cli.run_inference(test_cli.build_parser().parse_args([
                 "--model", model, "--patch_size", str(PATCH), str(PATCH),
-                "--checkpoint", f"{tmp}/{model}", "--device", "cuda"]),
-                dataset=cases)
+                "--checkpoint", f"{tmp}/{snap}", "--ckpt_name", ckpt,
+                "--device", "cuda"]), dataset=cases)
             launched = [a - b for a, b in zip(launch_counts(kernels),
                                               before)]
-            log("entry_points", cli="test", model=model,
+            log("entry_points", cli="test", model=model, ckpt_name=ckpt,
                 seconds=f"{time.perf_counter() - t0:.1f}", volumes=len(cases),
                 mean_dice=f"{out['mean'][0]:.4f}", scan_launches=sum(launched))
-            if any(launched) or not np.isfinite(out["per_case"]).all():
-                raise AssertionError(f"cli.test --model {model}: launches "
+            if (launched != [serve] + [0] * 8
+                    or not np.isfinite(out["per_case"]).all()):
+                raise AssertionError(f"cli.test --model {model} "
+                                     f"--ckpt_name {ckpt}: launches "
                                      f"{launched}, metrics {out['mean']}")
+
+
+def weak_trio(torch, dev, drop=True, seeds=(1337, 1338, 1339)):
+    """Weak-Mamba-UNet's default trio at full width, from seeded
+    generators: ``unet``, ``ViT_seg`` (img 224), ``ViM_seg``; with
+    ``drop`` False their dropout and drop-path rates are 0."""
+    kw = ({}, {}, {}) if drop else ({"dropout": (0.0,) * 5},
+                                    {"drop_path_rate": 0.0},
+                                    {"drop_path_rate": 0.0})
+    return [zoo_model(torch, name, dev, seed=seed, **k)
+            for name, seed, k in zip(("unet", "ViT_seg", "ViM_seg"), seeds,
+                                     kw)]
+
+
+def weak_parity_phase(torch, dev):
+    """``[weak_parity]``: one Weak-Mamba-UNet step of the full-width trio
+    (dropout and drop-path 0), batch WEAK_PARITY_BATCH at 224² (``ViT_seg``
+    tiles only 224k inputs into its 7x7 windows) on phantom scribbles,
+    fp32 (TF32 off by the caller), the same mix weights and pseudo-labels
+    on both sides (the card's step is handed the CPU's pseudo-labels, and
+    the share of its own that agree is printed): the losses and every
+    parameter's gradient of the three models on the card against a CPU
+    copy, at ``[cross_teaching_parity]``'s tolerance, ``unet``'s relative
+    to its largest gradient (its fp32 conditioning); the exact zeros, the
+    biases of ``unet``'s convolutions that feed a BatchNorm, below
+    ZERO_GRAD_REL of the model's largest gradient on both sides; 14
+    state-saving forward and 14 backward bidir launches (model 3)."""
+    import numpy as np
+
+    from mamba_unet_torch.data.synthetic import phantom_acdc
+    from mamba_unet_torch.train import TrainConfig, WeakScribbleTrainer
+    from mamba_unet_torch.utils.compare import (
+        ZERO_GRAD_REL,
+        batchnorm_fed_biases,
+    )
+
+    cfg = TrainConfig(base_lr=0.01, max_iterations=1000,
+                      batch_size=WEAK_PARITY_BATCH,
+                      patch_size=(PATCH, PATCH), num_classes=4, seed=1337)
+    train = phantom_acdc(1, WEAK_PARITY_BATCH, 0, 0, PATCH, seed=2,
+                         scribble=True)["train"]
+    batch = {"image": torch.from_numpy(np.stack([s["image"] for s in train]))
+             [..., None],
+             "label": torch.from_numpy(np.stack([s["scribble"]
+                                                 for s in train]))}
+    mix = torch.tensor([0.5, 0.3, 0.2])
+    kernels = all_scan_kernels()
+    grads, losses, secs, pseudo = {}, {}, {}, {}
+    for tag, d in (("cpu", "cpu"), ("gpu", dev)):
+        m1, m2, m3 = weak_trio(torch, "cpu", drop=False)
+        trainer = WeakScribbleTrainer(m1, cfg, model2=m2, model3=m3,
+                                      device=d)
+        trainer._mix_weights = lambda d=d: mix.to(d)
+        own = trainer._pseudo_labels
+
+        def shared(softs, weights, tag=tag, own=own):
+            pseudo[tag] = own(softs, weights).cpu()
+            return pseudo["cpu"].to(softs[0].device)
+
+        trainer._pseudo_labels = shared
+        before = launch_counts(kernels)
+        t0 = time.perf_counter()
+        logs = trainer.train_step(batch)
+        losses[tag] = {k: float(v) for k, v in logs.items()
+                       if k.startswith("loss")}
+        secs[tag] = time.perf_counter() - t0
+        grads[tag] = {f"m{i}.{k}": p.grad.cpu()
+                      for i, (m, _, _) in enumerate(trainer._members(), 1)
+                      for k, p in m.named_parameters()}
+        zeros = {f"m{i}.{k}"
+                 for i, (m, _, _) in enumerate(trainer._members(), 1)
+                 for k in batchnorm_fed_biases(m)}
+        if tag == "gpu":
+            launched = [a - b for a, b in zip(launch_counts(kernels),
+                                              before)]
+            want = [0, SS2D_PER_FORWARD, SS2D_PER_FORWARD] + [0] * 6
+            if launched != want:
+                raise AssertionError(f"one weak step launched {launched}, "
+                                     f"expected {want}")
+        del trainer, m1, m2, m3
+    model_max = {m: max(g.abs().max().item() for k, g in grads["cpu"].items()
+                        if k.startswith(m)) for m in ("m1.", "m2.", "m3.")}
+    # unet: (the worst error relative to unet's largest gradient, its
+    # tensor), then the worst relative to its own max, reported only
+    worst = {m: (0.0, None) for m in model_max}
+    unet_own = (0.0, None)
+    for k, want in grads["cpu"].items():
+        if k in zeros:
+            bound = ZERO_GRAD_REL * model_max[k[:3]]
+            got = max(want.abs().max().item(),
+                      grads["gpu"][k].abs().max().item())
+            if got > bound:
+                raise AssertionError(f"{k}: the gradient of a bias that "
+                                     f"feeds a BatchNorm is {got}, above "
+                                     f"{bound}")
+            continue
+        err = (grads["gpu"][k] - want).abs().max().item()
+        own = err / max(want.abs().max().item(), 1e-30)
+        rel = err / model_max["m1."] if k.startswith("m1.") else own
+        if k.startswith("m1.") and own > unet_own[0]:
+            unet_own = (own, k)
+        if not math.isfinite(rel) or rel > worst[k[:3]][0]:
+            worst[k[:3]] = (rel, k)
+    loss_err = max(abs(losses["gpu"][k] - v) / max(abs(v), 1e-30)
+                   for k, v in losses["cpu"].items() if v)
+    agree = (pseudo["gpu"] == pseudo["cpu"]).float().mean().item()
+    log("weak_parity", batch=WEAK_PARITY_BATCH, patch=PATCH,
+        params=len(grads["cpu"]), zero_grads=len(zeros),
+        zero_grad_rel=ZERO_GRAD_REL, mix="0.5,0.3,0.2",
+        own_pseudo_label_agreement=f"{agree:.6f}",
+        loss_gpu=losses["gpu"]["loss_total"],
+        loss_cpu=losses["cpu"]["loss_total"],
+        pseudo_dice_gpu=f"{losses['gpu']['loss_pseudo_dice']:.6f}",
+        loss_rel_err=f"{loss_err:.2e}", loss_tol=LOSS_TOL,
+        launches_fwd_states_bwd=(SS2D_PER_FORWARD,) * 2,
+        gpu_s=f"{secs['gpu']:.2f}", cpu_s=f"{secs['cpu']:.2f}")
+    bad = []
+    for (m, (rel, key)), name in zip(worst.items(),
+                                     ("unet", "ViT_seg", "ViM_seg")):
+        extra = {} if name != "unet" else {
+            "relative_to": "unet_max_grad",
+            "worst_own_rel_err": f"{unet_own[0]:.2e}",
+            "worst_own_param": unet_own[1]}
+        log("weak_parity", model=name, worst_grad_rel_err=f"{rel:.2e}",
+            worst_param=key, tol=MODEL_GRAD_TOL, **extra)
+        if not rel <= MODEL_GRAD_TOL:
+            bad.append((name, rel, key))
+    if bad:
+        raise AssertionError(f"weak-step gradients disagree with the CPU: "
+                             f"{bad}")
+    if loss_err > LOSS_TOL:
+        raise AssertionError(f"weak-step losses disagree with the CPU: "
+                             f"{losses}")
+
+
+def weak_scribble_phase(torch, dev):
+    """``[weak_scribble]``: ``WeakScribbleTrainer.fit`` of the full-width
+    trio on phantom scribbles (native 256x216, RandomGenerator to 224²
+    with the ignore index in rotated corners), bs24, bf16, WEAK_ITERS steps
+    with one eval (after step WEAK_EVAL_AT): per step 14 state-saving
+    forward and 14 backward bidir launches (``ViM_seg``; ``unet`` and
+    ``ViT_seg`` none) and 14 serving launches per eval forward of model 3;
+    the three models move, the loss falls, and ``best``/``best2``/
+    ``best3`` hold the protocol (:func:`check_best_marks`); step ms in
+    ``fit`` (steps without an eval), slices/s, peak GB, a profile's device
+    ms per step beside the prediction. Returns (launches of the bidir
+    serving, state-saving and backward kernels in the run, step ms, device
+    ms per step, peak GB)."""
+    import tempfile
+
+    from mamba_unet_torch.train import TrainConfig, WeakScribbleTrainer
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as snap:
+        cfg = TrainConfig(base_lr=0.01, max_iterations=1000,
+                          batch_size=TRAIN_BATCH, patch_size=(PATCH, PATCH),
+                          num_classes=4, eval_every=WEAK_EVAL_AT,
+                          log_every=1, seed=1337, bf16=True,
+                          snapshot_dir=snap)
+        m1, m2, m3 = weak_trio(torch, "cpu")
+        trainer = WeakScribbleTrainer(m1, cfg, model2=m2, model3=m3,
+                                      device=dev)
+        before = [{k: v.detach().clone() for k, v in m.state_dict().items()}
+                  for m, _, _ in trainer._members()]
+        val, loader = phantom_loader(torch, dev, TRAIN_BATCH, scribble=True)
+        result, steps, ms, peak = counted_fit(torch, trainer, loader, val,
+                                              WEAK_ITERS, "weak_scribble")
+        eval_fwd = math.ceil(sum(len(v["image"]) for v in val)
+                             / cfg.eval_batch_size)
+        n = SS2D_PER_FORWARD
+        evals = range(WEAK_EVAL_AT, WEAK_ITERS + 1, WEAK_EVAL_AT)
+        check_step_launches("weak_scribble", steps, [0, n, n] + [0] * 6,
+                            evals, [n * eval_fwd] + [0] * 8)
+        launches = [sum(s[i] for s in steps) for i in range(3)]
+        saved = sorted(p.name for p in Path(snap).iterdir())
+        dice = [(h["val_dice"], h["val_dice2"], h["val_dice3"])
+                for h in result["history"] if "val_dice" in h]
+        check_best_marks("weak_scribble", snap, {
+            name: [(i, d[j]) for i, d in zip(evals, dice)]
+            for j, name in enumerate(("best", "best2", "best3"))})
+    moved = [sum(not torch.equal(v, m.state_dict()[k]) for k, v in b.items()
+                 if v.is_floating_point())
+             for b, (m, _, _) in zip(before, trainer._members())]
+    floats = [sum(v.is_floating_point() for v in b.values()) for b in before]
+    losses = [h["loss"] for h in result["history"] if "loss" in h]
+    med, kept = median_after_warmup(ms, set(evals))
+    log("weak_scribble", iterations=result["iterations"], batch=TRAIN_BATCH,
+        dtype="bf16", models="unet,ViT_seg,ViM_seg",
+        launches_serve_fwd_states_bwd=tuple(launches),
+        params_moved=" ".join(f"{a}/{b}" for a, b in zip(moved, floats)),
+        val_dice_123=" ".join(",".join(f"{v:.4f}" for v in d) for d in dice),
+        eval_forwards=eval_fwd, saved=" ".join(saved))
+    log("weak_scribble", losses=" ".join(f"{v:.4f}" for v in losses))
+    device = profile_steps(torch, trainer, loader, "train_weak_scribble")
+    log("weak_scribble", step_ms_median=f"{med:.2f}",
+        step_ms_min=f"{kept[0]:.2f}", step_ms_max=f"{kept[-1]:.2f}",
+        slices_per_s=f"{TRAIN_BATCH / med * 1e3:.1f}",
+        peak_mem_gb=f"{peak:.2f}", device_ms_per_step=f"{device:.2f}",
+        predicted_device_ms=WEAK_PREDICTED_DEVICE_MS,
+        predicted_peak_gb=WEAK_PREDICTED_PEAK_GB)
+    if not sum(losses[-3:]) < sum(losses[:3]):
+        raise AssertionError(f"the weak loss did not fall: {losses}")
+    if min(a / b for a, b in zip(moved, floats)) < 0.99:
+        raise AssertionError(f"weights moved {moved} of {floats}")
+    del trainer, loader
+    return launches, med, device, peak
+
+
+def trainability_phase(torch, dev):
+    """``[trainability]``: full-width ``ViM_seg`` from scratch under
+    ``warmup_adamw`` (base lr 1e-3, weight decay 0.05, linear warm-up over
+    250 iterations, then poly decay), drop_path 0.2, on the easy phantom,
+    bs24 @ 224², bf16, TRAINABILITY_ITERS steps with an eval every
+    TRAINABILITY_EVAL_EVERY: at the last eval every foreground class's val
+    Dice must be above 0 (from scratch under poly-SGD the model predicts
+    background only: PERF.md). Prints the loss every 25 steps and the
+    per-class val Dice."""
+    from mamba_unet_torch.eval.inference import evaluate_slice_volumes
+    from mamba_unet_torch.models.vssm import MambaUnet
+    from mamba_unet_torch.train import TrainConfig, Trainer, warmup_adamw
+
+    iters = TRAINABILITY_ITERS
+    cfg = TrainConfig(base_lr=1e-3, max_iterations=iters,
+                      batch_size=TRAIN_BATCH, patch_size=(PATCH, PATCH),
+                      num_classes=4, eval_every=TRAINABILITY_EVAL_EVERY,
+                      log_every=1, seed=1337, bf16=True)
+    trainer = Trainer(
+        MambaUnet(num_classes=4, drop_path_rate=0.2,
+                  generator=torch.Generator().manual_seed(1337)),
+        cfg, device=dev, make_optimizer=lambda params: warmup_adamw(
+            params, cfg.base_lr, iters, weight_decay=0.05))
+    val, loader = phantom_loader(torch, dev, TRAIN_BATCH)
+    t0 = time.perf_counter()
+    result = trainer.fit(loader, val)
+    secs = time.perf_counter() - t0
+    per_class = evaluate_slice_volumes(
+        iter(val), trainer.predict_fn(), 4, patch_size=cfg.patch_size,
+        batch_size=cfg.eval_batch_size)[:, :, 0].mean(0)
+    losses = [h["loss"] for h in result["history"] if "loss" in h]
+    dice = [(h["iter"], h["val_dice"]) for h in result["history"]
+            if "val_dice" in h]
+    log("trainability", model="ViM_seg", optimizer="warmup_adamw",
+        base_lr=cfg.base_lr, iterations=result["iterations"],
+        batch=TRAIN_BATCH, dtype="bf16", seconds=f"{secs:.1f}",
+        ms_per_step=f"{1e3 * secs / iters:.1f}",
+        losses_every_25=" ".join(f"{v:.4f}" for v in losses[::25]),
+        last_loss=f"{losses[-1]:.4f}",
+        val_mean_dice=" ".join(f"{i}:{d:.4f}" for i, d in dice),
+        val_dice_per_class=" ".join(f"{d:.4f}" for d in per_class))
+    if (result["iterations"] != iters or len(dice) != iters
+            // TRAINABILITY_EVAL_EVERY or not (per_class > 0).all()):
+        raise AssertionError(f"from scratch under AdamW, a foreground class "
+                             f"is never predicted: per-class Dice "
+                             f"{per_class}, evals {dice}")
+    del trainer, loader
 
 
 def main() -> int:
@@ -2486,12 +2839,32 @@ def main() -> int:
         ema_teacher_phase(torch, dev, method)
     phase_done("cross_teaching, mean_teacher, uamt")
     semi_entry_points_phase(torch, np, dev)
-    phase_done("entry_points: semi-supervised methods, unet, ViT_seg")
+    phase_done("entry_points: semi-supervised methods, unet, ViT_seg, "
+               "weak_scribble")
+
+    # --- Weak-Mamba-UNet (scribble supervision), from-scratch trainability
+    # under AdamW, then the weak step card vs CPU: last, so that its CPU
+    # backward does not share the host with a timed phase
+    torch.cuda.empty_cache()
+    weak_launches, *_ = weak_scribble_phase(torch, dev)
+    phase_done("weak_scribble")
+    torch.cuda.empty_cache()
+    trainability_phase(torch, dev)
+    phase_done("trainability")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    weak_parity_phase(torch, dev)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32_defaults
+    phase_done("weak_parity")
 
     serve_bound = sum(calls * scan_bound("fwd", SERVE_BATCH, L, dg, 4)[0]
                       for L, dg, calls in STAGES)
     pallas = "mamba_unet_tpu/ops/selective_scan_pallas.py"
-    rows = [dict(name="selective_scan_bidir_fwd", launches=launches,
+    # the bidir kernels' launches: their main path's run plus the weak
+    # trio's (model 3)
+    rows = [dict(name="selective_scan_bidir_fwd",
+                 launches=launches + weak_launches[0],
                  max_abs_err=max_err, ms=ms_fwd, plain_ms=plain_ms_fwd,
                  bound_ms=serve_bound,
                  bound_by=scan_bound("fwd", SERVE_BATCH, 3136, 192, 4)[1],
@@ -2499,9 +2872,10 @@ def main() -> int:
                  replaces=("mamba_unet_tpu/ops/selective_scan_persistent.py"
                            f":130, {pallas}:229"))]
     for kernel, kind, n, src, where in (
-            ("selective_scan_bidir_fwd_states", "fwd_states", train_fwd,
-             "selective_scan_bidir_fwd.cu", f"{pallas}:238"),
-            ("selective_scan_bidir_bwd", "bwd", train_bwd,
+            ("selective_scan_bidir_fwd_states", "fwd_states",
+             train_fwd + weak_launches[1], "selective_scan_bidir_fwd.cu",
+             f"{pallas}:238"),
+            ("selective_scan_bidir_bwd", "bwd", train_bwd + weak_launches[2],
              "selective_scan_bidir_bwd.cu", f"{pallas}:318")):
         err, ms, plain, bound, by = train_kernels[kind]
         rows.append(dict(name=kernel, launches=n, max_abs_err=err, ms=ms,

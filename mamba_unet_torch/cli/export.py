@@ -6,8 +6,10 @@ Port of ``mamba_unet_tpu/cli/export.py``::
     python -m mamba_unet_torch.cli.export --checkpoint snap/ --bf16 \\
         --batch 24 --out vim_bf16_b24.pt2
 
-The artifact (``utils.export.export_predict``) holds the graph and the
-weights, with a symbolic batch unless ``--batch`` pins one. It runs on the
+``--model`` is any registered model (``ViM_seg`` by default, the UNet
+family, ``ViT_seg``, built for ``--patch_size``). The artifact
+(``utils.export.export_predict``) holds the graph and the weights, with a
+symbolic batch unless ``--batch`` pins one. It runs on the
 device it was exported on (``--device``, default ``cuda``, which raises
 without a card) and is served with
 ``mamba_unet_torch.utils.export.load_exported(path).module()(images)``:
@@ -63,10 +65,12 @@ def main(argv=None) -> int:
 
     if not args.checkpoint:
         logging.warning("no --checkpoint: exporting the seed-0 init")
+    model_kw = ({"img_size": args.patch_size[0]} if args.model == "ViT_seg"
+                else {})
     model = load_model_snapshot(args.model, args.num_classes,
                                 args.in_channels, args.checkpoint,
                                 device=require_device(args.device),
-                                ckpt_name=args.ckpt_name)
+                                ckpt_name=args.ckpt_name, **model_kw)
     batch = int(args.batch) if args.batch.isdigit() else args.batch
     exported = export_predict(
         model, args.patch_size, in_channels=args.in_channels, batch=batch,

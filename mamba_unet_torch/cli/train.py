@@ -1,19 +1,25 @@
 """Training CLI for the PyTorch port.
 
 Port of ``mamba_unet_tpu/cli/train.py`` for ``--method fully_supervised``,
-``mean_teacher``, ``uamt`` and ``cross_teaching`` (Semi-Mamba-UNet) and
-the models ``ViM_seg``/``mambaunet``, the UNet family (``unet``,
-``unet_ds``, ``unet_urpc``, ``unet_cct``, ``TLunet``) and ``ViT_seg``
-(Swin-UNet), with that CLI's flags for these paths plus ``--device``
-(default ``cuda``; it raises when there is no card rather than run on the
-CPU). Other methods raise "not ported yet". The semi-supervised methods
-draw two-stream batches: ``--batch_size - --labeled_bs`` unlabeled slices
-after ``--labeled_bs`` labeled ones, the labeled set being the first
-``--labeled_slices`` slices, else a quarter of a synthetic set, else the
-slices of ``--labeled_num`` ACDC patients. ``cross_teaching`` trains a
-second model, ``--model2`` (default: ``--model``), initialized from
-``--seed + 1``. ``scan_impl`` and ``drop_path`` reach only the models that
-take them.
+``mean_teacher``, ``uamt``, ``cross_teaching`` (Semi-Mamba-UNet) and
+``weak_scribble`` (Weak-Mamba-UNet) and the models ``ViM_seg``/
+``mambaunet``, the UNet family (``unet``, ``unet_ds``, ``unet_urpc``,
+``unet_cct``, ``TLunet``) and ``ViT_seg`` (Swin-UNet), with that CLI's
+flags for these paths plus ``--device`` (default ``cuda``; it raises when
+there is no card rather than run on the CPU). ``--model`` defaults to
+``unet``, as there. Other methods raise "not ported yet". The
+semi-supervised methods draw two-stream batches: ``--batch_size -
+--labeled_bs`` unlabeled slices after ``--labeled_bs`` labeled ones, the
+labeled set being the first ``--labeled_slices`` slices, else a quarter of
+a synthetic set, else the slices of ``--labeled_num`` ACDC patients.
+``cross_teaching`` trains a second model, ``--model2`` (default:
+``--model``), initialized from ``--seed + 1``. ``weak_scribble`` trains
+``--model``, ``--model2`` (default ``ViT_seg``) and ``--model3`` (default
+``ViM_seg``), initialized from ``--seed``, ``+ 1`` and ``+ 2``, on
+shuffled batches whose label is the scribble (4 = unlabeled; rotation
+fills the corners with it), validated on the dense labels;
+``--weak_pce_only`` drops its pseudo-label Dice. ``scan_impl`` and
+``drop_path`` reach only the models that take them.
 ``--synthetic`` trains on in-memory phantom slices
 (``data.synthetic.phantom_acdc``; ``--synthetic_hard`` the hard phantom)
 instead of writing an h5 set. ``--scan_impl`` picks SS2D's scan branch:
@@ -22,21 +28,26 @@ time-major grouped ones), ``folded`` (the batch-folded ones, at every
 batch) or ``xla`` (the JAX route's name for the tm branch's function;
 the port runs it as the tm branch). ``--pretrained_ckpt`` warm-starts from
 an upstream torch ``.pth`` (``utils.convert.load_upstream_state``, decoder
-mirrored from the encoder). ``--exp`` is accepted and stored for
+mirrored from the encoder) into ``ViM_seg`` or ``ViT_seg`` (the first
+model of a multi-model method). ``--exp`` is accepted and stored for
 command-line compatibility with the JAX CLI, which reads it nowhere else
 either. Activation recomputation (``use_remat``) is a model option, as in
 the JAX package, and has no flag.
 
-    python -m mamba_unet_torch.cli.train --root_path ../data/ACDC \\
-        --patch_size 224 224 --batch_size 24 --bf16 --snapshot_dir snap
+    python -m mamba_unet_torch.cli.train --model ViM_seg \\
+        --root_path ../data/ACDC --patch_size 224 224 --batch_size 24 \\
+        --bf16 --snapshot_dir snap
     python -m mamba_unet_torch.cli.train --model ViM_seg --scan_impl tm \\
         --bf16 --patch_size 224 224 --batch_size 24
-    python -m mamba_unet_torch.cli.train --scan_impl folded --bf16 \\
-        --patch_size 224 224 --batch_size 24
-    python -m mamba_unet_torch.cli.train --synthetic --device cpu \\
-        --patch_size 32 32 --batch_size 4 --max_iterations 4 --eval_every 2
+    python -m mamba_unet_torch.cli.train --model ViM_seg \\
+        --scan_impl folded --bf16 --patch_size 224 224 --batch_size 24
+    python -m mamba_unet_torch.cli.train --model ViM_seg --synthetic \\
+        --device cpu --patch_size 32 32 --batch_size 4 --max_iterations 4 \\
+        --eval_every 2
     python -m mamba_unet_torch.cli.train --method cross_teaching \\
         --model ViM_seg --model2 unet --bf16 --patch_size 224 224
+    python -m mamba_unet_torch.cli.train --method weak_scribble \\
+        --synthetic --bf16 --patch_size 224 224 --batch_size 24
 """
 
 from __future__ import annotations
@@ -46,7 +57,10 @@ import logging
 import sys
 
 PORTED_METHODS = ("fully_supervised", "mean_teacher", "uamt",
-                  "cross_teaching")
+                  "cross_teaching", "weak_scribble")
+# the models that --pretrained_ckpt warm-starts (their network's root:
+# mamba_unet, swin_unet)
+WARM_START_MODELS = ("ViM_seg", "mambaunet", "ViT_seg")
 MODELS = ("ViM_seg", "mambaunet", "unet", "unet_ds", "unet_urpc", "unet_cct",
           "TLunet", "ViT_seg")
 
@@ -58,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="experiment name, accepted for command-line "
                         "compatibility with the JAX CLI (stored; nothing "
                         "reads it)")
-    p.add_argument("--model", type=str, default="ViM_seg", choices=MODELS)
+    p.add_argument("--model", type=str, default="unet", choices=MODELS)
     p.add_argument("--method", type=str, default="fully_supervised")
     p.add_argument("--max_iterations", type=int, default=10000)
     p.add_argument("--batch_size", type=int, default=24)
@@ -79,7 +93,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight_decay", type=float, default=None,
                    help="default: 1e-4 (sgd) / 0.05 (adamw)")
     p.add_argument("--model2", type=str, default=None, choices=MODELS,
-                   help="cross_teaching's second model (default: --model)")
+                   help="the second model: cross_teaching's (default: "
+                        "--model) and weak_scribble's (default: ViT_seg)")
+    p.add_argument("--model3", type=str, default=None, choices=MODELS,
+                   help="weak_scribble's third model (default: ViM_seg)")
+    p.add_argument("--weak_pce_only", action="store_true",
+                   help="weak_scribble ablation: the scribble pCE alone, "
+                        "no pseudo-label Dice")
     p.add_argument("--patch_size", type=int, nargs=2, default=[256, 256])
     p.add_argument("--num_classes", type=int, default=4)
     p.add_argument("--seed", type=int, default=1337)
@@ -106,7 +126,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stochastic depth rate of ViM_seg/ViT_seg (model "
                         "default 0.2)")
     p.add_argument("--pretrained_ckpt", type=str, default=None,
-                   help="upstream torch .pth to warm-start ViM_seg from")
+                   help="upstream torch .pth to warm-start ViM_seg or "
+                        "ViT_seg from")
     p.add_argument("--synthetic", action="store_true",
                    help="train on in-memory phantom slices")
     p.add_argument("--synthetic_hard", action="store_true",
@@ -162,10 +183,10 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             f"--method {args.method} is not ported yet; ported: "
             f"{', '.join(PORTED_METHODS)}")
-    if args.pretrained_ckpt and args.model not in ("ViM_seg", "mambaunet"):
+    if args.pretrained_ckpt and args.model not in WARM_START_MODELS:
         raise NotImplementedError(
-            f"--pretrained_ckpt warm-starts ViM_seg only; the {args.model} "
-            f"warm start is not ported yet")
+            f"--pretrained_ckpt warm-starts {', '.join(WARM_START_MODELS)}; "
+            f"the {args.model} warm start is not ported yet")
     from mamba_unet_torch.nn.ss2d import check_scan_impl
 
     check_scan_impl(args.scan_impl)  # before any data is loaded
@@ -183,11 +204,17 @@ def main(argv=None) -> int:
     )
     from mamba_unet_torch.data.synthetic import phantom_acdc
     from mamba_unet_torch.models import net_factory
-    from mamba_unet_torch.train import TrainConfig, Trainer, build_semi_method
+    from mamba_unet_torch.train import (
+        TrainConfig,
+        Trainer,
+        WeakScribbleTrainer,
+        build_semi_method,
+    )
     from mamba_unet_torch.utils.device import require_device
 
     device = require_device(args.device)
-    semi = args.method != "fully_supervised"
+    weak = args.method == "weak_scribble"
+    semi = args.method not in ("fully_supervised", "weak_scribble")
     cfg = TrainConfig(
         base_lr=args.base_lr, max_iterations=args.max_iterations,
         batch_size=args.batch_size, patch_size=tuple(args.patch_size),
@@ -196,21 +223,27 @@ def main(argv=None) -> int:
         ckpt_every=args.ckpt_every, grad_accum_steps=args.grad_accum_steps,
         bf16=args.bf16,
     )
-    transform = RandomGenerator(cfg.patch_size, seed=args.seed)
+    # weak_scribble trains on the scribbles, which rotation pads with the
+    # ignore index; val keeps the dense labels
+    sup_type = "scribble" if weak else "label"
+    transform = RandomGenerator(cfg.patch_size, seed=args.seed,
+                                label_cval=args.num_classes if weak else 0)
     # the semi-supervised methods train on every slice; --labeled_slices
     # marks their labeled ones instead of cutting the set
-    n_sup = None if semi else args.labeled_slices
+    n_sup = (args.labeled_slices if args.method == "fully_supervised"
+             else None)
     if args.synthetic:
         cases, slices, n_val, n_test, size = (
             args.synthetic_spec or [8, 8, 2, 0, args.patch_size[0]])
         splits = phantom_acdc(cases, slices, n_val, n_test, size,
-                              hard=args.synthetic_hard)
+                              hard=args.synthetic_hard, scribble=weak)
         train = splits["train"][:n_sup]
-        train_ds = SliceDataset.from_samples(train, transform=transform)
+        train_ds = SliceDataset.from_samples(train, transform=transform,
+                                             sup_type=sup_type)
         val_ds = splits["val"]
     else:
         train_ds = SliceDataset(args.root_path, num=n_sup,
-                                transform=transform)
+                                transform=transform, sup_type=sup_type)
         val_ds = VolumeDataset(args.root_path, "val")
 
     model = net_factory(args.model, **_model_kwargs(args, args.model,
@@ -235,6 +268,18 @@ def main(argv=None) -> int:
         trainer = build_semi_method(args, model, cfg, model2=model2,
                                     make_optimizer=make_optimizer,
                                     device=device)
+    elif weak:
+        sampler = EpochShuffleSampler(len(train_ds), cfg.batch_size,
+                                      seed=args.seed)
+        name2, name3 = args.model2 or "ViT_seg", args.model3 or "ViM_seg"
+        trainer = WeakScribbleTrainer(
+            model, cfg,
+            model2=net_factory(name2, **_model_kwargs(args, name2,
+                                                      args.seed + 1)),
+            model3=net_factory(name3, **_model_kwargs(args, name3,
+                                                      args.seed + 2)),
+            pce_only=args.weak_pce_only, make_optimizer=make_optimizer,
+            device=device)
     else:
         sampler = EpochShuffleSampler(len(train_ds), cfg.batch_size,
                                       seed=args.seed)

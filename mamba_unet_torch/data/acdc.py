@@ -59,14 +59,17 @@ class SliceDataset:
             self._cache = [self._load(i) for i in range(len(self.ids))]
 
     @classmethod
-    def from_samples(cls, samples, transform=None) -> "SliceDataset":
-        """A dataset over in-memory ``{"image", "label"}`` slices (e.g.
-        ``data.synthetic.phantom_acdc``), read as the h5 ones are."""
+    def from_samples(cls, samples, transform=None, sup_type: str = "label"
+                     ) -> "SliceDataset":
+        """A dataset over in-memory slices (e.g.
+        ``data.synthetic.phantom_acdc``), read as the h5 ones are: each
+        sample's ``image``, and its ``sup_type`` entry served as
+        ``label``."""
         ds = cls.__new__(cls)
-        ds.base_dir, ds.transform, ds.sup_type = None, transform, "label"
+        ds.base_dir, ds.transform, ds.sup_type = None, transform, sup_type
         ds.ids = [str(i) for i in range(len(samples))]
         ds._cache = [{"image": np.asarray(s["image"], np.float32),
-                      "label": np.asarray(s["label"], np.int64)}
+                      "label": np.asarray(s[sup_type], np.int64)}
                      for s in samples]
         return ds
 

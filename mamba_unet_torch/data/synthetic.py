@@ -14,7 +14,9 @@ way.
 ``make_synthetic_acdc`` (``hard`` too): the same splits, drawn in the same
 order from one seed, so for square slices it holds the same arrays that
 function writes to h5. Nothing is written: the machine with the card has
-no ``h5py``.
+no ``h5py``. With ``scribble`` every train slice also carries the sparse
+label that function writes as ``scribble`` (``data/scribble.py``), drawn
+from the same generator right after its slice, as there.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from mamba_unet_torch.data.scribble import scribbles_from_mask
 
 
 def _phantom(rng: np.random.Generator, h: int, w: int
@@ -132,13 +136,16 @@ def phantom_volumes(n_cases: int, n_slices: int, h: int, w: int,
 
 def phantom_acdc(n_train_cases: int = 4, slices_per_case: int = 4,
                  n_val_cases: int = 2, n_test_cases: int = 0, h: int = 64,
-                 w: Optional[int] = None, seed: int = 0, hard: bool = False
+                 w: Optional[int] = None, seed: int = 0, hard: bool = False,
+                 scribble: bool = False
                  ) -> Dict[str, List[Dict[str, np.ndarray]]]:
     """In-memory ACDC-format splits: ``train`` is a list of slices
-    (``image`` (h, w) float32, ``label`` (h, w) int64), in the order of
-    ``train_slices.list``; ``val`` and ``test`` are ``VolumeDataset``
-    items of ``slices_per_case`` slices each. ``hard`` draws the hard
-    phantom, its last 30 % of each case's slices apical."""
+    (``image`` (h, w) float32, ``label`` (h, w) int64, and with
+    ``scribble`` ``scribble`` (h, w) int64, 4 where unlabeled), in the
+    order of ``train_slices.list``; ``val`` and ``test`` are
+    ``VolumeDataset`` items of ``slices_per_case`` slices each, dense
+    labels only. ``hard`` draws the hard phantom, its last 30 % of each
+    case's slices apical."""
     w = h if w is None else w
     rng = np.random.default_rng(seed)
     train = []
@@ -146,6 +153,9 @@ def phantom_acdc(n_train_cases: int = 4, slices_per_case: int = 4,
         image, label = _slice(rng, h, w, i % slices_per_case,
                               slices_per_case, hard)
         train.append({"image": image, "label": label.astype(np.int64)})
+        if scribble:
+            train[-1]["scribble"] = scribbles_from_mask(label, rng).astype(
+                np.int64)
     val = _volumes(rng, "val_patient", n_val_cases, slices_per_case, h, w,
                    hard)
     test = _volumes(rng, "test_patient", n_test_cases, slices_per_case, h, w,

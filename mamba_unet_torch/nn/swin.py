@@ -157,6 +157,11 @@ class SwinBlock(nn.Module):
         H, W = input_resolution
         self.window_size, self.shift_size = window_and_shift(
             H, W, window_size, shift_size)
+        if H % self.window_size or W % self.window_size:
+            raise ValueError(
+                f"a {H}x{W} map does not tile into {self.window_size}x"
+                f"{self.window_size} windows: build the model for an image "
+                f"size whose every stage map does (224 for window 7)")
         self.input_resolution = (H, W)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5, device=device)
         self.attn = WindowAttention(dim, self.window_size, num_heads,

@@ -5,7 +5,9 @@ Port of ``cross_entropy_loss``, ``dice_loss``, ``dice_loss_from_labels``,
 consistency losses (``softmax_mse_loss``, ``softmax_kl_loss``,
 ``symmetric_mse_loss``), ``entropy_loss``/``entropy_loss_map`` and
 Semi-Mamba-UNet's ``constra_loss`` from
-``mamba_unet_tpu/objectives/losses.py``: soft Dice with squared-sum
+``mamba_unet_tpu/objectives/losses.py``, and the losses that module
+exports but no trainer calls (``vat_loss``, ``weighted_bce_iou_loss``,
+``loss_sup``, ``loss_diff``, ``focal_loss``): soft Dice with squared-sum
 denominators and smooth 1e-5, per-class mean including background; the
 supervised objective is 0.5 * (CE + Dice). Logits/probs are (B, ..., C),
 labels integer (B, ...). The supervised losses and the Dice and
@@ -16,7 +18,7 @@ one-hots to zeros, as ``jax.nn.one_hot`` does.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -136,3 +138,99 @@ def constra_loss(inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     a = a / a.norm(dim=1, keepdim=True).clamp(min=1e-12)
     b = b / b.norm(dim=1, keepdim=True).clamp(min=1e-12)
     return ((a - b) ** 2).mean()
+
+
+# --- exported, called by no trainer -----------------------------------------
+
+def _main_head(out):
+    return out[0] if isinstance(out, (tuple, list)) else out
+
+
+def _l2_normalize_per_sample(d: torch.Tensor) -> torch.Tensor:
+    """Each sample's whole perturbation scaled to unit norm (+1e-8)."""
+    norm = d.flatten(1).norm(dim=1).reshape((-1,) + (1,) * (d.dim() - 1))
+    return d / (norm + 1e-8)
+
+
+def vat_loss(forward_fn: Callable[[torch.Tensor], torch.Tensor],
+             x: torch.Tensor, generator: Optional[torch.Generator] = None,
+             xi: float = 10.0, epi: float = 6.0, ip: int = 1,
+             d: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Virtual adversarial training loss: the soft Dice between the clean
+    softmax (no gradient) and the softmax at ``x + epi * d``, where ``d``
+    is found by ``ip`` power iterations, each the normalised gradient
+    (``torch.autograd.grad``, its graph kept, as ``jax.grad`` in the JAX
+    function is differentiated through) of the same Dice at ``x + xi * d``
+    with respect to ``d``. ``forward_fn(x)`` gives logits (the main head
+    of a tuple). The first direction is ``d`` when given, else uniform in
+    [-0.5, 0.5) drawn from ``generator``; it is normalised per sample."""
+    with torch.no_grad():
+        pred = F.softmax(_main_head(forward_fn(x)).float(), dim=-1)
+    if d is None:
+        d = torch.rand(x.shape, generator=generator, device=x.device) - 0.5
+    d = _l2_normalize_per_sample(d.float())
+    with torch.enable_grad():
+        for _ in range(ip):
+            if not d.requires_grad:
+                d = d.detach().requires_grad_(True)
+            p_hat = F.softmax(_main_head(forward_fn(x + xi * d)).float(),
+                              dim=-1)
+            (grad,) = torch.autograd.grad(dice_loss(p_hat, pred), d,
+                                          create_graph=True)
+            d = _l2_normalize_per_sample(grad)
+    p_hat = F.softmax(_main_head(forward_fn(x + epi * d)).float(), dim=-1)
+    return dice_loss(p_hat, pred)
+
+
+def _box_mean_2d(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Same-padded k x k box mean over (B, H, W), dividing by k * k
+    everywhere (the padding's zeros count)."""
+    return F.avg_pool2d(x[:, None], k, stride=1, padding=k // 2,
+                        count_include_pad=True)[:, 0]
+
+
+def weighted_bce_iou_loss(pred: torch.Tensor, mask: torch.Tensor
+                          ) -> torch.Tensor:
+    """Boundary-weighted BCE + weighted IoU of (B, H, W) probabilities
+    against a mask: weight 1 + 5 |boxmean31(mask) - mask|; the BCE clips
+    ``pred`` to [1e-7, 1 - 1e-7]."""
+    pred, mask = pred.float(), mask.float()
+    weit = 1.0 + 5.0 * (_box_mean_2d(mask, 31) - mask).abs()
+    p = pred.clamp(1e-7, 1.0 - 1e-7)
+    wbce = -(mask * torch.log(p) + (1.0 - mask) * torch.log(1.0 - p))
+    wbce = (weit * wbce).sum((1, 2)) / weit.sum((1, 2))
+    inter = (pred * mask * weit).sum((1, 2))
+    union = ((pred + mask) * weit).sum((1, 2))
+    wiou = 1.0 - (inter + 1.0) / (union - inter + 1.0)
+    return (wbce + wiou).mean()
+
+
+def loss_sup(logit_s1: torch.Tensor, logit_s2: torch.Tensor,
+             labels_s1: torch.Tensor, labels_s2: torch.Tensor
+             ) -> torch.Tensor:
+    """Two branches' :func:`weighted_bce_iou_loss`, summed."""
+    return (weighted_bce_iou_loss(logit_s1, labels_s1)
+            + weighted_bce_iou_loss(logit_s2, labels_s2))
+
+
+def loss_diff(u_pred_1: torch.Tensor, u_pred_2: torch.Tensor
+              ) -> torch.Tensor:
+    """Each branch's :func:`weighted_bce_iou_loss` against the other's
+    prediction, summed, with no gradient (a value only)."""
+    with torch.no_grad():
+        return (weighted_bce_iou_loss(u_pred_1, u_pred_2)
+                + weighted_bce_iou_loss(u_pred_2, u_pred_1))
+
+
+def focal_loss(logits: torch.Tensor, labels: torch.Tensor,
+               gamma: float = 2.0, alpha: Optional[Sequence[float]] = None
+               ) -> torch.Tensor:
+    """Multiclass focal loss, the mean of -alpha_t (1 - p_t)^gamma
+    log p_t (alpha_t = 1 without ``alpha``)."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    logpt = (_one_hot(labels, logits.shape[-1]) * logp).sum(-1)
+    loss = -((1.0 - logpt.exp()) ** gamma) * logpt
+    if alpha is not None:
+        loss = loss * torch.as_tensor(alpha, dtype=torch.float32,
+                                      device=loss.device)[labels.long()]
+    return loss.mean()

@@ -1,4 +1,5 @@
-"""Training: the trainer, the semi-supervised methods and the optimizers."""
+"""Training: the trainer, the semi-supervised methods, the scribble-
+supervised Weak-Mamba-UNet and the optimizers."""
 
 from mamba_unet_torch.train.methods import (
     CrossTeachingTrainer,
@@ -14,8 +15,9 @@ from mamba_unet_torch.train.trainer import (
     Trainer,
     fully_supervised_loss,
 )
+from mamba_unet_torch.train.weak import WeakScribbleTrainer
 
 __all__ = ["CrossTeachingTrainer", "MeanTeacherTrainer", "TrainConfig",
-           "Trainer", "UAMTTrainer", "build_semi_method", "ema_update",
-           "fully_supervised_loss", "poly_lr", "poly_sgd", "rampup_weight",
-           "warmup_adamw"]
+           "Trainer", "UAMTTrainer", "WeakScribbleTrainer",
+           "build_semi_method", "ema_update", "fully_supervised_loss",
+           "poly_lr", "poly_sgd", "rampup_weight", "warmup_adamw"]

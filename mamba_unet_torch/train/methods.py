@@ -280,20 +280,9 @@ class CrossTeachingTrainer(Trainer):
         """Model 2's mean val Dice."""
         return self.evaluate(val_dataset, model=self.model2)
 
-    def _best_models(self):
-        return [("best", self.model), ("best2", self.model2)]
-
-    def _periodic_tree(self) -> Dict[str, Any]:
-        return {**super()._periodic_tree(),
-                "model2": self.model2.state_dict(),
-                "optimizer2": self.optimizer2.state_dict(),
-                "scheduler2": self.scheduler2.state_dict()}
-
-    def _load_periodic(self, tree: Dict[str, Any]) -> None:
-        super()._load_periodic(tree)
-        self.model2.load_state_dict(tree["model2"])
-        self.optimizer2.load_state_dict(tree["optimizer2"])
-        self.scheduler2.load_state_dict(tree["scheduler2"])
+    def _members(self):
+        return [(self.model, self.optimizer, self.scheduler),
+                (self.model2, self.optimizer2, self.scheduler2)]
 
 
 def build_semi_method(args, model: nn.Module, cfg: TrainConfig,

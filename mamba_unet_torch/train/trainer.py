@@ -19,12 +19,14 @@ the step into its key, so a resumed run draws the same masks. With
 ``bf16=True`` the forward and the loss run under bf16 autocast; weights,
 gradients and the optimizer stay fp32, and the scan keeps an fp32 state.
 
-The hooks the semi-supervised methods (``train/methods.py``) extend:
-``supports_grad_accum``, ``_reseed`` (a further stream of the step's
-seed), ``_periodic_tree``/``_load_periodic`` (what the periodic checkpoint
-carries) and ``_best_models`` (the models evaluated, each with its best
-checkpoint name: ``best``, ``best2``, ...; ``_load_best_marks(names)``
-reads their marks).
+The hooks the semi-supervised and weakly-supervised methods
+(``train/methods.py``, ``train/weak.py``) extend: ``supports_grad_accum``,
+``_reseed`` (a further stream of the step's seed), ``_members`` (each
+trained network with its optimizer and schedule: the periodic checkpoint
+carries them all, and each is evaluated with its own best checkpoint,
+``best``, ``best2``, ...; ``_load_best_marks(names)`` reads their marks)
+and ``_periodic_tree``/``_load_periodic`` (what else the periodic
+checkpoint carries).
 """
 
 from __future__ import annotations
@@ -87,6 +89,11 @@ def fully_supervised_loss(model: nn.Module, batch: Dict[str, torch.Tensor]
         logits = logits[0]
     loss = supervised_ce_dice(logits, batch["label"])
     return loss, {"loss_total": loss.detach()}
+
+
+def _suffix(i: int) -> str:
+    """The name suffix of the (0-based) i-th member: "", "2", "3", ..."""
+    return str(i + 1) if i else ""
 
 
 def _step_seed(seed: int, step: int, *stream: int) -> int:
@@ -190,22 +197,34 @@ class Trainer:
             model.train()
         return float(arr[:, :, 0].mean())
 
+    def _members(self) -> List[Tuple[nn.Module, Any, Any]]:
+        """(model, optimizer, scheduler) of each trained network, the
+        first being ``model``."""
+        return [(self.model, self.optimizer, self.scheduler)]
+
     def _best_models(self) -> List[Tuple[str, nn.Module]]:
-        """(best checkpoint name, model) of each model evaluated."""
-        return [("best", self.model)]
+        """(best checkpoint name, model) of each model evaluated: ``best``,
+        ``best2``, ... in :meth:`_members` order."""
+        return [(f"best{_suffix(i)}", model)
+                for i, (model, _, _) in enumerate(self._members())]
 
     # --- checkpoints --------------------------------------------------------
     def _periodic_tree(self) -> Dict[str, Any]:
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
-                "scheduler": self.scheduler.state_dict(),
-                "step": self.step}
+        """Every member's ``model``, ``optimizer`` and ``scheduler`` (the
+        second's ``model2``, ...) and the step."""
+        tree = {"step": self.step}
+        for i, (model, opt, sched) in enumerate(self._members()):
+            tree.update({f"model{_suffix(i)}": model.state_dict(),
+                         f"optimizer{_suffix(i)}": opt.state_dict(),
+                         f"scheduler{_suffix(i)}": sched.state_dict()})
+        return tree
 
     def _load_periodic(self, tree: Dict[str, Any]) -> None:
         """Inverse of :meth:`_periodic_tree` (the step aside)."""
-        self.model.load_state_dict(tree["model"])
-        self.optimizer.load_state_dict(tree["optimizer"])
-        self.scheduler.load_state_dict(tree["scheduler"])
+        for i, (model, opt, sched) in enumerate(self._members()):
+            model.load_state_dict(tree[f"model{_suffix(i)}"])
+            opt.load_state_dict(tree[f"optimizer{_suffix(i)}"])
+            sched.load_state_dict(tree[f"scheduler{_suffix(i)}"])
 
     def try_resume(self) -> int:
         """Restore the newest periodic checkpoint of ``snapshot_dir`` when

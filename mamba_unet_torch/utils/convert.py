@@ -30,8 +30,8 @@ Layout transforms (flax -> torch):
 
 ``load_torch_checkpoint``, ``mirror_encoder_keys`` and
 ``load_upstream_state`` port the warm start from an upstream torch ``.pth``
-(the ImageNet VMamba encoder, or a whole Mamba-UNet) of
-``mamba_unet_tpu/utils/convert.py`` (``load_torch_checkpoint``,
+(the ImageNet VMamba or Swin encoder, or a whole Mamba-UNet or Swin-UNet)
+of ``mamba_unet_tpu/utils/convert.py`` (``load_torch_checkpoint``,
 ``mirror_encoder_keys``, ``convert_vssm``). The port's parameter names are
 the upstream ones, so no key map or layout transform is needed: the load is
 a shape-checked, non-strict ``load_state_dict``.
@@ -155,6 +155,8 @@ def params_from_jax(
 
 
 _UPSTREAM_PREFIXES = ("mamba_unet.", "swin_unet.", "module.")
+# the attribute under which a wrapper model holds its upstream network
+_ROOTS = ("mamba_unet", "swin_unet")
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
@@ -187,7 +189,7 @@ def mirror_encoder_keys(sd: Mapping[str, Any], num_layers: int = 4
 def load_upstream_state(model: torch.nn.Module, sd: Mapping[str, Any],
                         mirror_decoder: bool = True) -> Dict[str, List]:
     """Load an upstream torch state dict into ``model`` (its ``mamba_unet``
-    network when it has one), in place.
+    or ``swin_unet`` network when it has one), in place.
 
     The ``mamba_unet.``/``swin_unet.``/``module.`` prefixes are stripped,
     and with ``mirror_decoder`` the encoder stages are mirrored onto the
@@ -202,7 +204,8 @@ def load_upstream_state(model: torch.nn.Module, sd: Mapping[str, Any],
                   for k, v in sd.items()}
     if mirror_decoder:
         sd = mirror_encoder_keys(sd)
-    root = getattr(model, "mamba_unet", model)
+    root = next((getattr(model, name) for name in _ROOTS
+                 if hasattr(model, name)), model)
     loaded, missing, skipped, update = [], [], [], {}
     for key, own in root.state_dict().items():
         if key not in sd:

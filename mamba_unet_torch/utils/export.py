@@ -13,7 +13,7 @@ the scan kernels are custom ops (``torch.ops.mamba_unet.*``) that the graph
 calls by name: the kernels are not inside the artifact, and
 :func:`load_exported` imports the package before it loads. A string batch
 exports a symbolic batch dimension, so one artifact serves any batch of 2
-or more. The JAX function's ``platforms`` (its TPU lowering) has no
+to 65535. The JAX function's ``platforms`` (its TPU lowering) has no
 counterpart: a program runs on the device it was exported on.
 """
 
@@ -24,6 +24,11 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 from torch import nn
+
+
+# the largest symbolic batch: cuDNN's convolutions take at most 65535
+# images per call, a bound the exporter finds on the card (the UNet family)
+MAX_BATCH = 65535
 
 
 class Predictor(nn.Module):
@@ -75,13 +80,15 @@ def export_predict(model: nn.Module, patch_size, in_channels: int = 1,
     device) for (batch, *patch_size, in_channels) fp32 images.
 
     ``batch``: an int pins the batch dimension; a string (default ``"b"``)
-    names a symbolic one, of 2 or more, so the artifact serves any batch.
+    names a symbolic one, from 2 to MAX_BATCH, so the artifact serves any
+    batch in that range.
     ``dtype=torch.bfloat16`` exports bf16 serving."""
     device = next(model.parameters()).device
     symbolic = isinstance(batch, str)
     example = torch.zeros(2 if symbolic else int(batch), *patch_size,
                           in_channels, device=device)
-    dynamic = ({0: torch.export.Dim(batch, min=2)},) if symbolic else None
+    dynamic = ({0: torch.export.Dim(batch, min=2, max=MAX_BATCH)},
+               ) if symbolic else None
     # a guard on the batch that the exporter cannot prove (e.g. a stride
     # order such as min(192 b, 10752 b) == 192 b on the folded branch)
     # becomes an assert checked at run time instead of failing the export

@@ -273,7 +273,8 @@ def test_train_and_test_clis_new_flags_on_cpu(tmp_path, monkeypatch,
                tmp_path / "pre.pth")
     spec = ["--synthetic_spec", "1", "2", "1", "1", "32"]
     assert train_cli.main([
-        "--synthetic", "--synthetic_hard", "--device", "cpu", "--exp",
+        "--model", "ViM_seg", "--synthetic", "--synthetic_hard", "--device",
+        "cpu", "--exp",
         "ACDC/Test", "--pretrained_ckpt", str(tmp_path / "pre.pth"),
         "--scan_impl", "xla", "--patch_size", "32", "32", "--batch_size",
         "2", "--max_iterations", "1", "--eval_every", "1", "--drop_path",

@@ -332,7 +332,8 @@ def test_train_cli_scan_impl_folded_on_cpu(monkeypatch):
     monkeypatch.setattr(tss2d, "selective_scan_bidir", None)
     monkeypatch.setattr(tss2d, "selective_scan_grouped", None)
     assert train_cli.main([
-        "--synthetic", "--device", "cpu", "--scan_impl", "folded",
+        "--model", "ViM_seg", "--synthetic", "--device", "cpu",
+        "--scan_impl", "folded",
         "--patch_size", "32", "32", "--batch_size", "2",
         "--max_iterations", "2", "--eval_every", "100",
         "--synthetic_spec", "1", "2", "1", "0", "32"]) == 0

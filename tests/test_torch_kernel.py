@@ -34,7 +34,11 @@ from mamba_unet_torch.ops.selective_scan_bidir import (  # noqa: E402
     selective_scan_bidir_ref,
     selective_scan_bidir_states_ref,
 )
-from mamba_unet_torch.utils.compare import assert_close_to_max  # noqa: E402
+from mamba_unet_torch.utils.compare import (  # noqa: E402
+    ZERO_GRAD_REL,
+    assert_close_to_max,
+    batchnorm_fed_biases,
+)
 
 # (L, dg) of SS2D's scan at the four stages of the 224² model
 STAGES = [(3136, 192), (784, 384), (196, 768), (49, 1536)]
@@ -851,3 +855,107 @@ def test_zoo_logits_on_card_match_cpu(cuda, name):
         want = cpu.eval()(x)
     assert selective_scan_bidir.launches == before
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _weak_trio(dev):
+    """Toy unet + toy ViT_seg (window 4) + toy ViM_seg at 32², seeds 0-2,
+    dropout and drop-path 0."""
+    from mamba_unet_torch.models import net_factory
+
+    return (net_factory("unet", num_classes=4, ft_chns=(4, 8, 16, 32, 64),
+                        dropout=(0.0,) * 5,
+                        generator=torch.Generator().manual_seed(0)),
+            net_factory("ViT_seg", num_classes=4, img_size=32, embed_dim=24,
+                        num_heads=(1, 2, 4, 8), window_size=4,
+                        drop_path_rate=0.0,
+                        generator=torch.Generator().manual_seed(1)),
+            _toy_vim(dev, 2))
+
+
+def _scribble_batch():
+    batch = _semi_batch()
+    g = torch.Generator().manual_seed(6)
+    batch["label"][torch.rand(batch["label"].shape, generator=g) < 0.8] = 4
+    return batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pce_only", [False, True])
+def test_weak_step_gradients_on_card_match_cpu(cuda, pce_only):
+    """One Weak-Mamba-UNet step of the toy trio on scribbles, fp32 with
+    TF32 off, the same mix weights on both sides: the losses and the three
+    models' gradients on the card against the CPU (1e-4 of each gradient's
+    max; the exact zeros, the toy unet's convolution biases that feed a
+    BatchNorm, below ZERO_GRAD_REL of the model's largest on both sides);
+    the Mamba member launches 3 state-saving forward and 3 backward bidir
+    kernels, no serving one; with ``pce_only`` the pseudo-label Dice is
+    exactly 0."""
+    from mamba_unet_torch.train import WeakScribbleTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mix = torch.tensor([0.2, 0.3, 0.5])
+    out = {}
+    for tag, dev in (("card", cuda), ("cpu", torch.device("cpu"))):
+        m1, m2, m3 = _weak_trio(dev)
+        trainer = WeakScribbleTrainer(m1, _semi_cfg(), model2=m2, model3=m3,
+                                      pce_only=pce_only, device=dev)
+        trainer._mix_weights = lambda d=dev: mix.to(d)
+        before = [k.launches for k in (selective_scan_bidir,
+                                       selective_scan_bidir_fwd_states,
+                                       selective_scan_bidir_bwd)]
+        logs = trainer.train_step(_scribble_batch())
+        launched = [k.launches - b for k, b in zip(
+            (selective_scan_bidir, selective_scan_bidir_fwd_states,
+             selective_scan_bidir_bwd), before)]
+        out[tag] = ({k: float(logs[k]) for k in (
+            "loss_total", "loss_model1", "loss_model2", "loss_model3",
+            "loss_pce", "loss_pseudo_dice")}, launched, {
+            f"{i}.{k}": p.grad.cpu() for i, (m, _, _) in
+            enumerate(trainer._members(), start=1)
+            for k, p in m.named_parameters()})
+    assert out["card"][1] == [0, 3, 3]
+    for k, v in out["cpu"][0].items():
+        assert out["card"][0][k] == pytest.approx(v, rel=1e-5, abs=1e-6), k
+    if pce_only:
+        assert out["card"][0]["loss_pseudo_dice"] == 0.0
+    zeros = {f"1.{k}" for k in batchnorm_fed_biases(_weak_trio("cpu")[0])}
+    assert len(zeros) == 18  # the toy unet's two per conv block, 9 blocks
+    unet_max = max(g.abs().max().item() for k, g in out["cpu"][2].items()
+                   if k.startswith("1."))
+    for k, g in out["cpu"][2].items():
+        if k in zeros:
+            for side in ("card", "cpu"):
+                assert (out[side][2][k].abs().max().item()
+                        <= ZERO_GRAD_REL * unet_max), (side, k)
+        else:
+            assert_close_to_max(out["card"][2][k], g, 1e-4, k)
+
+
+@pytest.mark.cuda
+def test_weak_fit_evaluates_model3_through_the_serving_kernel(cuda,
+                                                              tmp_path):
+    """Two fit steps of the toy trio with an eval after each: the Mamba
+    member's eval forward launches the serving kernel (3 per forward of
+    the one 4-slice val volume), and the fit writes best, best2, best3
+    wherever each model's val Dice rose above 0."""
+    import numpy as np
+
+    from mamba_unet_torch.train import WeakScribbleTrainer
+
+    cfg = _semi_cfg()
+    cfg.eval_every, cfg.snapshot_dir = 1, str(tmp_path)
+    m1, m2, m3 = _weak_trio(cuda)
+    trainer = WeakScribbleTrainer(m1, cfg, model2=m2, model3=m3, device=cuda)
+    rng = np.random.default_rng(0)
+    val = [{"image": rng.random((4, 32, 32), np.float32),
+            "label": rng.integers(0, 4, (4, 32, 32)), "case": "v"}]
+    before = selective_scan_bidir.launches
+    result = trainer.fit([_scribble_batch()] * 2, val)
+    assert selective_scan_bidir.launches - before == 2 * 3
+    saved = {p.name for p in tmp_path.iterdir()}
+    for i, name in enumerate(("best", "best2", "best3")):
+        dice = [h["val_dice" + name[4:]] for h in result["history"]
+                if "val_dice" in h]
+        assert len(dice) == 2
+        assert (f"{name}_1" in saved) == (dice[0] > 0), (name, dice, saved)

@@ -367,7 +367,8 @@ def test_train_cli_scan_impl_tm_on_cpu(monkeypatch):
                         lambda *a: calls.append(1) or real(*a))
     monkeypatch.setattr(tss2d, "selective_scan_bidir", None)
     assert train_cli.main([
-        "--synthetic", "--device", "cpu", "--scan_impl", "tm",
+        "--model", "ViM_seg", "--synthetic", "--device", "cpu",
+        "--scan_impl", "tm",
         "--patch_size", "32", "32", "--batch_size", "2",
         "--max_iterations", "2", "--eval_every", "100",
         "--synthetic_spec", "1", "2", "1", "0", "32"]) == 0

@@ -370,7 +370,8 @@ def test_train_cli_synthetic_on_cpu(tmp_path):
     checkpoints; the best one loads into the test CLI's model."""
     snap = tmp_path / "snap"
     assert train_cli.main([
-        "--synthetic", "--device", "cpu", "--patch_size", "32", "32",
+        "--model", "ViM_seg", "--synthetic", "--device", "cpu",
+        "--patch_size", "32", "32",
         "--batch_size", "4", "--max_iterations", "4", "--eval_every", "4",
         "--ckpt_every", "2", "--synthetic_spec", "2", "4", "1", "0", "40",
         "--drop_path", "0.1", "--snapshot_dir", str(snap)]) == 0
@@ -381,7 +382,8 @@ def test_train_cli_synthetic_on_cpu(tmp_path):
                                 device="cpu")
     assert not model.training
     with pytest.raises(NotImplementedError):
-        train_cli.main(["--method", "weak_scribble", "--device", "cpu"])
+        train_cli.main(["--method", "contrastive_consistency", "--device",
+                        "cpu"])
 
 
 @pytest.mark.parametrize("cli", ["train", "test"])
