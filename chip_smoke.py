@@ -7,7 +7,9 @@ other entry points (activation recomputation, the ``torch.export``
 artifact and the CLIs, SS2D's xla route among them), then the UNet
 family and Swin-UNet, the semi-supervised methods (Semi-Mamba-UNet's
 cross-teaching, mean teacher and UAMT), the scribble-supervised
-Weak-Mamba-UNet, and a from-scratch trainability check.
+Weak-Mamba-UNet, a from-scratch trainability check, contrastive
+consistency (two ``ViM_seg`` with CTAugment views and projectors) and the
+Mamba mask model's self-supervised pretraining.
 
     python3 chip_smoke.py
 
@@ -181,14 +183,46 @@ exits non-zero; nothing is caught):
               on the easy phantom, bs24 bf16, 300 steps with evals at 150
               and 300: every foreground class's val Dice above 0 at the
               end.
-30. weak_parity - one Weak-Mamba-UNet step of the full-width trio
+30. cc_kernel_shapes - the bidir state-saving forward and backward
+              against their plain versions at the mask-pretraining
+              location pass's shapes (every 32² cube of a bs24 224² batch:
+              batch 1,176 at (L, dg) = (64, 192), (16, 384), (4, 768),
+              (1, 1536)), fp32 and bf16, each timed.
+31. contrastive_consistency - ``ContrastiveConsistencyTrainer.fit`` of
+              two full-width ``ViM_seg`` on the CTA-fed two-stream phantom
+              ``Loader``, bs24 with 8 labeled, bf16, CC_ITERS steps with one
+              eval: 56 + 56 bidir training launches per step and no serving
+              one, 14 serving launches per eval forward of each model;
+              ``best``/``best2``; the policy refreshed and
+              ``cta_state.json`` beside the periodic checkpoint; the
+              transform's host ms per batch, step ms in ``fit``, device ms,
+              busy share and peak GB beside the prediction.
+32. mask_pretrain - ``MaskPretrainTrainer.fit`` of full-width
+              ``MambaUnetMask`` (224², 32² cubes), bs24, bf16: 50 + 50
+              bidir training launches per step (three heads and the
+              location pass's encoder); the same numbers.
+33. cc_mask - the contrastive trainer's mask variant on a
+              ``MambaUnetMask`` pair, a few steps: 98 + 98 launches per
+              step, peak GB and device ms (bs24, or the largest batch of
+              16 and 8 that fits, said on the line).
+34. entry_points - ``cli.train --method contrastive_consistency --model
+              ViM_seg`` and ``--method mask_pretrain --model
+              MambaUnetMask`` on phantoms, launches checked, then
+              ``cli.test`` serving ``best`` and ``best2`` of the first and
+              the second's newest checkpoint.
+35. weak_parity - one Weak-Mamba-UNet step of the full-width trio
               (``unet``, ``ViT_seg``, ``ViM_seg``), batch 2 at 224² on
               phantom scribbles, dropout and drop_path 0, fp32 with TF32
               off, the same mix weights and pseudo-labels: the losses and
               the three models' every gradient card vs CPU (unet's against
               its largest gradient: fp32 conditioning); 14 + 14 bidir
-              training launches. Last, as its CPU backward would share the
-              host with a timed phase.
+              training launches.
+36. cc_parity - one contrastive step of the full-width ``ViM_seg`` pair
+              with its projectors (batch 2), then one mask-pretraining
+              step of ``MambaUnetMask`` (batch 4), fp32 with TF32 off,
+              drop_path 0: the losses and every gradient card vs CPU.
+              35-36 last, as their CPU backwards would share the host with
+              a timed phase.
 
 ``[phase_seconds]`` follows each group of phases. Then one JSON line with
 the kernel table, and the last line ``{"ok": true, "device": {...}}``. It
@@ -320,6 +354,40 @@ WEAK_ITERS, WEAK_EVAL_AT = 10, 6
 WEAK_PREDICTED_DEVICE_MS, WEAK_PREDICTED_PEAK_GB = 131, 14.5
 # [trainability]: ViM_seg from scratch under warmup_adamw
 TRAINABILITY_ITERS, TRAINABILITY_EVAL_EVERY = 300, 150
+# the mask-pretraining location pass runs the encoder on every 32² cube of
+# a bs24 224² batch: batch 24 x 49 = 1176, at (L, dg) of its four stages
+# (2 SS2D calls each), so 3 x 14 + 8 training scans per step
+CUBE_SIZE = 32
+CUBE_BATCH = TRAIN_BATCH * (PATCH // CUBE_SIZE) ** 2
+CUBE_STAGES = ((64, 192), (16, 384), (4, 768), (1, 1536))
+MASK_PER_STEP = 3 * SS2D_PER_FORWARD + 8
+# [contrastive_consistency], [mask_pretrain], [cc_mask]: fit steps and the
+# eval step; [cc_parity]'s batches; the predictions per bs24 bf16 step,
+# made before the first card run from the cross-teaching step (two ViM_seg
+# passes: 149.03 ms of device time, 15.03 GB) on an NVIDIA H100 80GB HBM3
+# at 700 W (PERF.md, section 5): four passes plus the projectors; three
+# passes plus an encoder pass of the same pixel count; seven passes
+CC_ITERS, CC_EVAL_AT = 10, 6
+MASK_ITERS, MASK_EVAL_AT = 10, 6
+CC_MASK_ITERS = 4
+# the mask step's card-vs-CPU check runs at batch 8 on 128² images (16
+# cubes): its heads' train-mode BatchNorms normalize over the batch, and at
+# batch 4 features whose variance nears eps move the gradients by 1.6e-2 of
+# their largest (measured on an NVIDIA H100 80GB HBM3); 128² keeps the
+# CPU's side near a minute
+CC_PARITY_BATCH, MASK_PARITY_BATCH, MASK_PARITY_PATCH = 2, 8, 128
+CC_PREDICTED_DEVICE_MS, CC_PREDICTED_PEAK_GB = "300-320", 30
+MASK_PREDICTED_DEVICE_MS, MASK_PREDICTED_PEAK_GB = "250-270", 25
+CC_MASK_PREDICTED_DEVICE_MS, CC_MASK_PREDICTED_PEAK_GB = 520, 50
+# the new phases' Mamba models start with their patch embedding's bias
+# drawn from N(0, 0.02²), as after a warm start (the reference's scripts
+# load ImageNet weights into every ViM): from the init's zero bias, a
+# blank region of an image (CTAugment's fills and uint8 rounding leave
+# exact zeros; the mask model's clean pass blanks the whole image) gives
+# tokens of exactly 0 through every LayerNorm, whose zero variance scales
+# the gradient by 1/sqrt(eps) each: 1e30 on the first contrastive step, in
+# JAX as in the port (ROADMAP, section 3), and the next step is NaN
+PATCH_BIAS_STD = 0.02
 # full mamba-130m, card vs CPU, fp32 with TF32 off: 24 scans plus fp32
 # matmuls in another summation order, on logits of magnitude ~2; the
 # decode states within 1e-3 of their own max
@@ -1887,12 +1955,27 @@ def phantom_loader(torch, dev, batch, labeled=None, seed=1337,
     return splits["val"], Loader(ds, sampler, device=dev)
 
 
-def counted_fit(torch, trainer, loader, val, iters, phase):
+class Sized:
+    """An iterable with the length of the loader it wraps (the contrastive
+    trainer's epoch)."""
+
+    def __init__(self, it, n):
+        self.it, self.n = it, n
+
+    def __iter__(self):
+        return iter(self.it)
+
+    def __len__(self):
+        return self.n
+
+
+def counted_fit(torch, trainer, loader, val, iters, phase, **fit_kw):
     """``trainer.fit`` over ``iters`` batches of ``loader`` (evaluating on
-    ``val`` as its config says), every scan wrapper's count set to 0 just
-    before and read after each batch; returns (result, per-step launch
-    vectors over :func:`all_scan_kernels`, ms of each step, peak GB).
-    A step's ms runs from its batch's hand-out to the next one's."""
+    ``val`` as its config says; ``fit_kw`` to ``fit``), every scan
+    wrapper's count set to 0 just before and read after each batch;
+    returns (result, per-step launch vectors over
+    :func:`all_scan_kernels`, ms of each step, peak GB). A step's ms runs
+    from its batch's hand-out to the next one's."""
     import itertools
 
     kernels = all_scan_kernels()
@@ -1911,7 +1994,7 @@ def counted_fit(torch, trainer, loader, val, iters, phase):
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
         k.launches = 0
-    result = trainer.fit(counted(loader), val)
+    result = trainer.fit(Sized(counted(loader), len(loader)), val, **fit_kw)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps = [[b - a for a, b in zip(c0, c1)]
              for (_, c0), (_, c1) in zip(marks, marks[1:])]
@@ -2578,6 +2661,534 @@ def trainability_phase(torch, dev):
     del trainer, loader
 
 
+def cc_kernel_shapes_phase(torch, dev):
+    """``[cc_kernel_shapes]``: the bidir state-saving forward (#2b) and
+    backward (#4) against their plain versions at the shapes of the
+    mask-pretraining location pass (every 32² cube of a bs24 224² batch
+    through the encoder: batch CUBE_BATCH, (L, dg) of CUBE_STAGES), fp32
+    and bf16, each timed (device ms per call) beside its plain version's
+    ms and its bound; returns the worst error of each kernel."""
+    from mamba_unet_torch.ops.selective_scan_bidir import (
+        selective_scan_bidir_bwd,
+        selective_scan_bidir_fwd_states,
+    )
+
+    worst = {"fwd_states": 0.0, "bwd": 0.0}
+    for L, dg in CUBE_STAGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype).split(".")[-1]
+            args = scan_inputs(torch, CUBE_BATCH, L, dg, dtype, dev,
+                               seed=L + dg)
+            gy = torch.randn(CUBE_BATCH, 2, L, dg, generator=torch
+                             .Generator().manual_seed(L)).to(dev)
+            fwd_ms, (y, cs) = device_ms(
+                torch, lambda: selective_scan_bidir_fwd_states(*args), 10)
+            bwd_ms, _ = device_ms(
+                torch, lambda: selective_scan_bidir_bwd(*args, cs, gy), 10)
+            del y, cs
+            errs, plain_fwd, plain_bwd = check_training_kernels(
+                torch, args, gy, phase="cc_kernel_shapes", L=L, dg=dg,
+                batch=CUBE_BATCH, dtype=tag)
+            for kind in worst:
+                worst[kind] = max(worst[kind], errs[kind])
+            itemsize = 4 if dtype == torch.float32 else 2
+            bound = {kind: scan_bound(kind, CUBE_BATCH, L, dg, itemsize)[0]
+                     for kind in worst}
+            log("cc_kernel_shapes", L=L, dg=dg, batch=CUBE_BATCH, dtype=tag,
+                fwd_states_ms=f"{fwd_ms:.4f}", bwd_ms=f"{bwd_ms:.4f}",
+                plain_fwd_states_ms=f"{plain_fwd:.2f}",
+                plain_bwd_ms=f"{plain_bwd:.2f}",
+                bound_fwd_states_ms=f"{bound['fwd_states']:.4f}",
+                bound_bwd_ms=f"{bound['bwd']:.4f}",
+                max_abs_err_fwd_states=f"{errs['fwd_states']:.2e}",
+                max_abs_err_bwd=f"{errs['bwd']:.2e}")
+            del args, gy
+            torch.cuda.empty_cache()
+    return worst
+
+
+def cta_loader(torch, dev, batch, labeled, seed=1337):
+    """(val volumes, a Loader of two-stream batches of CTATransform views
+    of the phantom slices at 224², the CTAugment, the transform)."""
+    from mamba_unet_torch.data.acdc import SliceDataset
+    from mamba_unet_torch.data.cta_transform import CTATransform
+    from mamba_unet_torch.data.ctaugment import CTAugment
+    from mamba_unet_torch.data.loader import Loader
+    from mamba_unet_torch.data.sampler import TwoStreamBatchSampler
+    from mamba_unet_torch.data.synthetic import phantom_acdc
+
+    splits = phantom_acdc(8, 8, 2, 0, *NATIVE, seed=0)
+    cta = CTAugment(seed=seed)
+    tf = CTATransform((PATCH, PATCH), cta, seed=seed)
+    ds = SliceDataset.from_samples(splits["train"], transform=tf)
+    n_lab = len(ds) // 4
+    sampler = TwoStreamBatchSampler(range(n_lab), range(n_lab, len(ds)),
+                                    batch, batch - labeled, seed=seed)
+    return splits["val"], Loader(ds, sampler, device=dev), cta, tf
+
+
+def draw_patch_bias(torch, patch_embed, seed):
+    """The patch embedding's conv bias drawn from N(0, PATCH_BIAS_STD²)
+    with ``seed``, in place; returns the module."""
+    with torch.no_grad():
+        patch_embed.proj.bias.copy_(PATCH_BIAS_STD * torch.randn(
+            patch_embed.proj.bias.shape,
+            generator=torch.Generator().manual_seed(seed)))
+    return patch_embed
+
+
+def vim_pair(torch, drop_path, seeds=(1337, 1338)):
+    """Two full-width ``ViM_seg`` from seeded generators, their patch
+    embeddings' biases drawn (:data:`PATCH_BIAS_STD`)."""
+    from mamba_unet_torch.models.vssm import MambaUnet
+
+    pair = [MambaUnet(num_classes=4, drop_path_rate=drop_path,
+                      generator=torch.Generator().manual_seed(s))
+            for s in seeds]
+    for model, s in zip(pair, seeds):
+        draw_patch_bias(torch, model.mamba_unet.patch_embed, s + 100)
+    return pair
+
+
+def mask_model(torch, drop_path, seed=1337, patch=None):
+    """Full-width ``MambaUnetMask`` for ``patch``² (default PATCH) and 32²
+    cubes, seeded, its patch embedding's bias drawn
+    (:data:`PATCH_BIAS_STD`)."""
+    from mamba_unet_torch.models.mamba_mask import MambaUnetMask
+
+    model = MambaUnetMask(num_classes=4, img_size=patch or PATCH,
+                          cube_size=CUBE_SIZE,
+                          drop_path_rate=drop_path,
+                          generator=torch.Generator().manual_seed(seed))
+    draw_patch_bias(torch, model.encoder.patch_embed, seed + 100)
+    return model
+
+
+def report_fit(phase, trainer, loader, result, ms, peak, evals, predicted,
+               **extra):
+    """Profile 3 steps and print the step numbers of a phase's fit: device
+    ms per step, the median step in ``fit`` (steps without an eval), the
+    busy share, peak GB, beside the prediction; returns (median ms, device
+    ms)."""
+    import torch
+
+    losses = [h["loss"] for h in result["history"] if "loss" in h]
+    med, kept = median_after_warmup(ms, set(evals))
+    device = profile_steps(torch, trainer, loader, f"train_{phase}")
+    log(phase, losses=" ".join(f"{v:.4f}" for v in losses))
+    log(phase, step_ms_median=f"{med:.2f}", step_ms_min=f"{kept[0]:.2f}",
+        step_ms_max=f"{kept[-1]:.2f}", device_ms_per_step=f"{device:.2f}",
+        busy_share=f"{device / med:.3f}", peak_mem_gb=f"{peak:.2f}",
+        predicted_device_ms=predicted[0], predicted_peak_gb=predicted[1],
+        **extra)
+    return med, device
+
+
+def contrastive_consistency_phase(torch, dev):
+    """``[contrastive_consistency]``: ``ContrastiveConsistencyTrainer.fit``
+    of two full-width ``ViM_seg`` on the CTA-fed two-stream phantom
+    Loader, bs24 with 8 labeled @ 224², bf16, drop_path 0.2, CC_ITERS
+    steps with one eval of both models (and a periodic checkpoint) after
+    step CC_EVAL_AT: per step 56 state-saving forward and 56 backward
+    bidir launches and no serving one, 14 serving launches per eval
+    forward of each model; ``best``/``best2`` hold the protocol; the
+    policy is refreshed (an epoch is 2 steps) and ``cta_state.json``
+    holds rates that moved from their start; the host ms of the transform
+    per batch; step numbers as :func:`report_fit`. Returns (launches of
+    the bidir serving, state-saving and backward kernels, ...)."""
+    import json
+    import tempfile
+
+    from mamba_unet_torch.train import (
+        ContrastiveConsistencyTrainer,
+        TrainConfig,
+    )
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as snap:
+        cfg = TrainConfig(base_lr=0.01, max_iterations=1000,
+                          batch_size=TRAIN_BATCH, patch_size=(PATCH, PATCH),
+                          num_classes=4, eval_every=CC_EVAL_AT,
+                          ckpt_every=CC_EVAL_AT, log_every=1, seed=1337,
+                          bf16=True, snapshot_dir=snap)
+        m1, m2 = vim_pair(torch, 0.2)
+        trainer = ContrastiveConsistencyTrainer(
+            m1, cfg, model2=m2, labeled_bs=SEMI_LABELED, device=dev)
+        val, loader, cta, tf = cta_loader(torch, dev, TRAIN_BATCH,
+                                          SEMI_LABELED)
+        t0 = time.perf_counter()
+        for i in range(TRAIN_BATCH):
+            loader.dataset[i]
+        cta_ms = 1e3 * (time.perf_counter() - t0)
+        first_policy = tf.ops_weak
+        before = [{k: v.detach().clone() for k, v in m.state_dict().items()}
+                  for m in (trainer.model, trainer.model2)]
+        result, steps, ms, peak = counted_fit(
+            torch, trainer, loader, val, CC_ITERS, "contrastive_consistency",
+            cta=cta, cta_transform=tf)
+        eval_fwd = math.ceil(sum(len(v["image"]) for v in val)
+                             / cfg.eval_batch_size)
+        n = SS2D_PER_FORWARD
+        evals = range(CC_EVAL_AT, CC_ITERS + 1, CC_EVAL_AT)
+        check_step_launches("contrastive_consistency", steps,
+                            [0, 4 * n, 4 * n] + [0] * 6, evals,
+                            [2 * n * eval_fwd] + [0] * 8)
+        launches = [sum(s[i] for s in steps) for i in range(3)]
+        saved = sorted(p.name for p in Path(snap).iterdir())
+        dice = [(h["val_dice"], h["val_dice2"]) for h in result["history"]
+                if "val_dice" in h]
+        check_best_marks("contrastive_consistency", snap, {
+            "best": [(i, d[0]) for i, d in zip(evals, dice)],
+            "best2": [(i, d[1]) for i, d in zip(evals, dice)]})
+        state = json.loads(Path(snap, "cta_state.json").read_text())
+        moved_rates = sum(any(v != 1.0 for v in rate)
+                          for bins in state["rates"].values()
+                          for rate in bins)
+    moved = [sum(not torch.equal(v, m.state_dict()[k]) for k, v in b.items())
+             for b, m in zip(before, (trainer.model, trainer.model2))]
+    log("contrastive_consistency", iterations=result["iterations"],
+        batch=TRAIN_BATCH, labeled=SEMI_LABELED, dtype="bf16",
+        launches_serve_fwd_states_bwd=tuple(launches),
+        params_moved=f"{moved[0]}/{len(before[0])} {moved[1]}/"
+                     f"{len(before[1])}",
+        val_dice_dice2=" ".join(f"{a:.4f},{b:.4f}" for a, b in dice),
+        saved=" ".join(saved),
+        policy_refreshed=tf.ops_weak is not first_policy,
+        cta_state_bins_moved=moved_rates,
+        cta_transform_host_ms_per_batch=f"{cta_ms:.1f}")
+    if tf.ops_weak is first_policy or not moved_rates:
+        raise AssertionError("the CTAugment policy was not refreshed, or "
+                             "cta_state.json holds the initial rates")
+    if min(moved[0] / len(before[0]), moved[1] / len(before[1])) < 0.99:
+        raise AssertionError(f"weights moved {moved}")
+    med, device = report_fit("contrastive_consistency", trainer, loader,
+                             result, ms, peak, evals,
+                             (CC_PREDICTED_DEVICE_MS, CC_PREDICTED_PEAK_GB),
+                             cta_transform_host_ms_per_batch=f"{cta_ms:.1f}")
+    del trainer, loader
+    return launches, med, device, peak
+
+
+def mask_pretrain_phase(torch, dev):
+    """``[mask_pretrain]``: ``MaskPretrainTrainer.fit`` of full-width
+    ``MambaUnetMask`` (224², 32² cubes) on phantom slices, bs24, bf16,
+    drop_path 0.2, MASK_ITERS steps with one eval after MASK_EVAL_AT: per
+    step 50 state-saving forward and 50 backward bidir launches (3 heads
+    x 14 + the location pass's encoder, 8, at batch 24 x 49 cubes), 14
+    serving launches per eval forward; finite losses; step numbers as
+    :func:`report_fit`. Returns (launches, ...)."""
+    from mamba_unet_torch.train import MaskPretrainTrainer, TrainConfig
+
+    cfg = TrainConfig(base_lr=0.01, max_iterations=1000,
+                      batch_size=TRAIN_BATCH, patch_size=(PATCH, PATCH),
+                      num_classes=4, eval_every=MASK_EVAL_AT, log_every=1,
+                      seed=1337, bf16=True)
+    trainer = MaskPretrainTrainer(mask_model(torch, 0.2), cfg,
+                                  cube_size=CUBE_SIZE, device=dev)
+    val, loader = phantom_loader(torch, dev, TRAIN_BATCH)
+    result, steps, ms, peak = counted_fit(torch, trainer, loader, val,
+                                          MASK_ITERS, "mask_pretrain")
+    eval_fwd = math.ceil(sum(len(v["image"]) for v in val)
+                         / cfg.eval_batch_size)
+    n = SS2D_PER_FORWARD
+    evals = range(MASK_EVAL_AT, MASK_ITERS + 1, MASK_EVAL_AT)
+    check_step_launches("mask_pretrain", steps,
+                        [0, MASK_PER_STEP, MASK_PER_STEP] + [0] * 6, evals,
+                        [n * eval_fwd] + [0] * 8)
+    launches = [sum(s[i] for s in steps) for i in range(3)]
+    log("mask_pretrain", iterations=result["iterations"], batch=TRAIN_BATCH,
+        cubes_per_step=CUBE_BATCH, dtype="bf16",
+        launches_serve_fwd_states_bwd=tuple(launches))
+    med, device = report_fit("mask_pretrain", trainer, loader, result, ms,
+                             peak, evals, (MASK_PREDICTED_DEVICE_MS,
+                                           MASK_PREDICTED_PEAK_GB))
+    del trainer, loader
+    return launches, med, device, peak
+
+
+def cc_mask_phase(torch, dev):
+    """``[cc_mask]``: the contrastive trainer's mask variant on a
+    full-width ``MambaUnetMask`` pair at 224², bf16, CC_MASK_ITERS steps
+    of two-stream CTA batches, no eval: per step 98 state-saving forward
+    and 98 backward bidir launches (4 model passes and model 1's 3 mix
+    heads); peak GB and a profile's device ms per step. The batch is 24,
+    or the largest of 16 and 8 that fits, said on the line. Returns
+    (launches, ...)."""
+    from mamba_unet_torch.train import (
+        ContrastiveConsistencyTrainer,
+        TrainConfig,
+    )
+
+    for batch in (TRAIN_BATCH, 16, 8):
+        try:
+            cfg = TrainConfig(base_lr=0.01, max_iterations=1000,
+                              batch_size=batch, patch_size=(PATCH, PATCH),
+                              num_classes=4, eval_every=10**6, log_every=1,
+                              seed=1337, bf16=True)
+            trainer = ContrastiveConsistencyTrainer(
+                mask_model(torch, 0.2, 1337), cfg,
+                model2=mask_model(torch, 0.2, 1338),
+                labeled_bs=batch // 3, mask_recovery=True,
+                mask_cube_size=CUBE_SIZE, device=dev)
+            val, loader, cta, tf = cta_loader(torch, dev, batch, batch // 3)
+            result, steps, ms, peak = counted_fit(
+                torch, trainer, loader, val, CC_MASK_ITERS, "cc_mask",
+                cta=cta, cta_transform=tf)
+            break
+        except torch.cuda.OutOfMemoryError:
+            log("cc_mask", batch=batch, fits=False)
+            trainer = loader = None
+            torch.cuda.empty_cache()
+    per_step = 7 * SS2D_PER_FORWARD
+    check_step_launches("cc_mask", steps, [0, per_step, per_step] + [0] * 6)
+    launches = [sum(s[i] for s in steps) for i in range(3)]
+    log("cc_mask", iterations=result["iterations"], batch=batch,
+        bs24_fits=batch == TRAIN_BATCH, dtype="bf16",
+        launches_serve_fwd_states_bwd=tuple(launches))
+    med, device = report_fit("cc_mask", trainer, loader, result, ms, peak,
+                             (), (CC_MASK_PREDICTED_DEVICE_MS,
+                                  CC_MASK_PREDICTED_PEAK_GB), batch=batch)
+    del trainer, loader
+    return launches, med, device, peak
+
+
+def card_vs_cpu_grads(phase, grads, losses, zeros=(), to_model_max=False):
+    """Raise unless every loss on the card is within LOSS_TOL of the CPU's
+    and every gradient within MODEL_GRAD_TOL of its own max abs (with
+    ``to_model_max``, of its model's largest gradient: the gradient name's
+    part before the first dot names the model); the gradients in
+    ``zeros``, exact zeros computed as rounding noise, below ZERO_GRAD_REL
+    of their model's largest gradient on both sides. Prints the worst."""
+    from mamba_unet_torch.utils.compare import ZERO_GRAD_REL
+
+    model_max = {}
+    for k, g in grads["cpu"].items():
+        m = k.split(".")[0]
+        model_max[m] = max(model_max.get(m, 0.0), g.abs().max().item())
+    worst, worst_key, own = 0.0, None, (0.0, None)
+    for k, want in grads["cpu"].items():
+        top = model_max[k.split(".")[0]]
+        if k in zeros:
+            got = max(want.abs().max().item(),
+                      grads["gpu"][k].abs().max().item())
+            if got > ZERO_GRAD_REL * top:
+                raise AssertionError(f"[{phase}] {k}: the gradient of a bias "
+                                     f"that feeds a BatchNorm is {got}")
+            continue
+        err = (grads["gpu"][k] - want).abs().max().item()
+        own_rel = err / max(want.abs().max().item(), 1e-30)
+        rel = err / max(top, 1e-30) if to_model_max else own_rel
+        if own_rel > own[0]:
+            own = (own_rel, k)
+        if not math.isfinite(rel) or rel > worst:
+            worst, worst_key = rel, k
+    loss_err = max(abs(losses["gpu"][k] - v) / max(abs(v), 1e-30)
+                   for k, v in losses["cpu"].items())
+    log(phase, params=len(grads["cpu"]), zero_grads=len(zeros),
+        losses_gpu=" ".join(f"{k}={v:.6f}" for k, v in losses["gpu"].items()),
+        loss_rel_err=f"{loss_err:.2e}", loss_tol=LOSS_TOL,
+        worst_grad_rel_err=f"{worst:.2e}", worst_param=worst_key,
+        relative_to="model_max_grad" if to_model_max else "own_max",
+        worst_own_rel_err=f"{own[0]:.2e}", worst_own_param=own[1],
+        tol=MODEL_GRAD_TOL)
+    if not (worst <= MODEL_GRAD_TOL and loss_err <= LOSS_TOL):
+        raise AssertionError(f"[{phase}] the card disagrees with the CPU: "
+                             f"worst gradient {worst} at {worst_key}, loss "
+                             f"rel err {loss_err}")
+
+
+def cc_parity_phase(torch, dev):
+    """``[cc_parity]``: one contrastive step of two full-width ``ViM_seg``
+    with their projectors, batch CC_PARITY_BATCH (1 labeled) at 224² on
+    phantom CTA views, fp32 (TF32 off by the caller), drop-path 0: the
+    five losses and every gradient (both models, projectors 3 and 4) on
+    the card against a CPU copy, at ``[cross_teaching_parity]``'s
+    tolerance (the projectors' conv biases that feed a BatchNorm, exact
+    zeros, below ZERO_GRAD_REL of their projector's largest gradient);
+    56 + 56 bidir training launches. Then one
+    ``MaskPretrainTrainer`` step of full-width ``MambaUnetMask`` the same
+    way (:func:`mask_step_parity`), at batch MASK_PARITY_BATCH on
+    MASK_PARITY_PATCH² images, from weights whose position
+    embedding is not 0 (its BatchNorm bias at 1: at init the clean pass
+    multiplies the image by 0 and its LayerNorms' zero variances scale the
+    gradients by 1/sqrt(eps) each, so the card and the CPU would compare
+    rounding): losses, and gradients within MODEL_GRAD_TOL of the
+    model's largest (the mix head's tiny decoder gradients, ~1e-7, carry
+    the rounding of the large ones, and the Dense biases that feed its
+    BatchNorms are exact zeros); 50 + 50 launches."""
+    from mamba_unet_torch.models.small_nets import Projectors
+    from mamba_unet_torch.train import (
+        ContrastiveConsistencyTrainer,
+        TrainConfig,
+    )
+    from mamba_unet_torch.utils.compare import batchnorm_fed_biases
+
+    _, loader, _, _ = cta_loader(torch, "cpu", CC_PARITY_BATCH, 1)
+    batch = next(iter(loader))
+    kernels = all_scan_kernels()
+    n = SS2D_PER_FORWARD
+    grads, losses, secs = {}, {}, {}
+    for tag, d in (("gpu", dev), ("cpu", "cpu")):
+        cfg = TrainConfig(base_lr=0.01, max_iterations=1000,
+                          batch_size=CC_PARITY_BATCH,
+                          patch_size=(PATCH, PATCH), num_classes=4,
+                          seed=1337)
+        m1, m2 = vim_pair(torch, 0.0, (0, 1))
+        trainer = ContrastiveConsistencyTrainer(m1, cfg, model2=m2,
+                                                labeled_bs=1, device=d)
+        before = launch_counts(kernels)
+        t0 = time.perf_counter()
+        logs = trainer.train_step(batch)
+        secs[tag] = time.perf_counter() - t0
+        losses[tag] = {k: float(v) for k, v in logs.items()
+                       if k.startswith("loss")}
+        grads[tag] = {f"{name}.{k}": p.grad.cpu() for name, m in (
+            ("m1", trainer.model), ("m2", trainer.model2),
+            ("p3", trainer.p3), ("p4", trainer.p4))
+            for k, p in m.named_parameters()}
+        if tag == "gpu":
+            launched = [a - b for a, b in zip(launch_counts(kernels),
+                                              before)]
+            if launched != [0, 4 * n, 4 * n] + [0] * 6:
+                raise AssertionError(f"one contrastive step launched "
+                                     f"{launched}")
+        del trainer, m1, m2
+    log("cc_parity", step="contrastive_consistency", batch=CC_PARITY_BATCH,
+        gpu_s=f"{secs['gpu']:.2f}", cpu_s=f"{secs['cpu']:.2f}")
+    zeros = {f"{p}.{k}" for p in ("p3", "p4")
+             for k in batchnorm_fed_biases(Projectors(4, 8))}
+    card_vs_cpu_grads("cc_parity", grads, losses, zeros)
+
+    mask_step_parity(torch, dev)
+
+
+def mask_step_parity(torch, dev):
+    """The second half of ``[cc_parity]``: one ``MaskPretrainTrainer`` step
+    card vs CPU (see :func:`cc_parity_phase`)."""
+    from mamba_unet_torch.train import MaskPretrainTrainer, TrainConfig
+
+    kernels = all_scan_kernels()
+    secs = {}
+    size = MASK_PARITY_PATCH
+    gen = torch.Generator().manual_seed(5)
+    image = torch.rand(MASK_PARITY_BATCH, size, size, 1, generator=gen)
+    cubes = (size // CUBE_SIZE) ** 2
+    # the same shuffle ids and visibility mask on both sides (the card's
+    # generator draws another stream)
+    draws = (torch.rand(MASK_PARITY_BATCH, cubes, generator=gen).argsort(1),
+             (torch.rand(MASK_PARITY_BATCH, cubes, generator=gen)
+              > 0.25).float())
+    grads, losses = {}, {}
+    for tag, d in (("gpu", dev), ("cpu", "cpu")):
+        cfg = TrainConfig(base_lr=0.01, max_iterations=1000,
+                          batch_size=MASK_PARITY_BATCH,
+                          patch_size=(size, size), num_classes=4, seed=1337)
+        model = mask_model(torch, 0.0, patch=size)
+        with torch.no_grad():
+            model.pos_embed_layer.bn.bias.fill_(1.0)
+        trainer = MaskPretrainTrainer(model, cfg, cube_size=CUBE_SIZE,
+                                      device=d)
+        trainer._draws = lambda x: tuple(t.to(x.device) for t in draws)
+        before = launch_counts(kernels)
+        t0 = time.perf_counter()
+        logs = trainer.train_step({"image": image})
+        secs[tag] = time.perf_counter() - t0
+        losses[tag] = {k: float(v) for k, v in logs.items()
+                       if k.startswith("loss")}
+        grads[tag] = {f"mask.{k}": p.grad.cpu()
+                      for k, p in trainer.model.named_parameters()}
+        if tag == "gpu":
+            launched = [a - b for a, b in zip(launch_counts(kernels),
+                                              before)]
+            if launched != [0, MASK_PER_STEP, MASK_PER_STEP] + [0] * 6:
+                raise AssertionError(f"one mask-pretraining step launched "
+                                     f"{launched}")
+        del trainer, model
+    log("cc_parity", step="mask_pretrain", batch=MASK_PARITY_BATCH,
+        patch=size, gpu_s=f"{secs['gpu']:.2f}", cpu_s=f"{secs['cpu']:.2f}")
+    card_vs_cpu_grads("cc_parity", grads, losses, to_model_max=True)
+
+
+def cc_entry_points_phase(torch, np, dev):
+    """``[entry_points]``, third part: ``cli.train --synthetic --method
+    contrastive_consistency --model ViM_seg`` (both models warm-started by
+    ``--pretrained_ckpt`` from a seeded checkpoint with a drawn patch-
+    embedding bias, :data:`PATCH_BIAS_STD`; evaluated after each of its 2
+    steps, so that both have a best checkpoint) and ``--method
+    mask_pretrain --model MambaUnetMask`` (from the init: its losses may
+    go NaN from step 2, :data:`PATCH_BIAS_STD`; launches and serving do
+    not depend on it), their launches checked; then
+    ``cli.test`` serves ``best`` and ``best2`` of the first and the newest
+    checkpoint of the second (``--model MambaUnetMask``)."""
+    import tempfile
+
+    from mamba_unet_torch.cli import test as test_cli
+    from mamba_unet_torch.cli import train as train_cli
+    from mamba_unet_torch.data.synthetic import phantom_acdc
+
+    spec = [str(v) for v in ENTRY_SPEC]
+    kernels = all_scan_kernels()
+    n, iters = SS2D_PER_FORWARD, 2
+    runs = (("contrastive_consistency",
+             ["--method", "contrastive_consistency", "--model", "ViM_seg",
+              "--eval_every", "1", "--pretrained_ckpt", "WARM"],
+             [iters * 2 * n, iters * 4 * n, iters * 4 * n]),
+            ("mask_pretrain",
+             ["--method", "mask_pretrain", "--model", "MambaUnetMask",
+              "--eval_every", str(iters)],
+             [n, iters * MASK_PER_STEP, iters * MASK_PER_STEP]))
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        # a seeded whole-network checkpoint with a drawn patch-embedding
+        # bias, which --pretrained_ckpt loads into both models of the pair
+        warm = vim_pair(torch, 0.2, (7,))[0].mamba_unet.state_dict()
+        torch.save({f"mamba_unet.{k}": v for k, v in warm.items()},
+                   f"{tmp}/warm.pth")
+        for tag, extra, want in runs:
+            extra = [f"{tmp}/warm.pth" if a == "WARM" else a for a in extra]
+            before = launch_counts(kernels)
+            t0 = time.perf_counter()
+            train_cli.main([
+                "--synthetic", "--synthetic_spec", *spec, "--bf16",
+                "--patch_size", str(PATCH), str(PATCH), "--batch_size",
+                str(ENTRY_BATCH), "--labeled_bs", str(ENTRY_BATCH // 2),
+                "--max_iterations", str(iters), "--ckpt_every", str(iters),
+                "--snapshot_dir", f"{tmp}/{tag}", "--device", "cuda",
+                *extra])
+            launched = [a - b for a, b in zip(launch_counts(kernels),
+                                              before)]
+            saved = sorted(p.name for p in Path(tmp, tag).iterdir())
+            log("entry_points", cli="train", run=tag,
+                seconds=f"{time.perf_counter() - t0:.1f}",
+                launches_serve_fwd_states_bwd=tuple(launched[:3]),
+                saved=" ".join(saved))
+            if launched != want + [0] * 6:
+                raise AssertionError(f"{tag}: launched {launched}, expected "
+                                     f"{want}")
+        cases = phantom_acdc(*ENTRY_SPEC[:4], ENTRY_SPEC[4])["test"]
+        forwards = sum(math.ceil(len(c["image"]) / test_cli.BATCH_SIZE)
+                       for c in cases)
+        for model, snap, ckpt in (
+                ("ViM_seg", "contrastive_consistency", "best"),
+                ("ViM_seg", "contrastive_consistency", "best2"),
+                ("MambaUnetMask", "mask_pretrain", None)):
+            before = launch_counts(kernels)
+            t0 = time.perf_counter()
+            out = test_cli.run_inference(test_cli.build_parser().parse_args([
+                "--model", model, "--patch_size", str(PATCH), str(PATCH),
+                "--checkpoint", f"{tmp}/{snap}", "--device", "cuda",
+                *(["--ckpt_name", ckpt] if ckpt else [])]), dataset=cases)
+            launched = [a - b for a, b in zip(launch_counts(kernels),
+                                              before)]
+            log("entry_points", cli="test", model=model,
+                ckpt_name=ckpt or "newest",
+                seconds=f"{time.perf_counter() - t0:.1f}", volumes=len(cases),
+                mean_dice=f"{out['mean'][0]:.4f}",
+                scan_launches=sum(launched))
+            if (launched != [n * forwards] + [0] * 8
+                    or not np.isfinite(out["per_case"]).all()):
+                raise AssertionError(f"cli.test --model {model}: launches "
+                                     f"{launched}, metrics {out['mean']}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2843,28 +3454,51 @@ def main() -> int:
                "weak_scribble")
 
     # --- Weak-Mamba-UNet (scribble supervision), from-scratch trainability
-    # under AdamW, then the weak step card vs CPU: last, so that its CPU
-    # backward does not share the host with a timed phase
+    # under AdamW
     torch.cuda.empty_cache()
     weak_launches, *_ = weak_scribble_phase(torch, dev)
     phase_done("weak_scribble")
     torch.cuda.empty_cache()
     trainability_phase(torch, dev)
     phase_done("trainability")
+
+    # --- contrastive consistency and the mask model's pretraining: the
+    # kernels at the location pass's cube shapes, the three fits, the CLIs
+    torch.cuda.empty_cache()
+    cube_errs = cc_kernel_shapes_phase(torch, dev)
+    phase_done("cc_kernel_shapes")
+    torch.cuda.empty_cache()
+    cc_launches, *_ = contrastive_consistency_phase(torch, dev)
+    torch.cuda.empty_cache()
+    mask_launches, *_ = mask_pretrain_phase(torch, dev)
+    torch.cuda.empty_cache()
+    cc_mask_launches, *_ = cc_mask_phase(torch, dev)
+    torch.cuda.empty_cache()
+    phase_done("contrastive_consistency, mask_pretrain, cc_mask")
+    cc_entry_points_phase(torch, np, dev)
+    phase_done("entry_points: contrastive_consistency, mask_pretrain")
+
+    # the steps card vs CPU: last, as their CPU backwards would share the
+    # host with a timed phase
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     weak_parity_phase(torch, dev)
+    phase_done("weak_parity")
+    cc_parity_phase(torch, dev)
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32_defaults
-    phase_done("weak_parity")
+    phase_done("cc_parity")
 
     serve_bound = sum(calls * scan_bound("fwd", SERVE_BATCH, L, dg, 4)[0]
                       for L, dg, calls in STAGES)
     pallas = "mamba_unet_tpu/ops/selective_scan_pallas.py"
     # the bidir kernels' launches: their main path's run plus the weak
-    # trio's (model 3)
+    # trio's (model 3), the contrastive pair's, the mask pretraining's and
+    # the mask variant's
+    later = [w + c + m + cm for w, c, m, cm in zip(
+        weak_launches, cc_launches, mask_launches, cc_mask_launches)]
     rows = [dict(name="selective_scan_bidir_fwd",
-                 launches=launches + weak_launches[0],
+                 launches=launches + later[0],
                  max_abs_err=max_err, ms=ms_fwd, plain_ms=plain_ms_fwd,
                  bound_ms=serve_bound,
                  bound_by=scan_bound("fwd", SERVE_BATCH, 3136, 192, 4)[1],
@@ -2873,11 +3507,12 @@ def main() -> int:
                            f":130, {pallas}:229"))]
     for kernel, kind, n, src, where in (
             ("selective_scan_bidir_fwd_states", "fwd_states",
-             train_fwd + weak_launches[1], "selective_scan_bidir_fwd.cu",
+             train_fwd + later[1], "selective_scan_bidir_fwd.cu",
              f"{pallas}:238"),
-            ("selective_scan_bidir_bwd", "bwd", train_bwd + weak_launches[2],
+            ("selective_scan_bidir_bwd", "bwd", train_bwd + later[2],
              "selective_scan_bidir_bwd.cu", f"{pallas}:318")):
         err, ms, plain, bound, by = train_kernels[kind]
+        err = max(err, cube_errs[kind])
         rows.append(dict(name=kernel, launches=n, max_abs_err=err, ms=ms,
                          plain_ms=plain, bound_ms=bound, bound_by=by,
                          source=f"mamba_unet_torch/csrc/{src}",

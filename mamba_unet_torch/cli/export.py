@@ -7,7 +7,8 @@ Port of ``mamba_unet_tpu/cli/export.py``::
         --batch 24 --out vim_bf16_b24.pt2
 
 ``--model`` is any registered model (``ViM_seg`` by default, the UNet
-family, ``ViT_seg``, built for ``--patch_size``). The artifact
+family, ``ViT_seg`` and ``MambaUnetMask``, these two built for
+``--patch_size``). The artifact
 (``utils.export.export_predict``) holds the graph and the weights, with a
 symbolic batch unless ``--batch`` pins one. It runs on the
 device it was exported on (``--device``, default ``cuda``, which raises
@@ -59,14 +60,15 @@ def main(argv=None) -> int:
                         stream=sys.stdout)
     import torch
 
+    from mamba_unet_torch.models.registry import IMG_SIZE_MODELS
     from mamba_unet_torch.utils.checkpoint import load_model_snapshot
     from mamba_unet_torch.utils.device import require_device
     from mamba_unet_torch.utils.export import export_predict, save_exported
 
     if not args.checkpoint:
         logging.warning("no --checkpoint: exporting the seed-0 init")
-    model_kw = ({"img_size": args.patch_size[0]} if args.model == "ViT_seg"
-                else {})
+    model_kw = ({"img_size": args.patch_size[0]}
+                if args.model in IMG_SIZE_MODELS else {})
     model = load_model_snapshot(args.model, args.num_classes,
                                 args.in_channels, args.checkpoint,
                                 device=require_device(args.device),

@@ -19,7 +19,8 @@ too; it is ``eval.inference.test_single_volume`` with the CLI's metrics.
         --save_nii_dir preds/
 
 ``--model`` is any registered model (``ViM_seg``, the UNet family,
-``ViT_seg``, built for ``--patch_size``). ``--device`` defaults to
+``ViT_seg`` and ``MambaUnetMask``, these two built for ``--patch_size``;
+a model with several outputs is served its first). ``--device`` defaults to
 ``cuda`` and raises without a card; ``--device cpu`` runs on the CPU.
 """
 
@@ -79,12 +80,13 @@ def run_inference(args, dataset=None) -> dict:
     default the ``--split`` of the h5 set under ``--root_path``)."""
     from mamba_unet_torch.data.acdc import VolumeDataset
     from mamba_unet_torch.data.nifti import write_nifti
+    from mamba_unet_torch.models.registry import IMG_SIZE_MODELS
     from mamba_unet_torch.utils.checkpoint import load_model_snapshot
     from mamba_unet_torch.utils.device import require_device
     from mamba_unet_torch.utils.export import make_predict_fn
 
-    model_kw = ({"img_size": args.patch_size[0]} if args.model == "ViT_seg"
-                else {})
+    model_kw = ({"img_size": args.patch_size[0]}
+                if args.model in IMG_SIZE_MODELS else {})
     model = load_model_snapshot(args.model, args.num_classes, 1,
                                 args.checkpoint,
                                 device=require_device(args.device),

@@ -1,10 +1,11 @@
 """Training CLI for the PyTorch port.
 
 Port of ``mamba_unet_tpu/cli/train.py`` for ``--method fully_supervised``,
-``mean_teacher``, ``uamt``, ``cross_teaching`` (Semi-Mamba-UNet) and
-``weak_scribble`` (Weak-Mamba-UNet) and the models ``ViM_seg``/
-``mambaunet``, the UNet family (``unet``, ``unet_ds``, ``unet_urpc``,
-``unet_cct``, ``TLunet``) and ``ViT_seg`` (Swin-UNet), with that CLI's
+``mean_teacher``, ``uamt``, ``cross_teaching`` (Semi-Mamba-UNet),
+``weak_scribble`` (Weak-Mamba-UNet), ``contrastive_consistency`` and
+``mask_pretrain``, and the models ``ViM_seg``/``mambaunet``, the UNet
+family (``unet``, ``unet_ds``, ``unet_urpc``, ``unet_cct``, ``TLunet``),
+``ViT_seg`` (Swin-UNet) and ``MambaUnetMask``, with that CLI's
 flags for these paths plus ``--device`` (default ``cuda``; it raises when
 there is no card rather than run on the CPU). ``--model`` defaults to
 ``unet``, as there. Other methods raise "not ported yet". The
@@ -18,8 +19,22 @@ a synthetic set, else the slices of ``--labeled_num`` ACDC patients.
 ``ViM_seg``), initialized from ``--seed``, ``+ 1`` and ``+ 2``, on
 shuffled batches whose label is the scribble (4 = unlabeled; rotation
 fills the corners with it), validated on the dense labels;
-``--weak_pce_only`` drops its pseudo-label Dice. ``scan_impl`` and
-``drop_path`` reach only the models that take them.
+``--weak_pce_only`` drops its pseudo-label Dice.
+``contrastive_consistency`` trains ``--model`` and a second model
+(``--model2``, default ``--model``, from ``--seed + 1``) with their
+projectors on two-stream batches of CTAugment views (``CTAugment`` and
+``CTATransform`` seeded with ``--seed``; the learned rates are written
+to ``cta_state.json`` beside each periodic checkpoint and read back on
+``--resume``). ``mask_pretrain`` pretrains a ``MambaUnetMask`` without
+labels on shuffled batches (cubes of ``--cube_size``, ``--masked_rate``
+of them masked). ``--mask_recovery`` acts only with ``--method
+magicnet``, which is not ported: the flag raises (the JAX CLI ignores it
+for the other methods; the contrastive trainer's mask variant is reached
+through its Python API). ``scan_impl`` and ``drop_path`` reach only the
+models that take them; ``ViT_seg`` and ``MambaUnetMask`` are built for
+``--patch_size``, ``MambaUnetMask`` for ``--cube_size``. Every method
+trains under ``--optimizer`` (the JAX CLI gives ``mask_pretrain`` its
+default poly-SGD whatever the flag says).
 ``--synthetic`` trains on in-memory phantom slices
 (``data.synthetic.phantom_acdc``; ``--synthetic_hard`` the hard phantom)
 instead of writing an h5 set. ``--scan_impl`` picks SS2D's scan branch:
@@ -28,8 +43,11 @@ time-major grouped ones), ``folded`` (the batch-folded ones, at every
 batch) or ``xla`` (the JAX route's name for the tm branch's function;
 the port runs it as the tm branch). ``--pretrained_ckpt`` warm-starts from
 an upstream torch ``.pth`` (``utils.convert.load_upstream_state``, decoder
-mirrored from the encoder) into ``ViM_seg`` or ``ViT_seg`` (the first
-model of a multi-model method). ``--exp`` is accepted and stored for
+mirrored from the encoder) into ``ViM_seg`` or ``ViT_seg``: the first
+model of a multi-model method, and the second of ``cross_teaching`` and
+``contrastive_consistency`` when it takes the warm start too (the
+reference's scripts load it into both networks; the JAX CLI into the
+first only). ``--exp`` is accepted and stored for
 command-line compatibility with the JAX CLI, which reads it nowhere else
 either. Activation recomputation (``use_remat``) is a model option, as in
 the JAX package, and has no flag.
@@ -48,6 +66,10 @@ the JAX package, and has no flag.
         --model ViM_seg --model2 unet --bf16 --patch_size 224 224
     python -m mamba_unet_torch.cli.train --method weak_scribble \\
         --synthetic --bf16 --patch_size 224 224 --batch_size 24
+    python -m mamba_unet_torch.cli.train --method contrastive_consistency \\
+        --model ViM_seg --synthetic --bf16 --patch_size 224 224
+    python -m mamba_unet_torch.cli.train --method mask_pretrain \\
+        --model MambaUnetMask --synthetic --bf16 --patch_size 224 224
 """
 
 from __future__ import annotations
@@ -57,12 +79,16 @@ import logging
 import sys
 
 PORTED_METHODS = ("fully_supervised", "mean_teacher", "uamt",
-                  "cross_teaching", "weak_scribble")
+                  "cross_teaching", "weak_scribble",
+                  "contrastive_consistency", "mask_pretrain")
+# the methods that train on two-stream (labeled, then unlabeled) batches
+TWO_STREAM_METHODS = ("mean_teacher", "uamt", "cross_teaching",
+                      "contrastive_consistency")
 # the models that --pretrained_ckpt warm-starts (their network's root:
 # mamba_unet, swin_unet)
 WARM_START_MODELS = ("ViM_seg", "mambaunet", "ViT_seg")
 MODELS = ("ViM_seg", "mambaunet", "unet", "unet_ds", "unet_urpc", "unet_cct",
-          "TLunet", "ViT_seg")
+          "TLunet", "ViT_seg", "MambaUnetMask")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -93,13 +119,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight_decay", type=float, default=None,
                    help="default: 1e-4 (sgd) / 0.05 (adamw)")
     p.add_argument("--model2", type=str, default=None, choices=MODELS,
-                   help="the second model: cross_teaching's (default: "
-                        "--model) and weak_scribble's (default: ViT_seg)")
+                   help="the second model: cross_teaching's and "
+                        "contrastive_consistency's (default: --model) and "
+                        "weak_scribble's (default: ViT_seg)")
     p.add_argument("--model3", type=str, default=None, choices=MODELS,
                    help="weak_scribble's third model (default: ViM_seg)")
     p.add_argument("--weak_pce_only", action="store_true",
                    help="weak_scribble ablation: the scribble pCE alone, "
                         "no pseudo-label Dice")
+    p.add_argument("--cube_size", type=int, default=32,
+                   help="mask_pretrain's cube side (MambaUnetMask: a "
+                        "multiple of 32)")
+    p.add_argument("--masked_rate", type=float, default=0.25,
+                   help="mask_pretrain: the share of cubes masked")
+    p.add_argument("--mask_recovery", action="store_true",
+                   help="magicnet's recovery losses; --method magicnet is "
+                        "not ported, so the flag raises")
     p.add_argument("--patch_size", type=int, nargs=2, default=[256, 256])
     p.add_argument("--num_classes", type=int, default=4)
     p.add_argument("--seed", type=int, default=1337)
@@ -162,7 +197,11 @@ def _model_kwargs(args, name: str, seed: int) -> dict:
     ``drop_path`` only where the model takes them."""
     import torch
 
-    from mamba_unet_torch.models.registry import DROP_PATH_MODELS, SCAN_MODELS
+    from mamba_unet_torch.models.registry import (
+        DROP_PATH_MODELS,
+        IMG_SIZE_MODELS,
+        SCAN_MODELS,
+    )
 
     kw = {"num_classes": args.num_classes,
           "generator": torch.Generator().manual_seed(seed)}
@@ -170,8 +209,10 @@ def _model_kwargs(args, name: str, seed: int) -> dict:
         kw["scan_impl"] = args.scan_impl
     if name in DROP_PATH_MODELS and args.drop_path is not None:
         kw["drop_path_rate"] = args.drop_path
-    if name == "ViT_seg":
+    if name in IMG_SIZE_MODELS:
         kw["img_size"] = args.patch_size[0]
+    if name == "MambaUnetMask":
+        kw["cube_size"] = args.cube_size
     return kw
 
 
@@ -183,6 +224,13 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             f"--method {args.method} is not ported yet; ported: "
             f"{', '.join(PORTED_METHODS)}")
+    if args.mask_recovery:
+        raise NotImplementedError(
+            f"--mask_recovery acts only with --method magicnet, which is not "
+            f"ported yet (the JAX CLI ignores it with --method "
+            f"{args.method}); the contrastive trainer's mask variant is "
+            f"reached through ContrastiveConsistencyTrainer(mask_recovery="
+            f"True)")
     if args.pretrained_ckpt and args.model not in WARM_START_MODELS:
         raise NotImplementedError(
             f"--pretrained_ckpt warm-starts {', '.join(WARM_START_MODELS)}; "
@@ -205,6 +253,8 @@ def main(argv=None) -> int:
     from mamba_unet_torch.data.synthetic import phantom_acdc
     from mamba_unet_torch.models import net_factory
     from mamba_unet_torch.train import (
+        ContrastiveConsistencyTrainer,
+        MaskPretrainTrainer,
         TrainConfig,
         Trainer,
         WeakScribbleTrainer,
@@ -214,7 +264,7 @@ def main(argv=None) -> int:
 
     device = require_device(args.device)
     weak = args.method == "weak_scribble"
-    semi = args.method not in ("fully_supervised", "weak_scribble")
+    semi = args.method in TWO_STREAM_METHODS
     cfg = TrainConfig(
         base_lr=args.base_lr, max_iterations=args.max_iterations,
         batch_size=args.batch_size, patch_size=tuple(args.patch_size),
@@ -226,8 +276,17 @@ def main(argv=None) -> int:
     # weak_scribble trains on the scribbles, which rotation pads with the
     # ignore index; val keeps the dense labels
     sup_type = "scribble" if weak else "label"
-    transform = RandomGenerator(cfg.patch_size, seed=args.seed,
-                                label_cval=args.num_classes if weak else 0)
+    cta = None
+    if args.method == "contrastive_consistency":
+        from mamba_unet_torch.data.cta_transform import CTATransform
+        from mamba_unet_torch.data.ctaugment import CTAugment
+
+        cta = CTAugment(seed=args.seed)
+        transform = CTATransform(cfg.patch_size, cta, seed=args.seed)
+    else:
+        transform = RandomGenerator(cfg.patch_size, seed=args.seed,
+                                    label_cval=args.num_classes if weak
+                                    else 0)
     # the semi-supervised methods train on every slice; --labeled_slices
     # marks their labeled ones instead of cutting the set
     n_sup = (args.labeled_slices if args.method == "fully_supervised"
@@ -261,13 +320,18 @@ def main(argv=None) -> int:
             range(n_labeled), range(n_labeled, len(train_ds)),
             cfg.batch_size, cfg.batch_size - args.labeled_bs, seed=args.seed)
         model2 = None
-        if args.method == "cross_teaching":
+        if args.method in ("cross_teaching", "contrastive_consistency"):
             name2 = args.model2 or args.model
             model2 = net_factory(name2, **_model_kwargs(args, name2,
                                                         args.seed + 1))
-        trainer = build_semi_method(args, model, cfg, model2=model2,
-                                    make_optimizer=make_optimizer,
-                                    device=device)
+        if args.method == "contrastive_consistency":
+            trainer = ContrastiveConsistencyTrainer(
+                model, cfg, model2=model2, labeled_bs=args.labeled_bs,
+                make_optimizer=make_optimizer, device=device)
+        else:
+            trainer = build_semi_method(args, model, cfg, model2=model2,
+                                        make_optimizer=make_optimizer,
+                                        device=device)
     elif weak:
         sampler = EpochShuffleSampler(len(train_ds), cfg.batch_size,
                                       seed=args.seed)
@@ -280,6 +344,13 @@ def main(argv=None) -> int:
                                                       args.seed + 2)),
             pce_only=args.weak_pce_only, make_optimizer=make_optimizer,
             device=device)
+    elif args.method == "mask_pretrain":
+        sampler = EpochShuffleSampler(len(train_ds), cfg.batch_size,
+                                      seed=args.seed)
+        trainer = MaskPretrainTrainer(
+            model, cfg, cube_size=args.cube_size,
+            masked_rate=args.masked_rate, make_optimizer=make_optimizer,
+            device=device)
     else:
         sampler = EpochShuffleSampler(len(train_ds), cfg.batch_size,
                                       seed=args.seed)
@@ -291,13 +362,22 @@ def main(argv=None) -> int:
             load_upstream_state,
         )
 
-        report = load_upstream_state(
-            trainer.model, load_torch_checkpoint(args.pretrained_ckpt))
-        logging.info("pretrained: loaded %d tensors, %d missing, %d "
-                     "shape-skipped", len(report["loaded"]),
-                     len(report["missing"]), len(report["shape_skipped"]))
+        sd = load_torch_checkpoint(args.pretrained_ckpt)
+        targets = [("", trainer.model)]
+        if (args.method in ("cross_teaching", "contrastive_consistency")
+                and (args.model2 or args.model) in WARM_START_MODELS):
+            targets.append((" model2", trainer.model2))
+        for tag, net in targets:
+            report = load_upstream_state(net, sd)
+            logging.info(f"pretrained{tag}: loaded %d tensors, %d missing, "
+                         f"%d shape-skipped", len(report["loaded"]),
+                         len(report["missing"]),
+                         len(report["shape_skipped"]))
     loader = Loader(train_ds, sampler, device=device)
-    result = trainer.fit(loader, val_ds)
+    if cta is not None:
+        result = trainer.fit(loader, val_ds, cta=cta, cta_transform=transform)
+    else:
+        result = trainer.fit(loader, val_ds)
     logging.info("done: %d iterations, best val dice %.4f",
                  result["iterations"], result["best_dice"])
     return 0

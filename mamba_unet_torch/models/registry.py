@@ -21,10 +21,19 @@ _LAZY: Dict[str, Tuple[str, str]] = {
     "unet_cct": ("mamba_unet_torch.models.unet", "UNetCCT"),
     "TLunet": ("mamba_unet_torch.models.unet", "TLUNet"),
     "ViT_seg": ("mamba_unet_torch.models.swin_unet", "SwinUnet"),
+    "MambaUnetMask": ("mamba_unet_torch.models.mamba_mask", "MambaUnetMask"),
+    "projector": ("mamba_unet_torch.models.small_nets", "Projectors"),
+    "classifier": ("mamba_unet_torch.models.small_nets", "Classifier"),
+    "Jigsaw_classifier": ("mamba_unet_torch.models.small_nets",
+                          "JigsawClassifier"),
+    "pnet": ("mamba_unet_torch.models.small_nets", "PNet2D"),
 }
-# the models that take SS2D's scan_impl, and those with stochastic depth
-SCAN_MODELS = frozenset({"ViM_seg", "mambaunet"})
-DROP_PATH_MODELS = frozenset({"ViM_seg", "mambaunet", "ViT_seg"})
+# the models that take SS2D's scan_impl, those with stochastic depth, and
+# those built for one input size (img_size)
+SCAN_MODELS = frozenset({"ViM_seg", "mambaunet", "MambaUnetMask"})
+DROP_PATH_MODELS = frozenset({"ViM_seg", "mambaunet", "ViT_seg",
+                              "MambaUnetMask"})
+IMG_SIZE_MODELS = frozenset({"ViT_seg", "MambaUnetMask"})
 
 
 def list_models():
@@ -35,7 +44,8 @@ def net_factory(net_type: str, **kwargs) -> nn.Module:
     """Build a model by registry name with keyword overrides (``device``,
     ``generator``, ``num_classes``, ``in_chans``; ``scan_impl`` and
     ``use_remat`` for the Mamba models, ``drop_path_rate`` for those in
-    :data:`DROP_PATH_MODELS`, ``img_size`` for ``ViT_seg``, ...)."""
+    :data:`DROP_PATH_MODELS`, ``img_size`` for those in
+    :data:`IMG_SIZE_MODELS`, ...)."""
     if net_type not in _LAZY:
         raise KeyError(f"unknown model {net_type!r}; known: {list_models()}")
     module, attr = _LAZY[net_type]

@@ -1,4 +1,5 @@
-"""Shared initializers, ``DropPath``, ``Dropout`` and ``BatchNorm2d``.
+"""Shared initializers, ``DropPath``, ``Dropout``, ``BatchNorm2d`` and
+``BatchNorm1d``.
 
 Port of ``mamba_unet_tpu/nn/layers.py``, plus flax's ``nn.Dropout`` and
 ``nn.BatchNorm`` as the UNet family and Swin-UNet use them. Initializers
@@ -156,6 +157,36 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)
         return y
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """flax ``nn.BatchNorm`` on (B, C) features (after a ``Dense``), as
+    :class:`BatchNorm2d`, but normalizing in training with flax's own
+    arithmetic in fp32: var = mean(x²) - mean(x)² (flax's fast variance,
+    floored at 0), y = (x - mean) * rsqrt(var + eps) * scale + bias. At a
+    batch of a few rows a feature's variance can be of the order of eps,
+    where y follows every rounding of var; and rows that are all equal
+    (the position embedding's identity ids, the same for every sample)
+    normalize to exactly 0, where ``F.batch_norm`` leaves ~1e-5 of noise
+    that the layers after it amplify."""
+
+    def __init__(self, num_features: int, *, device=None):
+        super().__init__(num_features, eps=1e-5, momentum=0.01,
+                         device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = x.float()
+        mean = xf.mean(0)
+        var = ((xf * xf).mean(0) - mean * mean).clamp_min(0.0)
+        y = ((xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+             + self.bias)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 def set_generator(model: nn.Module,

@@ -28,12 +28,13 @@ class VSSBlock(nn.Module):
     backward instead of kept."""
 
     def __init__(self, hidden_dim: int, drop_path: float = 0.0,
-                 scan_impl: str = "auto", use_remat: bool = False, *,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 scan_impl: str = "auto", use_remat: bool = False,
+                 d_state: int = 16, *, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.use_remat = use_remat
         self.ln_1 = nn.LayerNorm(hidden_dim, eps=1e-5, device=device)
-        self.self_attention = SS2D(hidden_dim, scan_impl=scan_impl,
+        self.self_attention = SS2D(hidden_dim, d_state, scan_impl=scan_impl,
                                    device=device, generator=generator)
         self.drop_path = DropPath(drop_path)
 
@@ -56,12 +57,13 @@ class VSSLayer(nn.Module):
 
     def __init__(self, dim: int, depth: int, drop_path: Sequence[float] = (),
                  downsample: bool = False, upsample: bool = False,
-                 scan_impl: str = "auto", use_remat: bool = False, *,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 scan_impl: str = "auto", use_remat: bool = False,
+                 d_state: int = 16, *, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.blocks = nn.ModuleList(
             VSSBlock(dim, drop_path[i] if i < len(drop_path) else 0.0,
-                     scan_impl, use_remat, device=device,
+                     scan_impl, use_remat, d_state, device=device,
                      generator=generator)
             for i in range(depth))
         self.downsample = (PatchMerging2D(dim, device=device,

@@ -24,9 +24,15 @@ The hooks the semi-supervised and weakly-supervised methods
 ``_reseed`` (a further stream of the step's seed), ``_members`` (each
 trained network with its optimizer and schedule: the periodic checkpoint
 carries them all, and each is evaluated with its own best checkpoint,
-``best``, ``best2``, ...; ``_load_best_marks(names)`` reads their marks)
-and ``_periodic_tree``/``_load_periodic`` (what else the periodic
-checkpoint carries).
+``best``, ``best2``, ...; ``_load_best_marks(names)`` reads their marks),
+``_periodic_tree``/``_load_periodic`` (what else the periodic checkpoint
+carries), ``_save_periodic`` (what else is written beside it) and
+``_after_step`` (host-side work after each step). :func:`zero_unreached_grads`
+gives the parameters a step's loss does not reach a zero gradient, so that
+the optimizer still decays them, as the JAX step does with its zero
+gradients (``torch.optim.SGD`` skips a parameter whose ``grad`` is None);
+:func:`call_discarding_stats` runs a pass whose BatchNorm statistics the
+step throws away.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from mamba_unet_torch.eval.inference import evaluate_slice_volumes
 from mamba_unet_torch.nn.layers import set_generator
@@ -101,6 +108,36 @@ def _step_seed(seed: int, step: int, *stream: int) -> int:
     state = np.random.SeedSequence([seed, step, *stream]).generate_state(
         1, np.uint64)
     return int(state[0]) >> 1
+
+
+def zero_unreached_grads(*modules: nn.Module) -> None:
+    """A zero ``grad`` for every trainable parameter of ``modules`` that the
+    backward did not reach."""
+    for module in modules:
+        for p in module.parameters():
+            if p.requires_grad and p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+
+class _Method(nn.Module):
+    """``module.<method>`` as a module's forward, for ``functional_call``."""
+
+    def __init__(self, module: nn.Module, method: str):
+        super().__init__()
+        self.module, self.method = module, method
+
+    def forward(self, *args):
+        return getattr(self.module, self.method)(*args)
+
+
+def call_discarding_stats(module: nn.Module, method: str, *args):
+    """``module.<method>(*args)`` in the module's current mode, with its
+    buffers replaced by copies that are then thrown away: a train-mode
+    BatchNorm normalizes with the batch's statistics as usual, but its
+    running statistics keep their values (a JAX step that drops the
+    ``batch_stats`` an apply returns). Gradients reach the parameters."""
+    buffers = {f"module.{n}": b.clone() for n, b in module.named_buffers()}
+    return functional_call(_Method(module, method), buffers, args)
 
 
 OptimizerFactory = Callable[[Any], Tuple[torch.optim.Optimizer, Any]]
@@ -226,6 +263,10 @@ class Trainer:
             opt.load_state_dict(tree[f"optimizer{_suffix(i)}"])
             sched.load_state_dict(tree[f"scheduler{_suffix(i)}"])
 
+    def _save_periodic(self, it: int) -> None:
+        """Write the periodic checkpoint of step ``it``."""
+        save_checkpoint(self.config.snapshot_dir, it, self._periodic_tree())
+
     def try_resume(self) -> int:
         """Restore the newest periodic checkpoint of ``snapshot_dir`` when
         ``resume``; returns the step, or 0 when there is none."""
@@ -252,6 +293,11 @@ class Trainer:
         return [float(marks.get(n, 0.0)) for n in names]
 
     # --- the loop -----------------------------------------------------------
+    def _after_step(self, batch: Dict[str, torch.Tensor],
+                    logs: Dict[str, Any]) -> None:
+        """Called by :meth:`fit` after each step, before its log and eval;
+        nothing here."""
+
     def fit(self, train_loader, val_dataset=None) -> Dict[str, Any]:
         """Train to ``max_iterations``; returns ``iterations``, ``history``
         and ``best_dice`` (``best_dice2``, ... for further models)."""
@@ -270,6 +316,7 @@ class Trainer:
                 break
             logs = self.train_step(batch)
             it = self.step
+            self._after_step(batch, logs)
             if it % cfg.log_every == 0 or it == 1:
                 loss = float(logs["loss_total"])
                 log.info("iter %d loss %.4f lr %.5f (%.1f it/s)", it, loss,
@@ -290,7 +337,7 @@ class Trainer:
                             save_best_marks(cfg.snapshot_dir, {name: dice})
                 history.append(entry)
             if cfg.snapshot_dir and it % cfg.ckpt_every == 0:
-                save_checkpoint(cfg.snapshot_dir, it, self._periodic_tree())
+                self._save_periodic(it)
         result = {"iterations": self.step, "history": history}
         result.update({"best_dice" + name[len("best"):]: value
                        for name, value in best.items()})

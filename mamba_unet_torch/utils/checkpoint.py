@@ -1,7 +1,8 @@
 """Checkpoints and model snapshots.
 
 Port of ``save_checkpoint``, ``latest_step``, ``restore_checkpoint``,
-``save_best_marks``, ``load_best_marks`` and ``load_model_snapshot`` from
+``save_best_marks``, ``load_best_marks``, ``save_cta_state``,
+``load_cta_state`` and ``load_model_snapshot`` from
 ``mamba_unet_tpu/utils/checkpoint.py``. Where the JAX package writes an
 orbax directory, the port writes one ``torch.save`` file, under the same
 ``{directory}/{name}_{step}`` name, and reads it back with
@@ -89,6 +90,56 @@ def load_best_marks(directory: str) -> Dict[str, float]:
         # TypeError: non-numeric values; AttributeError: the top level is
         # not an object. Both count as unreadable.
         return {}
+
+
+_CTA_STATE_FILE = "cta_state.json"
+
+
+def save_cta_state(directory: str, cta) -> str:
+    """Write a CTAugment policy's learned state (depth, th, decay and the
+    per-op bin rates) to {directory}/cta_state.json, atomically: the same
+    JSON file as the JAX package writes. A resumed contrastive run without
+    it would forget every learned augmentation rate."""
+    import numpy as np
+
+    os.makedirs(directory, exist_ok=True)
+    sd = cta.state_dict()
+    payload = {
+        "depth": int(sd["depth"]),
+        "th": float(sd["th"]),
+        "decay": float(sd["decay"]),
+        "rates": {k: [np.asarray(r).tolist() for r in bins]
+                  for k, bins in sd["rates"].items()},
+    }
+    path = os.path.join(directory, _CTA_STATE_FILE)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(payload, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    return path
+
+
+def load_cta_state(directory: str, cta) -> bool:
+    """Restore a policy written by :func:`save_cta_state` into ``cta``;
+    True when the file was there."""
+    import numpy as np
+
+    path = os.path.join(directory, _CTA_STATE_FILE)
+    try:
+        with open(path) as f:
+            payload = json.load(f)
+    except OSError:
+        return False
+    cta.load_state_dict({
+        "depth": int(payload["depth"]),
+        "th": float(payload["th"]),
+        "decay": float(payload["decay"]),
+        "rates": {k: tuple(np.asarray(r, dtype="f") for r in bins)
+                  for k, bins in payload["rates"].items()},
+    })
+    return True
 
 
 def load_model_snapshot(

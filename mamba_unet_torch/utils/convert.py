@@ -10,7 +10,16 @@ UNet family (``encoder``, ``decoder``, ``main_decoder``,
 ``aux_decoder{i}``, ``mask_encoder``, ``mask_decoder``; ``in_conv``,
 ``down{i}`` -> ``down{i}.maxpool_conv.1``, ``up{i}``, ``out_conv``,
 ``out_conv_dp{k}``; a conv block's ``Conv_0``, ``BatchNorm_0``, ``Conv_1``,
-``BatchNorm_1`` -> ``conv_conv.{0,1,4,5}``) and any of their submodules.
+``BatchNorm_1`` -> ``conv_conv.{0,1,4,5}``), ``MambaUnetMask``
+(``encoder``; the ``decoder``'s ``first_expand``, ``stages_{j}``,
+``upsamples_{j}`` -> ``layers_up.0``, ``layers_up.{j+1}``,
+``layers_up.{j+1}.upsample``; the ``BatchNorm_0`` of ``fc_layer``,
+``pos_embed_layer``, ``mix_out_layer`` -> ``bn``), the small nets
+(``_ConvBNRelu_{i}`` -> ``blocks.{i}``, then ``conv_conv.{0,1}``; P-Net's
+``block{k}`` with ``conv1``, ``conv2``, ``BatchNorm_0``, ``BatchNorm_1``
+-> ``bn1``, ``bn2``) and any of their submodules. The map is a function
+of the path: a name is looked up with its parent's name first
+(``_IN_PARENT``), then alone.
 The key map lives here, so the port does not import the JAX package.
 
 Layout transforms (flax -> torch):
@@ -46,15 +55,31 @@ import numpy as np
 import torch
 
 # flax module name -> torch module path; {0} is the index in the flax name
+# (a callable takes it as a string)
 _INDEXED = (
     (re.compile(r"layers_up_(\d+)$"), "layers_up.{0}"),
+    # MambaUnetMask's decoder builds its stages and upsamples as lists;
+    # the port holds them as VSSM does, after the first expand
+    (re.compile(r"stages_(\d+)$"), lambda i: f"layers_up.{int(i) + 1}"),
+    (re.compile(r"upsamples_(\d+)$"),
+     lambda i: f"layers_up.{int(i) + 1}.upsample"),
+    (re.compile(r"_ConvBNRelu_(\d+)$"), "blocks.{0}"),
     (re.compile(r"layers_(\d+)$"), "layers.{0}"),
     (re.compile(r"blocks_(\d+)$"), "blocks.{0}"),
     (re.compile(r"downsample_(\d+)$"), "layers.{0}.downsample"),
     (re.compile(r"upsample_(\d+)$"), "layers_up.{0}.upsample"),
     (re.compile(r"concat_back_dim_(\d+)$"), "concat_back_dim.{0}"),
     (re.compile(r"down(\d+)$"), "down{0}.maxpool_conv.1"),
-    (re.compile(r"(up\d+|aux_decoder\d+|out_conv_dp\d+)$"), "{0}"),
+    (re.compile(r"(up\d+|aux_decoder\d+|out_conv_dp\d+|block\d+)$"), "{0}"),
+)
+# (parent flax name pattern, flax name) -> torch name, before the renames:
+# the mask heads' and P-Net blocks' BatchNorms (elsewhere a BatchNorm_i is
+# the UNet conv block's)
+_IN_PARENT = (
+    (re.compile(r"(fc_layer|pos_embed_layer|mix_out_layer)$"), "BatchNorm_0",
+     "bn"),
+    (re.compile(r"block\d+$"), "BatchNorm_0", "bn1"),
+    (re.compile(r"block\d+$"), "BatchNorm_1", "bn2"),
 )
 _RENAMED = {"vssm": "mamba_unet", "first_expand": "layers_up.0",
             "Conv_0": "conv_conv.0", "BatchNorm_0": "conv_conv.1",
@@ -65,7 +90,9 @@ _PLAIN = frozenset({
     "reduction", "ln_1", "self_attention", "in_proj", "out_proj", "conv2d",
     "out_norm", "swin_unet", "attn", "qkv", "norm1", "norm2", "encoder",
     "decoder", "main_decoder", "mask_encoder", "mask_decoder", "in_conv",
-    "conv", "out_conv",
+    "conv", "out_conv", "emb_conv", "fc_layer", "pos_embed_layer",
+    "mix_out_layer", "fc", "fc1", "fc2", "final", "conv1", "conv2",
+    "cat_conv1", "cat_conv2", "out_conv1", "out_conv2",
 })
 _RAW_LEAVES = frozenset({"x_proj_weight", "dt_projs_weight", "dt_projs_bias",
                          "A_logs", "Ds", "bias",
@@ -77,8 +104,13 @@ def torch_key(path: str) -> str:
     """Port ``state_dict`` key for a ``"/"``-joined flax parameter path."""
     *mods, leaf = path.split("/")
     out = []
-    for name in mods:
-        if name in _RENAMED:
+    for depth, name in enumerate(mods):
+        parent = mods[depth - 1] if depth else ""
+        scoped = next((torch_name for pat, flax_name, torch_name in _IN_PARENT
+                       if name == flax_name and pat.match(parent)), None)
+        if scoped is not None:
+            out.append(scoped)
+        elif name in _RENAMED:
             out.append(_RENAMED[name])
         elif name in _PLAIN:
             out.append(name)
@@ -86,7 +118,8 @@ def torch_key(path: str) -> str:
             for pat, fmt in _INDEXED:
                 hit = pat.match(name)
                 if hit:
-                    out.append(fmt.format(hit.group(1)))
+                    out.append(fmt(hit.group(1)) if callable(fmt)
+                               else fmt.format(hit.group(1)))
                     break
             else:
                 raise KeyError(f"no port module for flax name {name!r} "

@@ -959,3 +959,98 @@ def test_weak_fit_evaluates_model3_through_the_serving_kernel(cuda,
                 if "val_dice" in h]
         assert len(dice) == 2
         assert (f"{name}_1" in saved) == (dice[0] > 0), (name, dice, saved)
+
+
+# (L, dg) of the mask-pretraining location pass at 224²: the encoder's four
+# stages on a 32² cube, batch 24 x 49 cubes
+CUBE_STAGES = [(64, 192), (16, 384), (4, 768), (1, 1536)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L,dg", CUBE_STAGES)
+def test_training_kernels_at_the_cube_shapes(cuda, dtype, L, dg):
+    """The state-saving forward and the backward at batch 1176 and the
+    location pass's (L, dg), against their plain versions, by the rule of
+    the other training-kernel tests."""
+    dt = getattr(torch, dtype)
+    args = [a.to(cuda) for a in _args(1176, L, dg, seed=L)]
+    for i in (0, 1, 3, 4):
+        args[i] = args[i].to(dt)
+    gy = torch.randn(1176, 2, L, dg, generator=torch.Generator()
+                     .manual_seed(1)).to(cuda)
+    y, cs = selective_scan_bidir_fwd_states(*args)
+    y_ref, cs_ref = selective_scan_bidir_states_ref(*args)
+    assert_close_to_max(y, y_ref, 1e-4, "y")
+    assert_close_to_max(cs, cs_ref, 1e-4, "cs")
+    got = selective_scan_bidir_bwd(*args, cs, gy)
+    want = selective_scan_bidir_bwd_ref(*args, gy)
+    for name, g, w in zip(ARG_NAMES, got, want):
+        assert_close_to_max(g, w, 1e-3 if name in SUMMED else 1e-4, name)
+
+
+def _toy_mask(dev, seed=0):
+    from mamba_unet_torch.models.mamba_mask import MambaUnetMask
+
+    model = MambaUnetMask(num_classes=4, cube_size=32, patch_size=64,
+                          depths=(1, 1, 1, 1), dims=(8, 16, 32, 64),
+                          drop_path_rate=0.0,
+                          generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():  # a position embedding that is not 0
+        model.pos_embed_layer.bn.bias.fill_(1.0)
+    return model.to(dev)
+
+
+@pytest.mark.cuda
+def test_mamba_mask_logits_and_pretrain_gradients_on_card_match_cpu(cuda):
+    """A toy MambaUnetMask (64², 32² cubes), fp32 with TF32 off: eval-mode
+    logits and global embedding card vs CPU (1e-4), then one mask-
+    pretraining step at batch 8, the same draws on both sides: the losses
+    (1e-5) and every gradient within 1e-3 of the model's largest (the mix
+    head's decoder gradients, ~1e-7, carry the rounding of the large ones;
+    the Dense biases feeding its BatchNorms are exact zeros); 3 x 7 + 4
+    state-saving forward and backward launches (4 blocks per encoder, 3
+    per decoder)."""
+    from mamba_unet_torch.train import MaskPretrainTrainer, TrainConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(2)
+    x = torch.rand(8, 64, 64, 1, generator=gen)
+    draws = (torch.rand(8, 4, generator=gen).argsort(1),
+             (torch.rand(8, 4, generator=gen) > 0.25).float())
+    out = {}
+    for tag, dev in (("card", cuda), ("cpu", torch.device("cpu"))):
+        model = _toy_mask(dev).eval()
+        with torch.no_grad():
+            seg, _ = model(x.to(dev))
+            mix = model.forward_mix_pos_mask(x.to(dev))
+        cfg = TrainConfig(base_lr=0.01, max_iterations=10, batch_size=8,
+                          patch_size=(64, 64), num_classes=4, seed=0)
+        trainer = MaskPretrainTrainer(model, cfg, cube_size=32, device=dev)
+        # the same shuffle ids and visibility mask on both sides (the
+        # card's generator draws another stream)
+        trainer._draws = lambda image: (draws[0].to(image.device),
+                                        draws[1].to(image.device))
+        before = [k.launches for k in (selective_scan_bidir,
+                                       selective_scan_bidir_fwd_states,
+                                       selective_scan_bidir_bwd)]
+        logs = trainer.train_step({"image": x})
+        launched = [k.launches - b for k, b in zip(
+            (selective_scan_bidir, selective_scan_bidir_fwd_states,
+             selective_scan_bidir_bwd), before)]
+        out[tag] = (seg.cpu(), mix.cpu(), launched,
+                    {k: float(logs[k]) for k in ("loss_total",
+                                                 "loss_shuffled",
+                                                 "loss_mask", "loss_loc")},
+                    {k: p.grad.cpu()
+                     for k, p in trainer.model.named_parameters()})
+    assert out["card"][2] == [0, 3 * 7 + 4, 3 * 7 + 4]
+    assert_close_to_max(out["card"][0], out["cpu"][0], 1e-4, "seg")
+    assert_close_to_max(out["card"][1], out["cpu"][1], 1e-4, "mix")
+    for k, v in out["cpu"][3].items():
+        assert out["card"][3][k] == pytest.approx(v, rel=1e-5, abs=1e-6), k
+    top = max(g.abs().max().item() for g in out["cpu"][4].values())
+    for k, g in out["cpu"][4].items():
+        err = (out["card"][4][k] - g).abs().max().item()
+        assert err <= 1e-3 * top, (k, err, top)

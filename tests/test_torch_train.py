@@ -382,8 +382,7 @@ def test_train_cli_synthetic_on_cpu(tmp_path):
                                 device="cpu")
     assert not model.training
     with pytest.raises(NotImplementedError):
-        train_cli.main(["--method", "contrastive_consistency", "--device",
-                        "cpu"])
+        train_cli.main(["--method", "magicnet", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("cli", ["train", "test"])
