@@ -8,8 +8,10 @@ artifact and the CLIs, SS2D's xla route among them), then the UNet
 family and Swin-UNet, the semi-supervised methods (Semi-Mamba-UNet's
 cross-teaching, mean teacher and UAMT), the scribble-supervised
 Weak-Mamba-UNet, a from-scratch trainability check, contrastive
-consistency (two ``ViM_seg`` with CTAugment views and projectors) and the
-Mamba mask model's self-supervised pretraining.
+consistency (two ``ViM_seg`` with CTAugment views and projectors), the
+Mamba mask model's self-supervised pretraining, MagicNet (on the Mamba
+mask model, and the 3-D VNet on BTCV-style volumes), and the Mamba LM's
+bf16 compute and exported generation.
 
     python3 chip_smoke.py
 
@@ -141,8 +143,8 @@ exits non-zero; nothing is caught):
               BatchNorm running statistics after the train-mode forward,
               bf16 against fp32 on the card; no scan kernel launches.
 23. cross_teaching_parity - one ``CrossTeachingTrainer`` step of two
-              full-width ``ViM_seg``, batch 4 (2 labeled + 2 unlabeled),
-              fp32 with TF32 off, drop_path 0: the loss and both models'
+              full-width ``ViM_seg``, batch 2 (1 labeled + 1 unlabeled)
+              at 128², fp32 with TF32 off, drop_path 0: the loss and both models'
               every gradient card vs CPU; 28 + 28 bidir training launches.
 24. zoo_training - ``Trainer.fit`` of ``unet`` and ``ViT_seg``, bs24, bf16,
               ZOO_ITERS steps with one eval: a falling loss, moved weights
@@ -203,26 +205,66 @@ exits non-zero; nothing is caught):
               location pass's encoder); the same numbers.
 33. cc_mask - the contrastive trainer's mask variant on a
               ``MambaUnetMask`` pair, a few steps: 98 + 98 launches per
-              step, peak GB and device ms (bs24, or the largest batch of
-              16 and 8 that fits, said on the line).
+              step, peak GB and device ms at bs24.
 34. entry_points - ``cli.train --method contrastive_consistency --model
               ViM_seg`` and ``--method mask_pretrain --model
               MambaUnetMask`` on phantoms, launches checked, then
               ``cli.test`` serving ``best`` and ``best2`` of the first and
               the second's newest checkpoint.
-35. weak_parity - one Weak-Mamba-UNet step of the full-width trio
+35. magicnet_mamba, magicnet_mask - ``MagicNetTrainer.fit`` of
+              full-width ``MambaUnetMask`` (224², 32² cubes, its patch
+              embedding's bias drawn) on two-stream phantom batches, bs24
+              with 8 labeled, bf16, MAGIC_ITERS steps, without and with
+              ``--mask_recovery``: per step 14 serving launches (the EMA
+              teacher) and 42 + 42 bidir training ones (two grad passes,
+              the cube encoder and decoder at batch 1,176), 84 + 84 with
+              the three mix-head passes; finite, falling losses; the class
+              distribution refreshed at step 20 (every unlabeled pixel of
+              20 steps counted); step ms, device ms, busy share and peak
+              GB beside the prediction.
+36. magicnet_3d - ``MagicNetTrainer.fit`` of the 3-D ``magicnet`` at the
+              reference's BTCV protocol (96³, 16 filters, instance norm,
+              14 classes, bs4 with 2 labeled, cubes of 32, fp32) on organ
+              phantoms: no scan launch, weights moved, the same step
+              numbers; then one sliding-window ``validation_all_case`` of
+              a 112³ case (8 windows at stride 16), its seconds and its
+              (1, 13, 4) array.
+37. entry_points - ``cli.train --dataset btcv --method magicnet --model
+              magicnet --synthetic`` (2 steps, ``metric_final.npy`` of (1,
+              13, 4)) and ``--method magicnet --model MambaUnetMask
+              --mask_recovery --synthetic``, launches checked.
+38. lm_bf16 - mamba-130m with compute dtype bf16: one scoring forward (8 x
+              1024) against fp32 on the card (logits within 5 % of the
+              max, greedy agreement), both timed and the bf16 one
+              profiled; 24 grouped launches; then a bf16 greedy
+              ``generate`` of 8 tokens after 4 prompts (24 launches).
+39. lm_export - ``export_lm_generate`` of mamba-130m's width cut to 2
+              layers, for 4 prompts of 128 tokens and 32 greedy new
+              tokens (the export's host time grows with layers x
+              tokens): its seconds, the exported program's tokens equal
+              eager ``generate``'s, ms per token of each, 2 grouped
+              launches per call.
+40. weak_parity - one Weak-Mamba-UNet step of the full-width trio
               (``unet``, ``ViT_seg``, ``ViM_seg``), batch 2 at 224² on
               phantom scribbles, dropout and drop_path 0, fp32 with TF32
               off, the same mix weights and pseudo-labels: the losses and
               the three models' every gradient card vs CPU (unet's against
               its largest gradient: fp32 conditioning); 14 + 14 bidir
               training launches.
-36. cc_parity - one contrastive step of the full-width ``ViM_seg`` pair
-              with its projectors (batch 2), then one mask-pretraining
-              step of ``MambaUnetMask`` (batch 4), fp32 with TF32 off,
-              drop_path 0: the losses and every gradient card vs CPU.
-              35-36 last, as their CPU backwards would share the host with
-              a timed phase.
+41. cc_parity - one contrastive step of the full-width ``ViM_seg`` pair
+              with its projectors (batch 2, 128²), then one mask-
+              pretraining step of ``MambaUnetMask`` (batch 8, 64²), fp32
+              with TF32
+              off, drop_path 0: the losses and every gradient card vs CPU.
+42. magicnet_parity - one MagicNet step card vs CPU, the same draws, of a
+              reduced ``MambaUnetMask`` with ``--mask_recovery`` (depths
+              1, 64², batch 8: 7 + 42 + 42 launches) in fp32 with TF32 off
+              (the losses, the class histograms: argmax ties may move a
+              few pixels, every gradient within MODEL_GRAD_TOL of its
+              model's largest) and of a reduced 3-D ``magicnet`` (32³,
+              cubes of 16, batch 2) in fp64 (the losses, the histogram
+              and every gradient within MAGIC3D_FP64_TOL). 40-42 last, as their CPU backwards would
+              share the host with a timed phase.
 
 ``[phase_seconds]`` follows each group of phases. Then one JSON line with
 the kernel table, and the last line ``{"ok": true, "device": {...}}``. It
@@ -327,12 +369,22 @@ LM_PROMPTS, LM_PROMPT_LEN, LM_NEW_TOKENS = 4, 128, 64
 # of each tensor's max abs
 ZOO_ITERS, ZOO_EVAL_AT = 10, 6
 ZOO_BF16_REL_TOL, ZOO_STATS_TOL = 0.05, 1e-5
+# the full-width backward card vs CPU of [grad_parity] and its tm and
+# folded branches: 2 images at 224², so that a kernel that mixes up the
+# batch stride shows in the model's gradients. [cross_teaching_parity] and
+# [cc_parity] run smaller than before the MagicNet and LM-export phases
+# joined (4 images at 224² and 2 at 224² / 8 at 128², now 2 at 128² and 2
+# at 128² / 8 at 64²), so that the whole script stays within its 1,200 s:
+# their CPU backwards took ~300 s of a 1,290 s run on an NVIDIA H100 80GB
+# HBM3 host; the kernels meet the full stage shapes at batch 2 here and in
+# phases 3, 6 and 12-18
+GRAD_PARITY_BATCH = 2
 # the semi-supervised phases: labeled slices per bs24 batch; the cross-
 # teaching parity step's batch (labeled + unlabeled); fit steps of
 # [cross_teaching] and its eval cadence, and of [mean_teacher] / [uamt];
 # UAMT's teacher passes (the consistency target + T = 8 MC passes)
 SEMI_LABELED = 8
-CROSS_PARITY_BATCH, CROSS_PARITY_LABELED = 4, 2
+CROSS_PARITY_BATCH, CROSS_PARITY_LABELED, CROSS_PARITY_PATCH = 2, 1, 128
 CROSS_ITERS, CROSS_EVAL_EVERY, EMA_ITERS = 10, 6, 5
 UAMT_TEACHER_PASSES = 9
 # EMA after a step: alpha * ema + (1 - alpha) * param in fp32
@@ -370,15 +422,79 @@ MASK_PER_STEP = 3 * SS2D_PER_FORWARD + 8
 CC_ITERS, CC_EVAL_AT = 10, 6
 MASK_ITERS, MASK_EVAL_AT = 10, 6
 CC_MASK_ITERS = 4
-# the mask step's card-vs-CPU check runs at batch 8 on 128² images (16
+# the mask step's card-vs-CPU check runs at batch 8 on 64² images (4
 # cubes): its heads' train-mode BatchNorms normalize over the batch, and at
 # batch 4 features whose variance nears eps move the gradients by 1.6e-2 of
-# their largest (measured on an NVIDIA H100 80GB HBM3); 128² keeps the
-# CPU's side near a minute
-CC_PARITY_BATCH, MASK_PARITY_BATCH, MASK_PARITY_PATCH = 2, 8, 128
+# their largest (measured on an NVIDIA H100 80GB HBM3); the contrastive
+# pair's step runs at 128²
+CC_PARITY_BATCH, MASK_PARITY_BATCH, MASK_PARITY_PATCH = 2, 8, 64
+CC_PARITY_PATCH = 128
 CC_PREDICTED_DEVICE_MS, CC_PREDICTED_PEAK_GB = "300-320", 30
 MASK_PREDICTED_DEVICE_MS, MASK_PREDICTED_PEAK_GB = "250-270", 25
 CC_MASK_PREDICTED_DEVICE_MS, CC_MASK_PREDICTED_PEAK_GB = 520, 50
+# [magicnet_mamba], [magicnet_mask]: MagicNet on full-width MambaUnetMask,
+# bs24 (8 labeled) @ 224², cubes of 32, bf16, drop path 0.2 (the mix heads
+# only: the other passes are deterministic), MAGIC_ITERS steps (the class
+# distribution refreshes at step 20). Per step the bidir serving, state-
+# saving and backward launches: the EMA teacher's no-grad pass (14), two
+# grad passes (28), the cube encoder (8) and decoder (6) at batch 24 x 49;
+# --mask_recovery adds three mix-head passes (42). The predictions per
+# step, made before the first card run from [cross_teaching] (two ViM_seg
+# grad passes: 149 ms of device time) and [mask_pretrain] (265.66 ms) on
+# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 5)
+MAGIC_ITERS = 21
+MAGIC_PER_STEP = (SS2D_PER_FORWARD, 3 * SS2D_PER_FORWARD,
+                  3 * SS2D_PER_FORWARD)
+MAGIC_MASK_PER_STEP = (SS2D_PER_FORWARD, 6 * SS2D_PER_FORWARD,
+                       6 * SS2D_PER_FORWARD)
+MAGIC_PREDICTED_DEVICE_MS, MAGIC_PREDICTED_PEAK_GB = "220-260", "20-30"
+MAGIC_MASK_PREDICTED_DEVICE_MS, MAGIC_MASK_PREDICTED_PEAK_GB = (
+    "420-480", "40-55")
+# [magicnet_3d]: the reference's BTCV protocol (BASELINE.md): magicnet (16
+# filters, instance norm), 14 classes, 96³ patches, cubes of 32, bs4 with 2
+# labeled, fp32 with PyTorch's TF32 defaults; 8 train phantoms of 96³ and
+# one 112³ validation phantom (2³ windows at stride 16: a 128³ case's 27
+# windows took 24-42 s of host softmax and EDT metrics on NVIDIA H100
+# 80GB HBM3 hosts, beyond the script's time); fit steps; the
+# prediction per step, made before the first card run from the model's
+# FLOPs (~80 GFLOP per 96³ forward, 14 forward- and 12 backward-sample
+# equivalents per step) and its fp32 GroupNorm passes
+MAGIC3D_PATCH, MAGIC3D_BATCH, MAGIC3D_LABELED = 96, 4, 2
+MAGIC3D_CLASSES, MAGIC3D_CUBE, MAGIC3D_VAL = 14, 32, 112
+MAGIC3D_TRAIN_VOLUMES, MAGIC3D_ITERS = 8, 6
+MAGIC3D_PREDICTED_DEVICE_MS, MAGIC3D_PREDICTED_PEAK_GB = "150-400", "15-35"
+# [magicnet_parity]: one step card vs CPU of a reduced MambaUnetMask
+# (depths 1, full widths, 64², batch 8 with 4 labeled, --mask_recovery: 7
+# serving, 42 state-saving and 42 backward launches) in fp32, and of a
+# reduced 3-D magicnet (16 filters, 32³, cubes of 16, batch 2 with 1
+# labeled) in fp64 (~20 s of CPU at 64³). The teacher's argmax meets ties under the two devices'
+# fp32 rounding: the class histograms may part by MAGIC_HIST_TOL of the
+# pixels, and the consistency Dice against them by MAGIC_CONS_TOL
+# (relative; its weight at step 0 is 6.7e-4, so the other losses hold
+# LOSS_TOL). The 3-D VNet's fp32 gradients are ill-conditioned (instance
+# norms over small maps, flax's fast variance: card and CPU parted by
+# 1.2e-2 of the largest gradient in fp32 on an NVIDIA H100 80GB HBM3), so
+# its step runs in fp64 on both sides, where that amplification of
+# rounding (~2e5 x fp32's 6e-8) predicts ~3e-11: its losses and every
+# gradient (against the model's largest) are held within MAGIC3D_FP64_TOL
+MAGIC3D_FP64_TOL = 1e-8
+MAGIC_PARITY_2D = (8, 4, 64)
+MAGIC_PARITY_3D = (2, 1, 32, 16)  # batch, labeled, size, cube
+MAGIC_HIST_TOL, MAGIC_CONS_TOL = 1e-4, 1e-3
+# [lm_bf16]: the scoring forward's shape; bf16 logits against fp32 on the
+# card within this share of the fp32 logits' max abs (BF16_LOGIT_TOL is 5 %
+# of ViM_seg's); fp32's device ms per scoring forward (PERF.md, section 5)
+LM_BF16_SHAPE, LM_BF16_REL_TOL, LM_FP32_SCORING_MS = (8, 1024), 0.05, 65.52
+LM_BF16_NEW_TOKENS = 8  # [lm_bf16]'s greedy generation
+# [lm_export]: exported greedy generation's prompts, prompt length and new
+# tokens, a pinned batch, and the depth of its mamba-130m-width model: the
+# unrolled graph's export takes ~0.4-0.75 s of host time per layer and
+# token on the card's machine (277.6 s for 32 tokens at 24 layers, 118.8
+# for 8, 46.4-70.7 for 4, on NVIDIA H100 80GB HBM3 hosts), so the phase
+# exports 32 tokens of a 2-layer cut; the CPU and card tests cover the
+# symbolic batch and the save / load round trip
+LM_EXPORT_BATCH, LM_EXPORT_PROMPT, LM_EXPORT_TOKENS = 4, 128, 32
+LM_EXPORT_DEPTH = 2
 # the new phases' Mamba models start with their patch embedding's bias
 # drawn from N(0, 0.02²), as after a warm start (the reference's scripts
 # load ImageNet weights into every ViM): from the init's zero bias, a
@@ -782,8 +898,9 @@ def branch_serving_phase(torch, dev, model, batch, iters=10):
 
 
 def grad_parity_phase(torch, dev, scan_impl="auto"):
-    """Phases 7, 13 and 17: one full-width backward on the card against a
-    CPU copy, through SS2D's ``scan_impl`` branch (14 state-saving forward
+    """Phases 7, 13 and 17: one full-width backward (batch
+    GRAD_PARITY_BATCH) on the card against a CPU copy, through SS2D's
+    ``scan_impl`` branch (14 state-saving forward
     and 14 backward launches of its kernels, none of the other branches');
     returns the card model."""
     from mamba_unet_torch.models.vssm import MambaUnet
@@ -798,8 +915,9 @@ def grad_parity_phase(torch, dev, scan_impl="auto"):
     model = MambaUnet(num_classes=4, drop_path_rate=0.0, scan_impl=scan_impl,
                       device=dev)
     model.load_state_dict(cpu_model.state_dict())
-    x = torch.randn(2, PATCH, PATCH, 1, generator=gen)
-    label = torch.randint(0, 4, (2, PATCH, PATCH), generator=gen)
+    x = torch.randn(GRAD_PARITY_BATCH, PATCH, PATCH, 1, generator=gen)
+    label = torch.randint(0, 4, (GRAD_PARITY_BATCH, PATCH, PATCH),
+                          generator=gen)
     losses, grads, secs = {}, {}, {}
     for tag, m in (("gpu", model), ("cpu", cpu_model)):
         d = next(m.parameters()).device
@@ -1090,21 +1208,21 @@ def lm_kernel_phase(torch, dev):
     return max_err, times
 
 
-def seeded_lm(torch, dev):
-    """Full-width mamba-130m with seeded weights, on the CPU and a copy on
-    the card. The init gives every channel the same A_log row and D = 1, a
+def seeded_lm(torch, dev, n_layer=LM_DEPTH):
+    """Full-width mamba-130m (``n_layer`` deep) with seeded weights, on the
+    CPU and a copy on the card. The init gives every channel the same A_log row and D = 1, a
     trained checkpoint a different one in each: they are perturbed per
     channel."""
     from mamba_unet_torch.models.mamba_lm import MambaLMHeadModel
 
-    cpu_model = MambaLMHeadModel(LM_VOCAB,
+    cpu_model = MambaLMHeadModel(LM_VOCAB, n_layer=n_layer,
                                  generator=torch.Generator().manual_seed(0))
     g = torch.Generator().manual_seed(2)
     with torch.no_grad():
         for name, p in cpu_model.named_parameters():
             if name.endswith(("A_log", ".D")):
                 p.add_(0.5 * torch.randn(p.shape, generator=g))
-    model = MambaLMHeadModel(LM_VOCAB, device=dev)
+    model = MambaLMHeadModel(LM_VOCAB, n_layer=n_layer, device=dev)
     model.load_state_dict(cpu_model.state_dict())
     return cpu_model, model
 
@@ -2110,20 +2228,21 @@ def zoo_training_phase(torch, dev):
 
 def cross_teaching_parity_phase(torch, dev):
     """``[cross_teaching_parity]``: one cross-teaching step of two
-    full-width ``ViM_seg`` (seeds 0 and 1), batch 4 (2 labeled + 2
-    unlabeled) at 224², fp32 (TF32 off by the caller), drop_path 0: the
+    full-width ``ViM_seg`` (seeds 0 and 1), batch 2 (1 labeled + 1
+    unlabeled) at CROSS_PARITY_PATCH², fp32 (TF32 off by the caller), drop_path 0: the
     loss and both models' every gradient on the card against a CPU copy;
     28 state-saving forward and 28 backward bidir launches."""
     from mamba_unet_torch.models.vssm import MambaUnet
     from mamba_unet_torch.train import CrossTeachingTrainer, TrainConfig
 
+    size = CROSS_PARITY_PATCH
     cfg = TrainConfig(base_lr=0.01, max_iterations=1000,
                       batch_size=CROSS_PARITY_BATCH,
-                      patch_size=(PATCH, PATCH), num_classes=4, seed=1337)
+                      patch_size=(size, size), num_classes=4, seed=1337)
     gen = torch.Generator().manual_seed(4)
-    batch = {"image": torch.randn(CROSS_PARITY_BATCH, PATCH, PATCH, 1,
+    batch = {"image": torch.randn(CROSS_PARITY_BATCH, size, size, 1,
                                   generator=gen),
-             "label": torch.randint(0, 4, (CROSS_PARITY_BATCH, PATCH, PATCH),
+             "label": torch.randint(0, 4, (CROSS_PARITY_BATCH, size, size),
                                     generator=gen)}
     kernels = all_scan_kernels()
     grads, losses, secs = {}, {}, {}
@@ -2707,9 +2826,10 @@ def cc_kernel_shapes_phase(torch, dev):
     return worst
 
 
-def cta_loader(torch, dev, batch, labeled, seed=1337):
+def cta_loader(torch, dev, batch, labeled, seed=1337, patch=None):
     """(val volumes, a Loader of two-stream batches of CTATransform views
-    of the phantom slices at 224², the CTAugment, the transform)."""
+    of the phantom slices at ``patch``² (default PATCH), the CTAugment,
+    the transform)."""
     from mamba_unet_torch.data.acdc import SliceDataset
     from mamba_unet_torch.data.cta_transform import CTATransform
     from mamba_unet_torch.data.ctaugment import CTAugment
@@ -2719,7 +2839,8 @@ def cta_loader(torch, dev, batch, labeled, seed=1337):
 
     splits = phantom_acdc(8, 8, 2, 0, *NATIVE, seed=0)
     cta = CTAugment(seed=seed)
-    tf = CTATransform((PATCH, PATCH), cta, seed=seed)
+    patch = patch or PATCH
+    tf = CTATransform((patch, patch), cta, seed=seed)
     ds = SliceDataset.from_samples(splits["train"], transform=tf)
     n_lab = len(ds) // 4
     sampler = TwoStreamBatchSampler(range(n_lab), range(n_lab, len(ds)),
@@ -2910,39 +3031,30 @@ def cc_mask_phase(torch, dev):
     full-width ``MambaUnetMask`` pair at 224², bf16, CC_MASK_ITERS steps
     of two-stream CTA batches, no eval: per step 98 state-saving forward
     and 98 backward bidir launches (4 model passes and model 1's 3 mix
-    heads); peak GB and a profile's device ms per step. The batch is 24,
-    or the largest of 16 and 8 that fits, said on the line. Returns
-    (launches, ...)."""
+    heads); peak GB and a profile's device ms per step. An out-of-memory
+    error at bs24 fails the phase. Returns (launches, ...)."""
     from mamba_unet_torch.train import (
         ContrastiveConsistencyTrainer,
         TrainConfig,
     )
 
-    for batch in (TRAIN_BATCH, 16, 8):
-        try:
-            cfg = TrainConfig(base_lr=0.01, max_iterations=1000,
-                              batch_size=batch, patch_size=(PATCH, PATCH),
-                              num_classes=4, eval_every=10**6, log_every=1,
-                              seed=1337, bf16=True)
-            trainer = ContrastiveConsistencyTrainer(
-                mask_model(torch, 0.2, 1337), cfg,
-                model2=mask_model(torch, 0.2, 1338),
-                labeled_bs=batch // 3, mask_recovery=True,
-                mask_cube_size=CUBE_SIZE, device=dev)
-            val, loader, cta, tf = cta_loader(torch, dev, batch, batch // 3)
-            result, steps, ms, peak = counted_fit(
-                torch, trainer, loader, val, CC_MASK_ITERS, "cc_mask",
-                cta=cta, cta_transform=tf)
-            break
-        except torch.cuda.OutOfMemoryError:
-            log("cc_mask", batch=batch, fits=False)
-            trainer = loader = None
-            torch.cuda.empty_cache()
+    batch = TRAIN_BATCH
+    cfg = TrainConfig(base_lr=0.01, max_iterations=1000, batch_size=batch,
+                      patch_size=(PATCH, PATCH), num_classes=4,
+                      eval_every=10**6, log_every=1, seed=1337, bf16=True)
+    trainer = ContrastiveConsistencyTrainer(
+        mask_model(torch, 0.2, 1337), cfg,
+        model2=mask_model(torch, 0.2, 1338), labeled_bs=batch // 3,
+        mask_recovery=True, mask_cube_size=CUBE_SIZE, device=dev)
+    val, loader, cta, tf = cta_loader(torch, dev, batch, batch // 3)
+    result, steps, ms, peak = counted_fit(
+        torch, trainer, loader, val, CC_MASK_ITERS, "cc_mask", cta=cta,
+        cta_transform=tf)
     per_step = 7 * SS2D_PER_FORWARD
     check_step_launches("cc_mask", steps, [0, per_step, per_step] + [0] * 6)
     launches = [sum(s[i] for s in steps) for i in range(3)]
     log("cc_mask", iterations=result["iterations"], batch=batch,
-        bs24_fits=batch == TRAIN_BATCH, dtype="bf16",
+        dtype="bf16",
         launches_serve_fwd_states_bwd=tuple(launches))
     med, device = report_fit("cc_mask", trainer, loader, result, ms, peak,
                              (), (CC_MASK_PREDICTED_DEVICE_MS,
@@ -2951,9 +3063,10 @@ def cc_mask_phase(torch, dev):
     return launches, med, device, peak
 
 
-def card_vs_cpu_grads(phase, grads, losses, zeros=(), to_model_max=False):
-    """Raise unless every loss on the card is within LOSS_TOL of the CPU's
-    and every gradient within MODEL_GRAD_TOL of its own max abs (with
+def card_vs_cpu_grads(phase, grads, losses, zeros=(), to_model_max=False,
+                      tol=MODEL_GRAD_TOL, loss_tol=LOSS_TOL):
+    """Raise unless every loss on the card is within ``loss_tol`` of the
+    CPU's and every gradient within ``tol`` of its own max abs (with
     ``to_model_max``, of its model's largest gradient: the gradient name's
     part before the first dot names the model); the gradients in
     ``zeros``, exact zeros computed as rounding noise, below ZERO_GRAD_REL
@@ -2985,12 +3098,11 @@ def card_vs_cpu_grads(phase, grads, losses, zeros=(), to_model_max=False):
                    for k, v in losses["cpu"].items())
     log(phase, params=len(grads["cpu"]), zero_grads=len(zeros),
         losses_gpu=" ".join(f"{k}={v:.6f}" for k, v in losses["gpu"].items()),
-        loss_rel_err=f"{loss_err:.2e}", loss_tol=LOSS_TOL,
+        loss_rel_err=f"{loss_err:.2e}", loss_tol=loss_tol,
         worst_grad_rel_err=f"{worst:.2e}", worst_param=worst_key,
         relative_to="model_max_grad" if to_model_max else "own_max",
-        worst_own_rel_err=f"{own[0]:.2e}", worst_own_param=own[1],
-        tol=MODEL_GRAD_TOL)
-    if not (worst <= MODEL_GRAD_TOL and loss_err <= LOSS_TOL):
+        worst_own_rel_err=f"{own[0]:.2e}", worst_own_param=own[1], tol=tol)
+    if not (worst <= tol and loss_err <= loss_tol):
         raise AssertionError(f"[{phase}] the card disagrees with the CPU: "
                              f"worst gradient {worst} at {worst_key}, loss "
                              f"rel err {loss_err}")
@@ -2998,8 +3110,8 @@ def card_vs_cpu_grads(phase, grads, losses, zeros=(), to_model_max=False):
 
 def cc_parity_phase(torch, dev):
     """``[cc_parity]``: one contrastive step of two full-width ``ViM_seg``
-    with their projectors, batch CC_PARITY_BATCH (1 labeled) at 224² on
-    phantom CTA views, fp32 (TF32 off by the caller), drop-path 0: the
+    with their projectors, batch CC_PARITY_BATCH (1 labeled) at
+    CC_PARITY_PATCH² on phantom CTA views, fp32 (TF32 off by the caller), drop-path 0: the
     five losses and every gradient (both models, projectors 3 and 4) on
     the card against a CPU copy, at ``[cross_teaching_parity]``'s
     tolerance (the projectors' conv biases that feed a BatchNorm, exact
@@ -3022,7 +3134,8 @@ def cc_parity_phase(torch, dev):
     )
     from mamba_unet_torch.utils.compare import batchnorm_fed_biases
 
-    _, loader, _, _ = cta_loader(torch, "cpu", CC_PARITY_BATCH, 1)
+    _, loader, _, _ = cta_loader(torch, "cpu", CC_PARITY_BATCH, 1,
+                                 patch=CC_PARITY_PATCH)
     batch = next(iter(loader))
     kernels = all_scan_kernels()
     n = SS2D_PER_FORWARD
@@ -3030,8 +3143,8 @@ def cc_parity_phase(torch, dev):
     for tag, d in (("gpu", dev), ("cpu", "cpu")):
         cfg = TrainConfig(base_lr=0.01, max_iterations=1000,
                           batch_size=CC_PARITY_BATCH,
-                          patch_size=(PATCH, PATCH), num_classes=4,
-                          seed=1337)
+                          patch_size=(CC_PARITY_PATCH, CC_PARITY_PATCH),
+                          num_classes=4, seed=1337)
         m1, m2 = vim_pair(torch, 0.0, (0, 1))
         trainer = ContrastiveConsistencyTrainer(m1, cfg, model2=m2,
                                                 labeled_bs=1, device=d)
@@ -3187,6 +3300,434 @@ def cc_entry_points_phase(torch, np, dev):
                     or not np.isfinite(out["per_case"]).all()):
                 raise AssertionError(f"cli.test --model {model}: launches "
                                      f"{launched}, metrics {out['mean']}")
+
+
+# --- MagicNet -----------------------------------------------------------------
+
+def magicnet_phase(torch, dev, recovery):
+    """``[magicnet_mamba]`` / ``[magicnet_mask]``: ``MagicNetTrainer.fit``
+    of full-width ``MambaUnetMask`` (its patch embedding's bias drawn) on
+    two-stream phantom batches, bs24 with 8 labeled @ 224², bf16, without
+    and with ``--mask_recovery``, MAGIC_ITERS steps: the launches of each
+    step (MAGIC_PER_STEP, MAGIC_MASK_PER_STEP), finite and falling losses,
+    the class distribution refreshed at step 20 (the histogram of 20 steps'
+    pseudo-labels, every unlabeled pixel counted), the EMA moved; step
+    numbers as :func:`report_fit`. An out-of-memory error at bs24 fails
+    the phase. Returns (launches, ...)."""
+    from mamba_unet_torch.train import MagicNetTrainer, TrainConfig
+
+    phase = "magicnet_mask" if recovery else "magicnet_mamba"
+    batch, labeled = TRAIN_BATCH, TRAIN_BATCH // 3
+    cfg = TrainConfig(base_lr=0.01, max_iterations=1000, batch_size=batch,
+                      patch_size=(PATCH, PATCH), num_classes=4,
+                      eval_every=10**6, log_every=1, seed=1337, bf16=True)
+    trainer = MagicNetTrainer(mask_model(torch, 0.2), cfg, labeled_bs=labeled,
+                              cube_size=CUBE_SIZE, mask_recovery=recovery,
+                              device=dev)
+    val, loader = phantom_loader(torch, dev, batch, labeled=labeled)
+    ema0 = {k: v.clone() for k, v in trainer.ema.items()}
+    result, steps, ms, peak = counted_fit(torch, trainer, loader, val,
+                                          MAGIC_ITERS, phase)
+    per_step = MAGIC_MASK_PER_STEP if recovery else MAGIC_PER_STEP
+    check_step_launches(phase, steps, list(per_step) + [0] * 6)
+    launches = [sum(s[i] for s in steps) for i in range(3)]
+    dist = trainer.dist_logger.get_class_dist()
+    want = 20 * (batch - labeled) * PATCH * PATCH
+    ema_moved = sum(not torch.equal(v, trainer.ema[k])
+                    for k, v in ema0.items())
+    losses = [h["loss"] for h in result["history"] if "loss" in h]
+    log(phase, iterations=result["iterations"], batch=batch,
+        labeled=labeled, dtype="bf16",
+        launches_serve_fwd_states_bwd=tuple(launches),
+        class_dist=" ".join(f"{v:.0f}" for v in dist),
+        class_dist_pixels=f"{dist.sum():.0f}", expected_pixels=want,
+        ema_moved=f"{ema_moved}/{len(ema0)}")
+    if dist.sum() != want:
+        raise AssertionError(f"[{phase}] the class distribution after "
+                             f"step 20 counts {dist.sum()} pixels, expected "
+                             f"{want}")
+    if not sum(losses[-3:]) < sum(losses[:3]) or ema_moved < len(ema0) // 2:
+        raise AssertionError(f"[{phase}] losses {losses}, EMA moved "
+                             f"{ema_moved}/{len(ema0)}")
+    predicted = ((MAGIC_MASK_PREDICTED_DEVICE_MS, MAGIC_MASK_PREDICTED_PEAK_GB)
+                 if recovery else (MAGIC_PREDICTED_DEVICE_MS,
+                                   MAGIC_PREDICTED_PEAK_GB))
+    med, device = report_fit(phase, trainer, loader, result, ms, peak, (),
+                             predicted, batch=batch)
+    del trainer, loader
+    return launches, med, device, peak
+
+
+def btcv_loaders(torch, dev, seed=1337):
+    """(train Loader of two-stream MAGIC3D_BATCH batches of 96³ random
+    crops of MAGIC3D_TRAIN_VOLUMES phantoms, the MAGIC3D_VAL³ validation
+    phantom as a dataset)."""
+    from mamba_unet_torch.data.btcv import (
+        Compose3D,
+        RandomCrop3D,
+        VolumeTrainDataset,
+    )
+    from mamba_unet_torch.data.loader import Loader
+    from mamba_unet_torch.data.sampler import TwoStreamBatchSampler
+    from mamba_unet_torch.data.synthetic import phantom_btcv
+
+    train = phantom_btcv(MAGIC3D_TRAIN_VOLUMES, 0, MAGIC3D_PATCH,
+                         MAGIC3D_CLASSES)["train"]
+    val = phantom_btcv(0, 1, MAGIC3D_VAL, MAGIC3D_CLASSES, seed=1)["val"]
+    ds = VolumeTrainDataset.from_samples(train, transform=Compose3D(
+        [RandomCrop3D((MAGIC3D_PATCH,) * 3, seed=seed)]))
+    n_lab = max(2, len(ds) // 3)
+    sampler = TwoStreamBatchSampler(
+        range(n_lab), range(n_lab, len(ds)), MAGIC3D_BATCH,
+        MAGIC3D_BATCH - MAGIC3D_LABELED, seed=seed)
+    return (Loader(ds, sampler, device=dev),
+            VolumeTrainDataset.from_samples(val))
+
+
+def magicnet_3d_phase(torch, dev):
+    """``[magicnet_3d]``: ``MagicNetTrainer.fit`` of ``magicnet`` at the
+    reference's BTCV protocol (MAGIC3D_*) on phantom volumes, fp32 with
+    PyTorch's TF32 defaults, MAGIC3D_ITERS steps: no scan launch, finite
+    losses, weights moved; step ms, a profile's device ms per step, peak
+    GB; then one sliding-window ``validation_all_case`` of the
+    MAGIC3D_VAL³ case (8 windows at stride 16), its seconds and its (1,
+    13, 4) array.
+    Returns (median step ms, device ms, peak GB, validation s)."""
+    import numpy as np
+
+    from mamba_unet_torch.models import net_factory
+    from mamba_unet_torch.train import MagicNetTrainer, TrainConfig
+
+    cfg = TrainConfig(base_lr=0.01, max_iterations=1000,
+                      batch_size=MAGIC3D_BATCH,
+                      patch_size=(MAGIC3D_PATCH,) * 3,
+                      num_classes=MAGIC3D_CLASSES, eval_every=10**6,
+                      log_every=1, seed=1337)
+    model = net_factory("magicnet", num_classes=MAGIC3D_CLASSES,
+                        cube_size=MAGIC3D_CUBE, patch_size=MAGIC3D_PATCH,
+                        generator=torch.Generator().manual_seed(1337))
+    trainer = MagicNetTrainer(model, cfg, labeled_bs=MAGIC3D_LABELED,
+                              cube_size=MAGIC3D_CUBE, device=dev)
+    t0 = time.perf_counter()
+    loader, val = btcv_loaders(torch, dev)
+    data_s = time.perf_counter() - t0
+    before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    result, steps, ms, peak = counted_fit(torch, trainer, loader, None,
+                                          MAGIC3D_ITERS, "magicnet_3d")
+    check_step_launches("magicnet_3d", steps, [0] * 9)
+    after = trainer.model.state_dict()
+    moved = sum(not torch.equal(v, after[k]) for k, v in before.items())
+    log("magicnet_3d", iterations=result["iterations"],
+        batch=MAGIC3D_BATCH, labeled=MAGIC3D_LABELED,
+        patch=MAGIC3D_PATCH, cube=MAGIC3D_CUBE, classes=MAGIC3D_CLASSES,
+        dtype="fp32", params_moved=f"{moved}/{len(before)}",
+        phantom_seconds=f"{data_s:.1f}", scan_launches=0)
+    if moved < 0.9 * len(before):
+        raise AssertionError(f"[magicnet_3d] {moved}/{len(before)} tensors "
+                             f"moved")
+    med, device = report_fit("magicnet_3d", trainer, loader, result, ms,
+                             peak, (), (MAGIC3D_PREDICTED_DEVICE_MS,
+                                        MAGIC3D_PREDICTED_PEAK_GB))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arr = trainer.validate_3d(val)
+    val_s = time.perf_counter() - t0
+    windows = (math.ceil((MAGIC3D_VAL - MAGIC3D_PATCH)
+                         / max(MAGIC3D_CUBE // 2, 16)) + 1) ** 3
+    log("magicnet_3d", validation_all_case_s=f"{val_s:.2f}", windows=windows,
+        metric_shape=tuple(arr.shape),
+        mean_dice=f"{arr[:, :, 0].mean():.4f}")
+    if arr.shape != (1, MAGIC3D_CLASSES - 1, 4) or not np.isfinite(
+            arr).all():
+        raise AssertionError(f"[magicnet_3d] metric array {arr.shape}")
+    del trainer, loader
+    return med, device, peak, val_s
+
+
+def magic_parity_case(torch, dev, case):
+    """(launches, losses, class histogram, gradients by name) of one
+    MagicNet step of ``case`` ("mask_2d" in fp32, "magicnet_3d" in fp64)
+    on ``dev``, with draws made on the CPU (:data:`MAGIC_PARITY_2D`,
+    :data:`MAGIC_PARITY_3D`)."""
+    from mamba_unet_torch.models import net_factory
+    from mamba_unet_torch.models.mamba_mask import MambaUnetMask
+    from mamba_unet_torch.objectives.cube import (
+        cube_shuffle_indices,
+        random_permutations,
+    )
+    from mamba_unet_torch.train import MagicNetTrainer, TrainConfig
+
+    if case == "mask_2d":
+        batch, labeled, size = MAGIC_PARITY_2D
+        shape, cube, recovery = (batch, size, size, 1), CUBE_SIZE, True
+        model = MambaUnetMask(num_classes=4, img_size=size,
+                              cube_size=cube, depths=(1, 1, 1, 1),
+                              drop_path_rate=0.0,
+                              generator=torch.Generator().manual_seed(3))
+        draw_patch_bias(torch, model.encoder.patch_embed, 103)
+        with torch.no_grad():  # a position embedding that is not 0
+            model.pos_embed_layer.bn.bias.fill_(1.0)
+    else:
+        batch, labeled, size, cube = MAGIC_PARITY_3D
+        shape, recovery = (batch, size, size, size, 1), False
+        model = net_factory("magicnet", num_classes=4, cube_size=cube,
+                            patch_size=size,
+                            generator=torch.Generator().manual_seed(3))
+    dtype = torch.float32 if case == "mask_2d" else torch.float64
+    model.to(dtype)
+    g = torch.Generator().manual_seed(4)
+    image = torch.rand(shape, generator=g).to(dtype)
+    label = torch.randint(0, 4, shape[:-1], generator=g)
+    nb = size // cube
+    part, rec = cube_shuffle_indices(g, batch, nb, len(shape) - 2)
+    draws = {"part": part, "rec": rec,
+             "noise": (0.1 * torch.randn(image[labeled:].shape, generator=g)
+                       ).clamp(-0.2, 0.2)}
+    if recovery:
+        draws["perms"] = random_permutations(g, batch, nb * nb)
+        draws["vis"] = (torch.rand(batch, nb * nb, generator=g)
+                        > 0.25).float()
+    cfg = TrainConfig(base_lr=0.01, max_iterations=1000, batch_size=batch,
+                      patch_size=shape[1:-1], num_classes=4, seed=1337)
+    trainer = MagicNetTrainer(model, cfg, labeled_bs=labeled,
+                              cube_size=cube, mask_recovery=recovery,
+                              device=dev)
+    trainer._draws = lambda x: {k: v.to(x.device) for k, v in draws.items()}
+    kernels = all_scan_kernels()
+    before = launch_counts(kernels)
+    logs = trainer.train_step({"image": image, "label": label})
+    launched = [a - b for a, b in zip(launch_counts(kernels), before)]
+    return (launched, {k: float(v) for k, v in logs.items()
+                       if k.startswith("loss")}, logs["class_hist"].cpu(),
+            {f"{case}.{k}": p.grad.cpu()
+             for k, p in trainer.model.named_parameters()})
+
+
+def magicnet_parity_phase(torch, dev):
+    """``[magicnet_parity]``: one MagicNet step card vs CPU, the same
+    draws: the reduced MambaUnetMask with --mask_recovery in fp32 with TF32
+    off (the caller; 7 + 42 + 42 bidir launches), its losses within
+    LOSS_TOL (the consistency Dice within MAGIC_CONS_TOL), the class
+    histograms within MAGIC_HIST_TOL of the pixels, every gradient within
+    MODEL_GRAD_TOL of its model's largest (``[cc_parity]``'s rule); the
+    reduced 3-D magicnet in fp64 (no launch), its losses, histogram and
+    every gradient against the model's largest within MAGIC3D_FP64_TOL."""
+    n = 4 + 3  # depths (1, 1, 1, 1): 4 encoder and 3 decoder blocks
+    for case, want in (("mask_2d", [n, 6 * n, 6 * n] + [0] * 6),
+                       ("magicnet_3d", [0] * 9)):
+        out, secs = {}, {}
+        for tag, d in (("gpu", dev), ("cpu", "cpu")):
+            t0 = time.perf_counter()
+            out[tag] = magic_parity_case(torch, torch.device(d), case)
+            secs[tag] = time.perf_counter() - t0
+        hist_moved = int((out["gpu"][2] - out["cpu"][2]).abs().sum())
+        pixels = int(out["cpu"][2].sum())
+        log("magicnet_parity", case=case, launches=tuple(out["gpu"][0][:3]),
+            gpu_s=f"{secs['gpu']:.2f}", cpu_s=f"{secs['cpu']:.2f}",
+            class_hist=" ".join(str(int(v)) for v in out["gpu"][2]),
+            hist_moved=hist_moved, pixels=pixels)
+        if out["gpu"][0] != want:
+            raise AssertionError(f"[magicnet_parity] {case} launched "
+                                 f"{out['gpu'][0]}, expected {want}")
+        losses = {t: o[1] for t, o in out.items()}
+        grads = {t: o[3] for t, o in out.items()}
+        if case == "magicnet_3d":
+            if hist_moved:
+                raise AssertionError(f"[magicnet_parity] {case}: class "
+                                     f"histograms {out['gpu'][2]} and "
+                                     f"{out['cpu'][2]}")
+            card_vs_cpu_grads("magicnet_parity", grads, losses,
+                              to_model_max=True, tol=MAGIC3D_FP64_TOL,
+                              loss_tol=MAGIC3D_FP64_TOL)
+            continue
+        cons = {t: v.pop("loss_cons") for t, v in losses.items()}
+        cons_err = abs(cons["gpu"] - cons["cpu"]) / abs(cons["cpu"])
+        log("magicnet_parity", case=case, loss_cons_rel_err=f"{cons_err:.2e}",
+            cons_tol=MAGIC_CONS_TOL)
+        if hist_moved > MAGIC_HIST_TOL * pixels or cons_err > MAGIC_CONS_TOL:
+            raise AssertionError(f"[magicnet_parity] {case}: class "
+                                 f"histograms {out['gpu'][2]} and "
+                                 f"{out['cpu'][2]}, consistency Dice "
+                                 f"{cons}")
+        card_vs_cpu_grads("magicnet_parity", grads, losses, to_model_max=True)
+
+
+# --- the Mamba-LM remainders: bf16 scoring, exported generation -------------
+
+def lm_bf16_phase(torch, dev, model):
+    """``[lm_bf16]``: mamba-130m (seeded weights, the card's fp32 ``model``)
+    with compute dtype bf16 (weights fp32, the grouped kernel on bf16
+    inputs with its fp32 state): one scoring forward at LM_BF16_SHAPE
+    against fp32 on the card (logits within LM_BF16_REL_TOL of the fp32
+    max, greedy-token agreement), both timed with CUDA events and
+    profiled, LM_DEPTH launches per forward; then a greedy ``generate`` of
+    LM_BF16_NEW_TOKENS tokens after LM_PROMPTS prompts (one prefill:
+    LM_DEPTH launches; the decode steps in bf16 too). Returns the
+    launches."""
+    from mamba_unet_torch.models.mamba_lm import MambaLMHeadModel, generate
+    from mamba_unet_torch.ops.selective_scan_grouped import (
+        selective_scan_grouped,
+    )
+
+    half = MambaLMHeadModel(LM_VOCAB, device=dev, dtype=torch.bfloat16)
+    half.load_state_dict(model.state_dict())
+    half.eval()
+    ids = torch.randint(0, LM_VOCAB, LM_BF16_SHAPE,
+                        generator=torch.Generator().manual_seed(6)).to(dev)
+    selective_scan_grouped.launches = 0
+    with torch.inference_mode():
+        got = half(ids)
+        launched = selective_scan_grouped.launches
+        want = model(ids)
+        err = (got - want).abs().max().item()
+        top = want.abs().max().item()
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        times = {}
+        for tag, m in (("fp32", model), ("bf16", half)):
+            times[tag], _ = cuda_ms(torch, lambda m=m: m(ids), 5)
+        device = profile_calls(torch, "lm_bf16_scoring", [lambda: half(ids)],
+                               top=6)
+    prompts = ids[:LM_PROMPTS, :LM_PROMPT_LEN]
+    before = selective_scan_grouped.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = generate(half, prompts, max_new_tokens=LM_BF16_NEW_TOKENS)
+    torch.cuda.synchronize()
+    gen_ms = 1e3 * (time.perf_counter() - t0)
+    gen_launches = selective_scan_grouped.launches - before
+    log("lm_bf16", path="generate", prompts=prompts.shape[0],
+        new_tokens=LM_BF16_NEW_TOKENS, launches=gen_launches,
+        expected=LM_DEPTH, generate_ms=f"{gen_ms:.1f}",
+        tokens_shape=tuple(tokens.shape))
+    if (gen_launches != LM_DEPTH or tokens.shape != (
+            prompts.shape[0], prompts.shape[1] + LM_BF16_NEW_TOKENS)
+            or not bool(((tokens >= 0) & (tokens < half.padded_vocab)).all())):
+        raise AssertionError(f"[lm_bf16] generate: {gen_launches} launches, "
+                             f"tokens {tuple(tokens.shape)}")
+    log("lm_bf16", shape=LM_BF16_SHAPE, launches=launched,
+        expected=LM_DEPTH, max_abs_diff=f"{err:.3e}",
+        logit_max=f"{top:.3f}", tol=f"{LM_BF16_REL_TOL * top:.3e}",
+        greedy_agree=f"{agree:.4f}", bf16_ms=f"{times['bf16']:.2f}",
+        fp32_ms=f"{times['fp32']:.2f}",
+        bf16_device_ms=f"{device:.2f}",
+        fp32_device_ms_before=LM_FP32_SCORING_MS)
+    if launched != LM_DEPTH or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"[lm_bf16] {launched} launches")
+    if err > LM_BF16_REL_TOL * top or agree < 0.9:
+        raise AssertionError(f"[lm_bf16] bf16 logits stray from fp32: "
+                             f"{err} (max {top}), greedy agreement {agree}")
+    del half
+    return launched + gen_launches
+
+
+def lm_export_phase(torch, dev):
+    """``[lm_export]``: ``export_lm_generate`` of a mamba-130m-width model
+    cut to LM_EXPORT_DEPTH layers (seeded weights, fp32, on the card) for
+    LM_EXPORT_BATCH prompts of LM_EXPORT_PROMPT tokens and
+    LM_EXPORT_TOKENS greedy new tokens (the export's host seconds); the
+    exported program's tokens equal eager ``generate``'s; ms per token of
+    each, the prefill's LM_EXPORT_DEPTH grouped launches per call. Returns
+    the launches of the timed exported call."""
+    from mamba_unet_torch.models.mamba_lm import generate
+    from mamba_unet_torch.ops.selective_scan_grouped import (
+        selective_scan_grouped,
+    )
+    from mamba_unet_torch.utils.export import export_lm_generate
+
+    _, model = seeded_lm(torch, dev, LM_EXPORT_DEPTH)
+    model.eval()
+    prompts = torch.randint(0, LM_VOCAB, (LM_EXPORT_BATCH, LM_EXPORT_PROMPT),
+                            generator=torch.Generator().manual_seed(7)
+                            ).to(dev)
+    seed = torch.tensor(0, device=dev)
+    t0 = time.perf_counter()
+    exported = export_lm_generate(model, LM_EXPORT_PROMPT, LM_EXPORT_TOKENS,
+                                  batch=LM_EXPORT_BATCH)
+    export_s = time.perf_counter() - t0
+    loaded = exported.module()
+    with torch.no_grad():
+        loaded(prompts, seed)  # first call
+        selective_scan_grouped.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = loaded(prompts, seed)
+        torch.cuda.synchronize()
+        exp_ms = 1e3 * (time.perf_counter() - t0)
+        launched = selective_scan_grouped.launches
+    generate(model, prompts, max_new_tokens=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = generate(model, prompts, max_new_tokens=LM_EXPORT_TOKENS)
+    torch.cuda.synchronize()
+    eager_ms = 1e3 * (time.perf_counter() - t0)
+    log("lm_export", batch=LM_EXPORT_BATCH, prompt_len=LM_EXPORT_PROMPT,
+        new_tokens=LM_EXPORT_TOKENS, export_s=f"{export_s:.1f}",
+        depth=LM_EXPORT_DEPTH, launches=launched, expected=LM_EXPORT_DEPTH,
+        tokens_equal=bool(torch.equal(got, want)),
+        exported_ms_per_token=f"{exp_ms / LM_EXPORT_TOKENS:.2f}",
+        eager_ms_per_token=f"{eager_ms / LM_EXPORT_TOKENS:.2f}")
+    if launched != LM_EXPORT_DEPTH or not torch.equal(got, want):
+        raise AssertionError(f"[lm_export] {launched} launches, tokens "
+                             f"equal {torch.equal(got, want)}")
+    return launched
+
+
+def magic_entry_points_phase(torch, np, dev):
+    """``[entry_points]``, fourth part: ``cli.train --dataset btcv --method
+    magicnet --model magicnet --synthetic`` at the reference's 96³ protocol
+    (2 steps, an eval, ``metric_final.npy`` of (1, 13, 4)) and ``--method
+    magicnet --model MambaUnetMask --mask_recovery --synthetic`` at
+    ENTRY_SPEC (2 steps, evaluated after the second), their launches
+    checked, each writing a periodic checkpoint (with the EMA and the
+    class distribution)."""
+    import tempfile
+
+    from mamba_unet_torch.cli import train as train_cli
+
+    spec = [str(v) for v in ENTRY_SPEC]
+    kernels = all_scan_kernels()
+    iters = 2
+    n = SS2D_PER_FORWARD
+    val_slices = ENTRY_SPEC[1] * ENTRY_SPEC[2]
+    eval_fwd = math.ceil(val_slices / 16)
+    runs = (("btcv", [
+        "--dataset", "btcv", "--method", "magicnet", "--model", "magicnet",
+        "--synthetic", "--patch_size", *[str(MAGIC3D_PATCH)] * 3,
+        "--num_classes", str(MAGIC3D_CLASSES), "--batch_size",
+        str(MAGIC3D_BATCH), "--labeled_bs", str(MAGIC3D_LABELED),
+        "--cube_size", str(MAGIC3D_CUBE)], [0, 0, 0]),
+        ("magicnet_mask", [
+            "--method", "magicnet", "--model", "MambaUnetMask",
+            "--mask_recovery", "--synthetic", "--synthetic_spec", *spec,
+            "--bf16", "--patch_size", str(PATCH), str(PATCH),
+            "--batch_size", str(ENTRY_BATCH), "--labeled_bs",
+            str(ENTRY_BATCH // 2)],
+         [iters * n + n * eval_fwd, iters * 6 * n, iters * 6 * n]))
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for tag, extra, want in runs:
+            before = launch_counts(kernels)
+            t0 = time.perf_counter()
+            train_cli.main([*extra, "--max_iterations", str(iters),
+                            "--eval_every", str(iters), "--ckpt_every",
+                            str(iters), "--snapshot_dir", f"{tmp}/{tag}",
+                            "--device", "cuda"])
+            launched = [a - b for a, b in zip(launch_counts(kernels),
+                                              before)]
+            saved = sorted(p.name for p in Path(tmp, tag).iterdir())
+            fields = {}
+            if tag == "btcv":
+                arr = np.load(Path(tmp, tag, "metric_final.npy"))
+                fields = dict(metric_final=tuple(arr.shape),
+                              mean_dice=f"{arr[:, :, 0].mean():.4f}")
+                if arr.shape != (1, MAGIC3D_CLASSES - 1, 4):
+                    raise AssertionError(f"metric_final.npy {arr.shape}")
+            log("entry_points", cli="train", run=tag,
+                seconds=f"{time.perf_counter() - t0:.1f}",
+                launches_serve_fwd_states_bwd=tuple(launched[:3]),
+                saved=" ".join(saved), **fields)
+            if launched != want + [0] * 6:
+                raise AssertionError(f"{tag}: launched {launched}, expected "
+                                     f"{want}")
 
 
 def main() -> int:
@@ -3478,6 +4019,30 @@ def main() -> int:
     cc_entry_points_phase(torch, np, dev)
     phase_done("entry_points: contrastive_consistency, mask_pretrain")
 
+    # --- MagicNet: on MambaUnetMask without and with --mask_recovery, the
+    # 3-D VNet on BTCV phantoms, the CLIs
+    torch.cuda.empty_cache()
+    magic_launches, *_ = magicnet_phase(torch, dev, False)
+    torch.cuda.empty_cache()
+    magic_mask_launches, *_ = magicnet_phase(torch, dev, True)
+    torch.cuda.empty_cache()
+    phase_done("magicnet_mamba, magicnet_mask")
+    magicnet_3d_phase(torch, dev)
+    torch.cuda.empty_cache()
+    phase_done("magicnet_3d")
+    magic_entry_points_phase(torch, np, dev)
+    phase_done("entry_points: magicnet")
+
+    # --- the Mamba-LM remainders: bf16 compute, exported generation
+    _, lm_model = seeded_lm(torch, dev)
+    lm_model.eval()
+    lm_later = lm_bf16_phase(torch, dev, lm_model)
+    phase_done("lm_bf16")
+    del lm_model
+    lm_later += lm_export_phase(torch, dev)
+    torch.cuda.empty_cache()
+    phase_done("lm_export")
+
     # the steps card vs CPU: last, as their CPU backwards would share the
     # host with a timed phase
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3485,18 +4050,21 @@ def main() -> int:
     weak_parity_phase(torch, dev)
     phase_done("weak_parity")
     cc_parity_phase(torch, dev)
+    phase_done("cc_parity")
+    magicnet_parity_phase(torch, dev)
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32_defaults
-    phase_done("cc_parity")
+    phase_done("magicnet_parity")
 
     serve_bound = sum(calls * scan_bound("fwd", SERVE_BATCH, L, dg, 4)[0]
                       for L, dg, calls in STAGES)
     pallas = "mamba_unet_tpu/ops/selective_scan_pallas.py"
     # the bidir kernels' launches: their main path's run plus the weak
-    # trio's (model 3), the contrastive pair's, the mask pretraining's and
-    # the mask variant's
-    later = [w + c + m + cm for w, c, m, cm in zip(
-        weak_launches, cc_launches, mask_launches, cc_mask_launches)]
+    # trio's (model 3), the contrastive pair's, the mask pretraining's, the
+    # mask variant's and MagicNet's without and with --mask_recovery
+    later = [sum(t) for t in zip(weak_launches, cc_launches, mask_launches,
+                                 cc_mask_launches, magic_launches,
+                                 magic_mask_launches)]
     rows = [dict(name="selective_scan_bidir_fwd",
                  launches=launches + later[0],
                  max_abs_err=max_err, ms=ms_fwd, plain_ms=plain_ms_fwd,
@@ -3518,7 +4086,8 @@ def main() -> int:
                          source=f"mamba_unet_torch/csrc/{src}",
                          replaces=where))
     ms, plain, bound, by = lm_times["scoring"]
-    rows.append(dict(name="selective_scan_fwd", launches=lm_launches,
+    rows.append(dict(name="selective_scan_fwd",
+                     launches=lm_launches + lm_later,
                      max_abs_err=lm_err, ms=LM_DEPTH * ms,
                      plain_ms=LM_DEPTH * plain, bound_ms=LM_DEPTH * bound,
                      bound_by=by,

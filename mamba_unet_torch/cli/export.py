@@ -7,8 +7,10 @@ Port of ``mamba_unet_tpu/cli/export.py``::
         --batch 24 --out vim_bf16_b24.pt2
 
 ``--model`` is any registered model (``ViM_seg`` by default, the UNet
-family, ``ViT_seg`` and ``MambaUnetMask``, these two built for
-``--patch_size``). The artifact
+family, ``ViT_seg``, the VNet family and the MagicNet models; the models
+built for one size are built for ``--patch_size``, the MagicNet ones also
+for ``--cube_size``; three ``--patch_size`` ints export a 3-D model's
+(B, D, H, W, C) volumes). The artifact
 (``utils.export.export_predict``) holds the graph and the weights, with a
 symbolic batch unless ``--batch`` pins one. It runs on the
 device it was exported on (``--device``, default ``cuda``, which raises
@@ -31,7 +33,10 @@ def build_parser():
                                             "(PyTorch)")
     p.add_argument("--model", type=str, default="ViM_seg")
     p.add_argument("--num_classes", type=int, default=4)
-    p.add_argument("--patch_size", type=int, nargs=2, default=[224, 224])
+    p.add_argument("--patch_size", type=int, nargs="+", default=[224, 224],
+                   help="2 ints, or 3 for a 3-D model")
+    p.add_argument("--cube_size", type=int, default=32,
+                   help="the cube side a MagicNet model was trained with")
     p.add_argument("--in_channels", type=int, default=1)
     p.add_argument("--checkpoint", type=str, default=None,
                    help="state_dict file or training snapshot directory; "
@@ -60,15 +65,18 @@ def main(argv=None) -> int:
                         stream=sys.stdout)
     import torch
 
-    from mamba_unet_torch.models.registry import IMG_SIZE_MODELS
+    from mamba_unet_torch.models.registry import VOLUME_MODELS, size_kwargs
     from mamba_unet_torch.utils.checkpoint import load_model_snapshot
     from mamba_unet_torch.utils.device import require_device
     from mamba_unet_torch.utils.export import export_predict, save_exported
 
     if not args.checkpoint:
         logging.warning("no --checkpoint: exporting the seed-0 init")
-    model_kw = ({"img_size": args.patch_size[0]}
-                if args.model in IMG_SIZE_MODELS else {})
+    if len(args.patch_size) != (3 if args.model in VOLUME_MODELS else 2):
+        raise ValueError(f"--patch_size {args.patch_size} does not fit the "
+                         f"{'3' if args.model in VOLUME_MODELS else '2'}-D "
+                         f"model {args.model}")
+    model_kw = size_kwargs(args.model, args.patch_size[0], args.cube_size)
     model = load_model_snapshot(args.model, args.num_classes,
                                 args.in_channels, args.checkpoint,
                                 device=require_device(args.device),

@@ -18,9 +18,13 @@ too; it is ``eval.inference.test_single_volume`` with the CLI's metrics.
     python -m mamba_unet_torch.cli.test --checkpoint snap/ --ckpt_name best \
         --save_nii_dir preds/
 
-``--model`` is any registered model (``ViM_seg``, the UNet family,
-``ViT_seg`` and ``MambaUnetMask``, these two built for ``--patch_size``;
-a model with several outputs is served its first). ``--device`` defaults to
+``--model`` is any registered 2-D model (``ViM_seg``, the UNet family,
+``ViT_seg``, ``vnet`` and the MagicNet models; ``ViT_seg``,
+``MambaUnetMask``, ``magicnet_2D`` and ``magicnet_2D_mask`` built for
+``--patch_size``, the last three also for ``--cube_size``; a model with
+several outputs is served its first). The 3-D models (``vnet_3D``,
+``magicnet``) are validated by ``train.magicnet.MagicNetTrainer.
+final_validation``, not here. ``--device`` defaults to
 ``cuda`` and raises without a card; ``--device cpu`` runs on the CPU.
 """
 
@@ -46,6 +50,8 @@ def build_parser():
     p.add_argument("--model", type=str, default="ViM_seg")
     p.add_argument("--num_classes", type=int, default=4)
     p.add_argument("--patch_size", type=int, nargs=2, default=[224, 224])
+    p.add_argument("--cube_size", type=int, default=32,
+                   help="the cube side a MagicNet model was trained with")
     p.add_argument("--checkpoint", type=str, default=None,
                    help="torch.save'd state_dict, or a training snapshot "
                         "directory; default: seed-0 weights")
@@ -80,13 +86,15 @@ def run_inference(args, dataset=None) -> dict:
     default the ``--split`` of the h5 set under ``--root_path``)."""
     from mamba_unet_torch.data.acdc import VolumeDataset
     from mamba_unet_torch.data.nifti import write_nifti
-    from mamba_unet_torch.models.registry import IMG_SIZE_MODELS
+    from mamba_unet_torch.models.registry import VOLUME_MODELS, size_kwargs
     from mamba_unet_torch.utils.checkpoint import load_model_snapshot
     from mamba_unet_torch.utils.device import require_device
     from mamba_unet_torch.utils.export import make_predict_fn
 
-    model_kw = ({"img_size": args.patch_size[0]}
-                if args.model in IMG_SIZE_MODELS else {})
+    if args.model in VOLUME_MODELS:
+        raise ValueError(f"{args.model} is a 3-D model; this CLI serves 2-D "
+                         f"slices")
+    model_kw = size_kwargs(args.model, args.patch_size[0], args.cube_size)
     model = load_model_snapshot(args.model, args.num_classes, 1,
                                 args.checkpoint,
                                 device=require_device(args.device),

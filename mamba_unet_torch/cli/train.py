@@ -2,10 +2,12 @@
 
 Port of ``mamba_unet_tpu/cli/train.py`` for ``--method fully_supervised``,
 ``mean_teacher``, ``uamt``, ``cross_teaching`` (Semi-Mamba-UNet),
-``weak_scribble`` (Weak-Mamba-UNet), ``contrastive_consistency`` and
-``mask_pretrain``, and the models ``ViM_seg``/``mambaunet``, the UNet
-family (``unet``, ``unet_ds``, ``unet_urpc``, ``unet_cct``, ``TLunet``),
-``ViT_seg`` (Swin-UNet) and ``MambaUnetMask``, with that CLI's
+``weak_scribble`` (Weak-Mamba-UNet), ``contrastive_consistency``,
+``mask_pretrain`` and ``magicnet``, and the models ``ViM_seg``/
+``mambaunet``, the UNet family (``unet``, ``unet_ds``, ``unet_urpc``,
+``unet_cct``, ``TLunet``), ``ViT_seg`` (Swin-UNet), ``MambaUnetMask`` and
+the VNet family (``vnet``, ``vnet_3D``, ``magicnet``, ``magicnet_2D``,
+``magicnet_2D_mask``), with that CLI's
 flags for these paths plus ``--device`` (default ``cuda``; it raises when
 there is no card rather than run on the CPU). ``--model`` defaults to
 ``unet``, as there. Other methods raise "not ported yet". The
@@ -27,12 +29,29 @@ projectors on two-stream batches of CTAugment views (``CTAugment`` and
 to ``cta_state.json`` beside each periodic checkpoint and read back on
 ``--resume``). ``mask_pretrain`` pretrains a ``MambaUnetMask`` without
 labels on shuffled batches (cubes of ``--cube_size``, ``--masked_rate``
-of them masked). ``--mask_recovery`` acts only with ``--method
-magicnet``, which is not ported: the flag raises (the JAX CLI ignores it
-for the other methods; the contrastive trainer's mask variant is reached
-through its Python API). ``scan_impl`` and ``drop_path`` reach only the
-models that take them; ``ViT_seg`` and ``MambaUnetMask`` are built for
-``--patch_size``, ``MambaUnetMask`` for ``--cube_size``. Every method
+of them masked). ``magicnet`` trains a MagicNet model (``magicnet_2D``,
+``magicnet_2D_mask`` or ``MambaUnetMask`` on ACDC's two-stream slices;
+``magicnet`` with ``--dataset btcv``) with its EMA teacher, cubes of
+``--cube_size``; ``--mask_recovery`` adds the shuffle and mask recovery
+losses and needs a model with the mix-out head (``MambaUnetMask``,
+``magicnet_2D_mask``: another raises ``ValueError``, where the JAX CLI
+fails with an ``AttributeError``). With any other method the flag raises
+(the JAX CLI ignores it there; the contrastive trainer's mask variant is
+reached through its Python API). ``--dataset btcv`` is the 3-D MagicNet
+pipeline of the reference's BTCV script: ``--method magicnet --model
+magicnet`` and three ``--patch_size`` ints (else it raises, as JAX
+asserts), volumes from ``--root_path`` (``train.list``, ``val.list``,
+``data/*.h5``) or, with ``--synthetic``, 12 + 1 in-memory organ phantoms
+of side ``--patch_size[0]`` (``data.synthetic.phantom_btcv``, 14
+classes), random crops to the patch, two-stream batches whose labeled set
+is the first third of the volumes with ``--synthetic`` (at least 2), else
+the first ``--labeled_num``; sliding-window validation every
+``--eval_every`` and at the end on the saved ``best`` model, whose
+(cases, classes - 1, 4) [dice, hd95, nsd, asd] array is written to
+``--snapshot_dir``/``metric_final.npy``. ``scan_impl`` and ``drop_path``
+reach only the models that take them; ``ViT_seg`` and ``MambaUnetMask``
+are built for ``--patch_size``, the MagicNet models for ``--patch_size``
+and ``--cube_size``. Every method
 trains under ``--optimizer`` (the JAX CLI gives ``mask_pretrain`` its
 default poly-SGD whatever the flag says).
 ``--synthetic`` trains on in-memory phantom slices
@@ -70,6 +89,13 @@ the JAX package, and has no flag.
         --model ViM_seg --synthetic --bf16 --patch_size 224 224
     python -m mamba_unet_torch.cli.train --method mask_pretrain \\
         --model MambaUnetMask --synthetic --bf16 --patch_size 224 224
+    python -m mamba_unet_torch.cli.train --method magicnet \\
+        --model MambaUnetMask --mask_recovery --synthetic --bf16 \\
+        --patch_size 224 224
+    python -m mamba_unet_torch.cli.train --dataset btcv --method magicnet \\
+        --model magicnet --synthetic --patch_size 96 96 96 \\
+        --num_classes 14 --batch_size 4 --labeled_bs 2 --cube_size 32 \\
+        --snapshot_dir snap
 """
 
 from __future__ import annotations
@@ -80,15 +106,20 @@ import sys
 
 PORTED_METHODS = ("fully_supervised", "mean_teacher", "uamt",
                   "cross_teaching", "weak_scribble",
-                  "contrastive_consistency", "mask_pretrain")
+                  "contrastive_consistency", "mask_pretrain", "magicnet")
 # the methods that train on two-stream (labeled, then unlabeled) batches
 TWO_STREAM_METHODS = ("mean_teacher", "uamt", "cross_teaching",
-                      "contrastive_consistency")
+                      "contrastive_consistency", "magicnet")
 # the models that --pretrained_ckpt warm-starts (their network's root:
 # mamba_unet, swin_unet)
 WARM_START_MODELS = ("ViM_seg", "mambaunet", "ViT_seg")
 MODELS = ("ViM_seg", "mambaunet", "unet", "unet_ds", "unet_urpc", "unet_cct",
-          "TLunet", "ViT_seg", "MambaUnetMask")
+          "TLunet", "ViT_seg", "MambaUnetMask", "vnet", "vnet_3D", "magicnet",
+          "magicnet_2D", "magicnet_2D_mask")
+# the models with the mix-out head that --mask_recovery trains
+MIX_HEAD_MODELS = ("MambaUnetMask", "magicnet_2D_mask")
+# the BTCV phantoms' classes (the JAX CLI's make_synthetic_btcv default)
+BTCV_SYNTHETIC_CLASSES = 14
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -98,6 +129,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="experiment name, accepted for command-line "
                         "compatibility with the JAX CLI (stored; nothing "
                         "reads it)")
+    p.add_argument("--dataset", type=str, default="acdc",
+                   choices=["acdc", "btcv"],
+                   help="acdc = the 2-D slice pipeline; btcv = the 3-D "
+                        "volume pipeline (--method magicnet)")
     p.add_argument("--model", type=str, default="unet", choices=MODELS)
     p.add_argument("--method", type=str, default="fully_supervised")
     p.add_argument("--max_iterations", type=int, default=10000)
@@ -128,14 +163,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="weak_scribble ablation: the scribble pCE alone, "
                         "no pseudo-label Dice")
     p.add_argument("--cube_size", type=int, default=32,
-                   help="mask_pretrain's cube side (MambaUnetMask: a "
-                        "multiple of 32)")
+                   help="mask_pretrain's and magicnet's cube side "
+                        "(MambaUnetMask: a multiple of 32; the VNets: of "
+                        "16)")
     p.add_argument("--masked_rate", type=float, default=0.25,
-                   help="mask_pretrain: the share of cubes masked")
+                   help="mask_pretrain and magicnet --mask_recovery: the "
+                        "share of cubes masked")
     p.add_argument("--mask_recovery", action="store_true",
-                   help="magicnet's recovery losses; --method magicnet is "
-                        "not ported, so the flag raises")
-    p.add_argument("--patch_size", type=int, nargs=2, default=[256, 256])
+                   help="magicnet: add the shuffle and mask recovery "
+                        "losses (a model with forward_mix_pos_mask: "
+                        "MambaUnetMask, magicnet_2D_mask)")
+    p.add_argument("--patch_size", type=int, nargs="+", default=[256, 256],
+                   help="2 ints (acdc) or 3 (btcv)")
     p.add_argument("--num_classes", type=int, default=4)
     p.add_argument("--seed", type=int, default=1337)
     p.add_argument("--eval_every", type=int, default=200)
@@ -193,44 +232,109 @@ def _make_optimizer(args):
 
 
 def _model_kwargs(args, name: str, seed: int) -> dict:
-    """net_factory keywords of model ``name``: ``scan_impl`` and
-    ``drop_path`` only where the model takes them."""
+    """net_factory keywords of model ``name``: ``scan_impl``, ``drop_path``
+    and the sizes only where the model takes them."""
     import torch
 
     from mamba_unet_torch.models.registry import (
         DROP_PATH_MODELS,
-        IMG_SIZE_MODELS,
         SCAN_MODELS,
+        size_kwargs,
     )
 
     kw = {"num_classes": args.num_classes,
-          "generator": torch.Generator().manual_seed(seed)}
+          "generator": torch.Generator().manual_seed(seed),
+          **size_kwargs(name, args.patch_size[0], args.cube_size)}
     if name in SCAN_MODELS:
         kw["scan_impl"] = args.scan_impl
     if name in DROP_PATH_MODELS and args.drop_path is not None:
         kw["drop_path_rate"] = args.drop_path
-    if name in IMG_SIZE_MODELS:
-        kw["img_size"] = args.patch_size[0]
-    if name == "MambaUnetMask":
-        kw["cube_size"] = args.cube_size
     return kw
+
+
+def _check_args(args) -> None:
+    """Raise on a combination the pipelines do not run, before any data is
+    loaded."""
+    from mamba_unet_torch.models.registry import VOLUME_MODELS
+
+    if args.method not in PORTED_METHODS:
+        raise NotImplementedError(
+            f"--method {args.method} is not ported yet; ported: "
+            f"{', '.join(PORTED_METHODS)}")
+    if args.mask_recovery and args.method != "magicnet":
+        raise NotImplementedError(
+            f"--mask_recovery acts only with --method magicnet (the JAX CLI "
+            f"ignores it with --method {args.method}); the contrastive "
+            f"trainer's mask variant is reached through "
+            f"ContrastiveConsistencyTrainer(mask_recovery=True)")
+    if args.mask_recovery and args.model not in MIX_HEAD_MODELS:
+        raise ValueError(
+            f"--mask_recovery needs a model with the mix-out head "
+            f"(forward_mix_pos_mask): {', '.join(MIX_HEAD_MODELS)}, not "
+            f"{args.model}")
+    if args.dataset == "btcv":
+        if args.method != "magicnet" or len(args.patch_size) != 3:
+            raise ValueError(
+                "--dataset btcv drives the 3-D MagicNet pipeline: pass "
+                "--method magicnet --model magicnet and three --patch_size "
+                "ints")
+    elif len(args.patch_size) != 2:
+        raise ValueError(f"--dataset acdc trains on slices: two "
+                         f"--patch_size ints, not {args.patch_size}")
+    if (args.model in VOLUME_MODELS) != (args.dataset == "btcv"):
+        raise ValueError(f"--model {args.model} does not fit --dataset "
+                         f"{args.dataset}")
+
+
+def _train_btcv(args, cfg, device) -> int:
+    """The 3-D MagicNet pipeline (``--dataset btcv``)."""
+    from mamba_unet_torch.data.btcv import (
+        Compose3D,
+        RandomCrop3D,
+        VolumeTrainDataset,
+    )
+    from mamba_unet_torch.data.loader import Loader
+    from mamba_unet_torch.data.sampler import TwoStreamBatchSampler
+    from mamba_unet_torch.data.synthetic import phantom_btcv
+    from mamba_unet_torch.models import net_factory
+    from mamba_unet_torch.train import MagicNetTrainer
+
+    transform = Compose3D([RandomCrop3D(cfg.patch_size, seed=args.seed)])
+    if args.synthetic:
+        splits = phantom_btcv(12, 1, args.patch_size[0],
+                              BTCV_SYNTHETIC_CLASSES)
+        train_ds = VolumeTrainDataset.from_samples(splits["train"],
+                                                   transform=transform)
+        val_ds = VolumeTrainDataset.from_samples(splits["val"])
+        n_labeled = max(2, len(train_ds) // 3)
+    else:
+        train_ds = VolumeTrainDataset(args.root_path, "train.list",
+                                      transform=transform)
+        val_ds = VolumeTrainDataset(args.root_path, "val.list")
+        n_labeled = min(args.labeled_num, len(train_ds) - 1)
+    sampler = TwoStreamBatchSampler(
+        range(n_labeled), range(n_labeled, len(train_ds)), cfg.batch_size,
+        cfg.batch_size - args.labeled_bs, seed=args.seed)
+    model = net_factory(args.model, **_model_kwargs(args, args.model,
+                                                    args.seed))
+    trainer = MagicNetTrainer(
+        model, cfg, labeled_bs=args.labeled_bs, cube_size=args.cube_size,
+        mask_recovery=args.mask_recovery, masked_rate=args.masked_rate,
+        make_optimizer=_make_optimizer(args), device=device)
+    result = trainer.fit(Loader(train_ds, sampler, device=device), val_ds)
+    logging.info("done: %d iterations, best val dice %.4f",
+                 result["iterations"], result["best_dice"])
+    # the reference's end of run: the saved best model over the val
+    # volumes, the metric array beside the snapshot
+    trainer.final_validation(val_ds)
+    return 0
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s",
                         datefmt="%H:%M:%S", stream=sys.stdout)
-    if args.method not in PORTED_METHODS:
-        raise NotImplementedError(
-            f"--method {args.method} is not ported yet; ported: "
-            f"{', '.join(PORTED_METHODS)}")
-    if args.mask_recovery:
-        raise NotImplementedError(
-            f"--mask_recovery acts only with --method magicnet, which is not "
-            f"ported yet (the JAX CLI ignores it with --method "
-            f"{args.method}); the contrastive trainer's mask variant is "
-            f"reached through ContrastiveConsistencyTrainer(mask_recovery="
-            f"True)")
+    _check_args(args)
     if args.pretrained_ckpt and args.model not in WARM_START_MODELS:
         raise NotImplementedError(
             f"--pretrained_ckpt warm-starts {', '.join(WARM_START_MODELS)}; "
@@ -254,6 +358,7 @@ def main(argv=None) -> int:
     from mamba_unet_torch.models import net_factory
     from mamba_unet_torch.train import (
         ContrastiveConsistencyTrainer,
+        MagicNetTrainer,
         MaskPretrainTrainer,
         TrainConfig,
         Trainer,
@@ -273,6 +378,8 @@ def main(argv=None) -> int:
         ckpt_every=args.ckpt_every, grad_accum_steps=args.grad_accum_steps,
         bf16=args.bf16,
     )
+    if args.dataset == "btcv":
+        return _train_btcv(args, cfg, device)
     # weak_scribble trains on the scribbles, which rotation pads with the
     # ignore index; val keeps the dense labels
     sup_type = "scribble" if weak else "label"
@@ -324,7 +431,13 @@ def main(argv=None) -> int:
             name2 = args.model2 or args.model
             model2 = net_factory(name2, **_model_kwargs(args, name2,
                                                         args.seed + 1))
-        if args.method == "contrastive_consistency":
+        if args.method == "magicnet":
+            trainer = MagicNetTrainer(
+                model, cfg, labeled_bs=args.labeled_bs,
+                cube_size=args.cube_size, mask_recovery=args.mask_recovery,
+                masked_rate=args.masked_rate, make_optimizer=make_optimizer,
+                device=device)
+        elif args.method == "contrastive_consistency":
             trainer = ContrastiveConsistencyTrainer(
                 model, cfg, model2=model2, labeled_bs=args.labeled_bs,
                 make_optimizer=make_optimizer, device=device)

@@ -1,1 +1,2 @@
-"""Host-side data: ACDC volume reader and synthetic phantoms."""
+"""Host-side data: the ACDC and BTCV readers, their transforms and the
+synthetic phantoms."""

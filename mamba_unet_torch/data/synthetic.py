@@ -17,6 +17,10 @@ function writes to h5. Nothing is written: the machine with the card has
 no ``h5py``. With ``scribble`` every train slice also carries the sparse
 label that function writes as ``scribble`` (``data/scribble.py``), drawn
 from the same generator right after its slice, as there.
+
+:func:`phantom_btcv` is the in-memory counterpart of
+``mamba_unet_tpu/data/btcv.py::make_synthetic_btcv``: 3-D organ-ellipsoid
+volumes drawn from the same stream.
 """
 
 from __future__ import annotations
@@ -161,3 +165,39 @@ def phantom_acdc(n_train_cases: int = 4, slices_per_case: int = 4,
     test = _volumes(rng, "test_patient", n_test_cases, slices_per_case, h, w,
                     hard)
     return {"train": train, "val": val, "test": test}
+
+
+def phantom_btcv(n_train: int = 4, n_val: int = 1, size: int = 64,
+                 num_classes: int = 14, seed: int = 0
+                 ) -> Dict[str, List[Dict[str, np.ndarray]]]:
+    """In-memory BTCV-format organ phantoms: per volume, an ellipsoid of
+    each class 1..num_classes-1 (later classes over earlier ones) on a
+    0.1-sd noise background, brighter by 0.2 + 0.05 * class, clipped to
+    [0, 2]. The same numpy stream as JAX's ``make_synthetic_btcv``, train
+    volumes first, so the arrays equal its h5 contents. ``train`` and
+    ``val`` are lists of ``image`` (size³) float32, ``label`` (size³)
+    int64, ``case`` (the h5 id)."""
+    rng = np.random.default_rng(seed)
+    zz, yy, xx = np.mgrid[0:size, 0:size, 0:size].astype(np.float32)
+
+    def phantom():
+        img = 0.1 * rng.standard_normal((size, size, size)).astype(
+            np.float32)
+        lab = np.zeros((size, size, size), np.uint8)
+        for c in range(1, num_classes):
+            cz, cy, cx = rng.uniform(0.2, 0.8, 3) * size
+            rz, ry, rx = rng.uniform(0.04, 0.12, 3) * size
+            mask = (((zz - cz) / rz) ** 2 + ((yy - cy) / ry) ** 2
+                    + ((xx - cx) / rx) ** 2) < 1
+            lab[mask] = c
+            img[mask] += 0.2 + 0.05 * c
+        return np.clip(img, 0, 2), lab.astype(np.int64)
+
+    out = {}
+    for split, n in (("train", n_train), ("val", n_val)):
+        out[split] = []
+        for i in range(n):
+            image, label = phantom()
+            out[split].append({"image": image, "label": label,
+                               "case": f"btcv_{split}_{i:03d}"})
+    return out

@@ -1,2 +1,2 @@
-"""Evaluation: host-side (numpy/scipy) metrics and volume inference, and
-the Mamba-LM loglikelihood evaluator."""
+"""Evaluation: host-side (numpy/scipy) metrics, slice and sliding-window
+3-D volume inference, and the Mamba-LM loglikelihood evaluator."""

@@ -1,7 +1,9 @@
-"""Volume inference: per-slice order-0 resize, batched forward, argmax.
+"""Volume inference: per-slice order-0 resize, batched forward, argmax;
+and tiled 3-D inference.
 
 Copied from ``mamba_unet_tpu/eval/inference.py`` (``_zoom0``,
-``_predict_batched``, ``test_single_volume``, ``evaluate_slice_volumes``),
+``_predict_batched``, ``test_single_volume``, ``evaluate_slice_volumes``,
+``gaussian_importance_map``, ``sliding_window_inference_3d``),
 not imported: any import from
 ``mamba_unet_tpu`` runs its ``data`` package, which imports ``jax``, and the
 machine that serves the port has no ``jax``. ``_zoom0`` here is scipy only
@@ -11,6 +13,7 @@ The copies are held equal by ``tests/test_torch_modules.py``.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -130,3 +133,72 @@ def evaluate_slice_volumes(
             for i in range(1, classes)
         ])
     return np.asarray(metrics)
+
+
+def gaussian_importance_map(patch_size: Sequence[int],
+                            sigma_scale: float = 0.125) -> np.ndarray:
+    """nnU-Net's Gaussian tile weighting: a centered Gaussian, normalized
+    to max 1, its zeros raised to the least positive value so every voxel
+    keeps a weight."""
+    from scipy.ndimage import gaussian_filter
+
+    tmp = np.zeros(patch_size, np.float32)
+    tmp[tuple(s // 2 for s in patch_size)] = 1.0
+    g = gaussian_filter(tmp, [s * sigma_scale for s in patch_size],
+                        mode="constant")
+    g = g / g.max()
+    g[g == 0] = g[g > 0].min()
+    return g.astype(np.float32)
+
+
+def sliding_window_inference_3d(
+    image: np.ndarray,
+    predict_fn: Callable[[np.ndarray], np.ndarray],
+    num_classes: int,
+    patch_size: Sequence[int] = (96, 96, 96),
+    stride: Sequence[int] = (16, 16, 16),
+    gaussian_weighting: bool = False,
+) -> np.ndarray:
+    """Tiled 3-D inference with score accumulation on the host.
+
+    ``image`` (D, H, W), zero-padded (centered) up to ``patch_size`` where
+    smaller; ``predict_fn`` (1, pd, ph, pw, 1) -> (1, pd, ph, pw, C)
+    logits, one call per window, the last window of each axis flush with
+    the end. The softmax of each window, weighted (uniformly, or by
+    :func:`gaussian_importance_map`), is summed and divided by the summed
+    weights. Returns the argmax label volume (D, H, W)."""
+    image = np.asarray(image, np.float32)
+    pd, ph, pw = patch_size
+    d, h, w = image.shape
+    pads = [max(0, p - s) for p, s in zip(patch_size, image.shape)]
+    pad_width = [(pz // 2, pz - pz // 2) for pz in pads]
+    padded = np.pad(image, pad_width, mode="constant") if any(pads) else image
+    dd, hh, ww = padded.shape
+
+    sx = math.ceil((dd - pd) / stride[0]) + 1 if dd > pd else 1
+    sy = math.ceil((hh - ph) / stride[1]) + 1 if hh > ph else 1
+    sz = math.ceil((ww - pw) / stride[2]) + 1 if ww > pw else 1
+
+    weight = (gaussian_importance_map(patch_size) if gaussian_weighting
+              else np.ones(patch_size, np.float32))
+    score = np.zeros((num_classes, dd, hh, ww), np.float32)
+    cnt = np.zeros((dd, hh, ww), np.float32)
+    for ix in range(sx):
+        xs = min(ix * stride[0], dd - pd)
+        for iy in range(sy):
+            ys = min(iy * stride[1], hh - ph)
+            for iz in range(sz):
+                zs = min(iz * stride[2], ww - pw)
+                patch = padded[xs:xs + pd, ys:ys + ph, zs:zs + pw]
+                logits = np.asarray(predict_fn(patch[None, ..., None]))[0]
+                e = np.exp(logits - logits.max(axis=-1, keepdims=True))
+                prob = e / e.sum(axis=-1, keepdims=True)  # (pd, ph, pw, C)
+                score[:, xs:xs + pd, ys:ys + ph, zs:zs + pw] += (
+                    prob.transpose(3, 0, 1, 2) * weight[None])
+                cnt[xs:xs + pd, ys:ys + ph, zs:zs + pw] += weight
+    score /= np.maximum(cnt, 1e-8)[None]
+    pred = np.argmax(score, axis=0)
+    if any(pads):
+        (d0, _), (h0, _), (w0, _) = pad_width
+        pred = pred[d0:d0 + d, h0:h0 + h, w0:w0 + w]
+    return pred

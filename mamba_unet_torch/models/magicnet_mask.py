@@ -1,22 +1,28 @@
-"""The MagicNet mask heads: the position/mask embedding and the global
-mix-out head of shuffle/mask-recovery pretraining.
+"""The MagicNet mask heads (the position/mask embedding and the global
+mix-out head of shuffle/mask-recovery pretraining) and the 2-D VNet_Magic
+that carries them.
 
-Port of ``PosEmbedLayer`` and ``MixOutLayer`` from
-``mamba_unet_tpu/models/magicnet_mask.py`` (channels-last); its
-``VNetMagicMask`` is not ported yet. Each head's BatchNorm is flax's and
-is named ``bn``.
+Port of ``PosEmbedLayer``, ``MixOutLayer`` and ``VNetMagicMask``
+(registry ``magicnet_2D_mask``) from
+``mamba_unet_tpu/models/magicnet_mask.py``, channels-last. Each head's
+BatchNorm is flax's and is named ``bn``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mamba_unet_torch.models.vnet import dense
-from mamba_unet_torch.nn.layers import BatchNorm1d, lecun_normal_
+from mamba_unet_torch.models.vnet import (
+    FcLayer,
+    VNetDecoder,
+    VNetEncoder,
+    dense,
+)
+from mamba_unet_torch.nn.layers import BatchNorm1d, lecun_normal_, leaky_relu
 
 
 def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
@@ -62,7 +68,7 @@ class PosEmbedLayer(nn.Module):
         if mask is None:
             mask = torch.ones(b, self.n_ids, device=x.device)
         pm = torch.cat([pos_embed.float(), mask.float()], dim=1)
-        h = F.leaky_relu(self.bn(self.fc1(pm)), 0.2)
+        h = leaky_relu(self.bn(self.fc1(pm)), 0.2)
         embed = self.fc2(h).reshape(b, self.patch_size, self.patch_size, 1)
         if self.patch_size != x.shape[1]:
             embed = resize_bilinear(embed, x.shape[1:3])
@@ -88,4 +94,67 @@ class MixOutLayer(nn.Module):
 
     def forward(self, emb: torch.Tensor) -> torch.Tensor:
         h = self.conv(emb.permute(0, 3, 1, 2)).flatten(1)
-        return F.leaky_relu(self.bn(self.fc(h)), 0.2)
+        return leaky_relu(self.bn(self.fc(h)), 0.2)
+
+
+class VNetMagicMask(nn.Module):
+    """The 2-D ``VNetMagic`` (``models/vnet.py``) with the position/mask
+    embedding in front of its encoder and the mix-out head on its
+    embedding; every tensor in and out is channels-last:
+
+      forward(x, pos_embed, mask)      -> (seg logits fp32, embedding)
+      forward_encoder(x, pos, mask)    -> [x1 .. x5]
+      forward_decoder(feats)           -> (seg logits fp32, embedding)
+      forward_location(flat)           -> cube-location logits
+      forward_prediction_head(e)       -> seg logits fp32
+      forward_mix_pos_mask(x, ...)     -> (B, 256) global embedding
+
+    ``patch_size`` sizes the position embedding and the mix-out head;
+    every head exists from construction."""
+
+    def __init__(self, num_classes: int = 2, in_chans: int = 1,
+                 cube_size: int = 32, patch_size: int = 96,
+                 n_filters: int = 16, normalization: str = "instancenorm", *,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cube_size, self.patch_size = cube_size, patch_size
+        kw = dict(n_filters=n_filters, ndim=2, normalization=normalization,
+                  device=device, generator=generator)
+        self.encoder = VNetEncoder(in_chans, **kw)
+        self.decoder = VNetDecoder(num_classes, **kw)
+        self.fc_layer = FcLayer(16 * n_filters * (cube_size // 16) ** 2,
+                                cube_size, patch_size, 2, device=device,
+                                generator=generator)
+        self.pos_embed_layer = PosEmbedLayer(cube_size, patch_size,
+                                             device=device,
+                                             generator=generator)
+        self.mix_out_layer = MixOutLayer(patch_size, n_filters,
+                                         device=device, generator=generator)
+
+    def _decode(self, feats):
+        seg, emb = self.decoder(feats)
+        return seg.permute(0, 2, 3, 1), emb.permute(0, 2, 3, 1)
+
+    def forward_encoder(self, x: torch.Tensor, pos_embed=None, mask=None
+                        ) -> List[torch.Tensor]:
+        x = self.pos_embed_layer(x, pos_embed, mask)
+        return [f.permute(0, 2, 3, 1)
+                for f in self.encoder(x.permute(0, 3, 1, 2))]
+
+    def forward_decoder(self, feats: Sequence[torch.Tensor]):
+        return self._decode([f.permute(0, 3, 1, 2) for f in feats])
+
+    def forward_location(self, flat: torch.Tensor) -> torch.Tensor:
+        return self.fc_layer(flat)
+
+    def forward_prediction_head(self, emb: torch.Tensor) -> torch.Tensor:
+        return self.decoder.head(emb.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def forward_mix_pos_mask(self, x: torch.Tensor, pos_embed=None,
+                             mask=None) -> torch.Tensor:
+        _, emb = self(x, pos_embed, mask)
+        return self.mix_out_layer(emb)
+
+    def forward(self, x: torch.Tensor, pos_embed=None, mask=None):
+        x = self.pos_embed_layer(x, pos_embed, mask)
+        return self._decode(self.encoder(x.permute(0, 3, 1, 2)))

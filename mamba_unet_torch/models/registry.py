@@ -27,13 +27,38 @@ _LAZY: Dict[str, Tuple[str, str]] = {
     "Jigsaw_classifier": ("mamba_unet_torch.models.small_nets",
                           "JigsawClassifier"),
     "pnet": ("mamba_unet_torch.models.small_nets", "PNet2D"),
+    "vnet": ("mamba_unet_torch.models.vnet", "vnet_2d"),
+    "vnet_3D": ("mamba_unet_torch.models.vnet", "vnet_3d"),
+    "magicnet": ("mamba_unet_torch.models.vnet", "magicnet_3d"),
+    "magicnet_2D": ("mamba_unet_torch.models.vnet", "magicnet_2d"),
+    "magicnet_2D_mask": ("mamba_unet_torch.models.magicnet_mask",
+                         "VNetMagicMask"),
 }
-# the models that take SS2D's scan_impl, those with stochastic depth, and
-# those built for one input size (img_size)
+# the models that take SS2D's scan_impl, those with stochastic depth, those
+# built for one input size (img_size), those built for a cube size and a
+# patch size (cube_size, patch_size: MagicNet's location and mask heads),
+# and the 3-D ones
 SCAN_MODELS = frozenset({"ViM_seg", "mambaunet", "MambaUnetMask"})
 DROP_PATH_MODELS = frozenset({"ViM_seg", "mambaunet", "ViT_seg",
                               "MambaUnetMask"})
 IMG_SIZE_MODELS = frozenset({"ViT_seg", "MambaUnetMask"})
+CUBE_MODELS = frozenset({"MambaUnetMask", "magicnet", "magicnet_2D",
+                         "magicnet_2D_mask"})
+VOLUME_MODELS = frozenset({"vnet_3D", "magicnet"})
+
+
+def size_kwargs(net_type: str, patch_size: int, cube_size: int = 32
+                ) -> dict:
+    """The keywords that build ``net_type`` for images of side
+    ``patch_size`` (and cubes of ``cube_size``): ``img_size`` for
+    :data:`IMG_SIZE_MODELS`, ``cube_size`` and ``patch_size`` for
+    :data:`CUBE_MODELS`, none for the others."""
+    kw = {}
+    if net_type in IMG_SIZE_MODELS:
+        kw["img_size"] = patch_size
+    if net_type in CUBE_MODELS:
+        kw.update(cube_size=cube_size, patch_size=patch_size)
+    return kw
 
 
 def list_models():
@@ -45,7 +70,8 @@ def net_factory(net_type: str, **kwargs) -> nn.Module:
     ``generator``, ``num_classes``, ``in_chans``; ``scan_impl`` and
     ``use_remat`` for the Mamba models, ``drop_path_rate`` for those in
     :data:`DROP_PATH_MODELS`, ``img_size`` for those in
-    :data:`IMG_SIZE_MODELS`, ...)."""
+    :data:`IMG_SIZE_MODELS`, ``cube_size`` and ``patch_size`` for those in
+    :data:`CUBE_MODELS`, ...)."""
     if net_type not in _LAZY:
         raise KeyError(f"unknown model {net_type!r}; known: {list_models()}")
     module, attr = _LAZY[net_type]

@@ -1,8 +1,9 @@
-"""Shared initializers, ``DropPath``, ``Dropout``, ``BatchNorm2d`` and
-``BatchNorm1d``.
+"""Shared initializers, ``DropPath``, ``Dropout``, ``BatchNorm1d``,
+``BatchNorm2d``, ``BatchNorm3d`` and ``GroupNorm``.
 
-Port of ``mamba_unet_tpu/nn/layers.py``, plus flax's ``nn.Dropout`` and
-``nn.BatchNorm`` as the UNet family and Swin-UNet use them. Initializers
+Port of ``mamba_unet_tpu/nn/layers.py``, plus flax's ``nn.Dropout``,
+``nn.BatchNorm`` and ``nn.GroupNorm`` as the UNet family, Swin-UNet and the
+VNet family use them. Initializers
 draw on the CPU from an explicit ``torch.Generator`` and copy into the
 parameter, so one seed gives the same weights on every device. Every
 module that draws in training (:class:`Drawing`: ``DropPath``, ``Dropout``
@@ -19,6 +20,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, or unchanged when it is fp64: the fp32 islands
+    (normalization statistics, logits, losses) widen lower precisions and
+    leave an fp64 model fp64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 @torch.no_grad()
@@ -61,6 +69,14 @@ def linear(in_features: int, out_features: int, bias: bool, device,
     if bias:
         nn.init.zeros_(layer.bias)
     return layer
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
+    """flax's ``nn.leaky_relu``: where(x >= 0, x, slope x), whose gradient
+    at exactly 0 is 1 (``F.leaky_relu``'s is the slope). Exact zeros occur
+    where a train-mode BatchNorm normalizes equal rows (the mask heads'
+    identity position ids)."""
+    return torch.where(x >= 0, x, x * negative_slope)
 
 
 class Drawing(nn.Module):
@@ -134,16 +150,13 @@ class Dropout(Drawing):
         return dropout(x, self.rate, self._generator())
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """flax ``nn.BatchNorm`` on (B, C, H, W): epsilon 1e-5 and momentum 0.99
+class _FlaxBatchNorm:
+    """The training forward of flax ``nn.BatchNorm`` on (B, C, *spatial),
+    mixed into a torch BatchNorm class: epsilon 1e-5 and momentum 0.99
     (torch's 0.01). In training it normalizes with the batch statistics and
     averages the *biased* batch variance into ``running_var``, as flax
-    does (``torch.nn.BatchNorm2d`` averages the unbiased one); in eval mode
-    it normalizes with the running statistics."""
-
-    def __init__(self, num_features: int, *, device=None):
-        super().__init__(num_features, eps=1e-5, momentum=0.01,
-                         device=device)
+    does (torch's BatchNorm averages the unbiased one); in eval mode it
+    normalizes with the running statistics."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -151,18 +164,34 @@ class BatchNorm2d(nn.BatchNorm2d):
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
-                                       correction=0)
+            var, mean = torch.var_mean(
+                x.float(), dim=(0, *range(2, x.dim())), correction=0)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)
         return y
 
 
+class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    """flax ``nn.BatchNorm`` on (B, C, H, W) (:class:`_FlaxBatchNorm`)."""
+
+    def __init__(self, num_features: int, *, device=None):
+        super().__init__(num_features, eps=1e-5, momentum=0.01,
+                         device=device)
+
+
+class BatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
+    """flax ``nn.BatchNorm`` on (B, C, D, H, W) (:class:`_FlaxBatchNorm`)."""
+
+    def __init__(self, num_features: int, *, device=None):
+        super().__init__(num_features, eps=1e-5, momentum=0.01,
+                         device=device)
+
+
 class BatchNorm1d(nn.BatchNorm1d):
     """flax ``nn.BatchNorm`` on (B, C) features (after a ``Dense``), as
     :class:`BatchNorm2d`, but normalizing in training with flax's own
-    arithmetic in fp32: var = mean(x²) - mean(x)² (flax's fast variance,
+    arithmetic in fp32 (fp64 for an fp64 input): var = mean(x²) - mean(x)² (flax's fast variance,
     floored at 0), y = (x - mean) * rsqrt(var + eps) * scale + bias. At a
     batch of a few rows a feature's variance can be of the order of eps,
     where y follows every rounding of var; and rows that are all equal
@@ -177,7 +206,7 @@ class BatchNorm1d(nn.BatchNorm1d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        xf = x.float()
+        xf = at_least_fp32(x)
         mean = xf.mean(0)
         var = ((xf * xf).mean(0) - mean * mean).clamp_min(0.0)
         y = ((xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
@@ -187,6 +216,46 @@ class BatchNorm1d(nn.BatchNorm1d):
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)
         return y.to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm`` on (B, C, *spatial), with flax's defaults:
+    epsilon 1e-6, a per-channel scale and bias, and the fast variance
+    E[x²] - E[x]² (floored at 0) over each group's channels and voxels.
+    The statistics and the normalization run in fp32 whatever the input's
+    dtype (also under autocast; fp64 for an fp64 input); the output takes
+    the input's dtype.
+    ``group_size=1`` is flax's instance norm (the VNet family's
+    ``instancenorm``), ``num_groups=16`` its ``groupnorm``. torch's
+    ``F.group_norm`` differs: epsilon 1e-5 and a two-pass variance."""
+
+    def __init__(self, num_channels: int, num_groups: Optional[int] = None,
+                 group_size: Optional[int] = None, eps: float = 1e-6, *,
+                 device=None):
+        super().__init__()
+        if (num_groups is None) == (group_size is None):
+            raise ValueError("give one of num_groups and group_size")
+        if group_size is not None:
+            num_groups = num_channels // group_size
+        if num_groups <= 0 or num_channels % num_groups:
+            raise ValueError(f"{num_channels} channels do not split into "
+                             f"{num_groups} groups")
+        self.num_groups, self.eps = num_groups, eps
+        self.weight = nn.Parameter(torch.ones(num_channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_channels, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c = x.shape[:2]
+        xf = at_least_fp32(x).reshape(b, self.num_groups,
+                                      c // self.num_groups, -1)
+        mean = xf.mean((2, 3), keepdim=True)
+        var = ((xf * xf).mean((2, 3), keepdim=True)
+               - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * at_least_fp32(
+            self.weight).reshape(1, self.num_groups, -1, 1)
+        y = (xf - mean) * mul + at_least_fp32(self.bias).reshape(
+            1, self.num_groups, -1, 1)
+        return y.reshape(x.shape).to(x.dtype)
 
 
 def set_generator(model: nn.Module,

@@ -23,6 +23,8 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from mamba_unet_torch.nn.layers import at_least_fp32
+
 _SMOOTH = 1e-5
 
 
@@ -60,7 +62,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        ignore_index: Optional[int] = None) -> torch.Tensor:
     """Mean softmax cross-entropy against integer labels; with
     ``ignore_index``, the mean over the other pixels."""
-    logp = F.log_softmax(logits.float(), dim=-1)
+    logp = F.log_softmax(at_least_fp32(logits), dim=-1)
     nll = -(_one_hot(labels, logits.shape[-1]) * logp).sum(-1)
     if ignore_index is not None:
         mask = (labels != ignore_index).float()
@@ -227,7 +229,7 @@ def focal_loss(logits: torch.Tensor, labels: torch.Tensor,
                ) -> torch.Tensor:
     """Multiclass focal loss, the mean of -alpha_t (1 - p_t)^gamma
     log p_t (alpha_t = 1 without ``alpha``)."""
-    logp = F.log_softmax(logits.float(), dim=-1)
+    logp = F.log_softmax(at_least_fp32(logits), dim=-1)
     logpt = (_one_hot(labels, logits.shape[-1]) * logp).sum(-1)
     loss = -((1.0 - logpt.exp()) ** gamma) * logpt
     if alpha is not None:

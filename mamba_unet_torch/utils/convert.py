@@ -14,7 +14,12 @@ UNet family (``encoder``, ``decoder``, ``main_decoder``,
 (``encoder``; the ``decoder``'s ``first_expand``, ``stages_{j}``,
 ``upsamples_{j}`` -> ``layers_up.0``, ``layers_up.{j+1}``,
 ``layers_up.{j+1}.upsample``; the ``BatchNorm_0`` of ``fc_layer``,
-``pos_embed_layer``, ``mix_out_layer`` -> ``bn``), the small nets
+``pos_embed_layer``, ``mix_out_layer`` -> ``bn``), the VNet family
+(``vnet``, ``vnet_3D``, ``magicnet``, ``magicnet_2D``,
+``magicnet_2D_mask``: in a ``block_*`` module, ``Conv_i`` or
+``ConvTranspose_i`` -> ``conv.{3i}`` and its norm ``GroupNorm_i`` or
+``BatchNorm_i`` -> ``conv.{3i+1}``, the layout of a normalized block,
+which every registry name has), the small nets
 (``_ConvBNRelu_{i}`` -> ``blocks.{i}``, then ``conv_conv.{0,1}``; P-Net's
 ``block{k}`` with ``conv1``, ``conv2``, ``BatchNorm_0``, ``BatchNorm_1``
 -> ``bn1``, ``bn2``) and any of their submodules. The map is a function
@@ -25,12 +30,13 @@ The key map lives here, so the port does not import the JAX package.
 Layout transforms (flax -> torch):
   Dense kernel (in, out)              -> Linear weight (out, in)
   Conv kernel (kh, kw, in, out)       -> Conv2d weight (out, in, kh, kw)
+  Conv kernel (kd, kh, kw, in, out)   -> Conv3d weight (out, in, kd, kh, kw)
   depthwise (kh, kw, 1, C)            -> (C, 1, kh, kw)
-  ConvTranspose kernel (kh, kw, in, out), the module ``up`` of an UpBlock
-                                      -> ConvTranspose2d weight
-                                         (in, out, kh, kw), flipped in kh
-                                         and kw (flax applies the kernel
-                                         unflipped, torch flipped)
+  ConvTranspose kernel (k..., in, out), the module ``up`` of an UpBlock
+  or a ``ConvTranspose_i``            -> ConvTranspose2d/3d weight
+                                         (in, out, k...), flipped in every
+                                         spatial axis (flax applies the
+                                         kernel unflipped, torch flipped)
   LayerNorm / BatchNorm scale, bias   -> weight / bias
   BatchNorm batch_stats mean, var     -> running_mean / running_var, with
                                          num_batches_tracked set
@@ -81,6 +87,10 @@ _IN_PARENT = (
     (re.compile(r"block\d+$"), "BatchNorm_0", "bn1"),
     (re.compile(r"block\d+$"), "BatchNorm_1", "bn2"),
 )
+# a VNet block (block_one, block_one_dw, block_five_up, ...) and its
+# layers: a stage of conv, norm and ReLU takes three Sequential slots
+_VNET_BLOCK = re.compile(r"block_[a-z]+(_dw|_up)?$")
+_VNET_LAYER = re.compile(r"(Conv|ConvTranspose|GroupNorm|BatchNorm)_(\d+)$")
 _RENAMED = {"vssm": "mamba_unet", "first_expand": "layers_up.0",
             "Conv_0": "conv_conv.0", "BatchNorm_0": "conv_conv.1",
             "Conv_1": "conv_conv.4", "BatchNorm_1": "conv_conv.5",
@@ -106,6 +116,14 @@ def torch_key(path: str) -> str:
     out = []
     for depth, name in enumerate(mods):
         parent = mods[depth - 1] if depth else ""
+        if _VNET_BLOCK.match(name):
+            out.append(name)
+            continue
+        layer = _VNET_LAYER.match(name) if _VNET_BLOCK.match(parent) else None
+        if layer:
+            norm = layer.group(1).endswith("Norm")
+            out.append(f"conv.{3 * int(layer.group(2)) + norm}")
+            continue
         scoped = next((torch_name for pat, flax_name, torch_name in _IN_PARENT
                        if name == flax_name and pat.match(parent)), None)
         if scoped is not None:
@@ -140,11 +158,14 @@ def to_torch_layout(path: str, value: np.ndarray) -> np.ndarray:
     if path.endswith("/kernel"):
         if value.ndim == 2:
             return value.T
-        if value.ndim == 4 and path.split("/")[-2] == "up":
-            return value[::-1, ::-1].transpose(2, 3, 0, 1)  # ConvTranspose
-        if value.ndim == 4:
-            return value.transpose(3, 2, 0, 1)
-        raise ValueError(f"kernel {path!r} has rank {value.ndim}")
+        if value.ndim not in (4, 5):
+            raise ValueError(f"kernel {path!r} has rank {value.ndim}")
+        k = value.ndim - 2
+        module = path.split("/")[-2]
+        if module == "up" or module.startswith("ConvTranspose"):
+            flipped = value[(slice(None, None, -1),) * k]
+            return flipped.transpose(k, k + 1, *range(k))
+        return value.transpose(k + 1, k, *range(k))
     return value
 
 

@@ -111,13 +111,14 @@ def _read_state(path: str) -> Dict[str, torch.Tensor]:
         f"no pytorch_model.bin or model.safetensors under {path}")
 
 
-def load_hf_snapshot(path: str, device="cuda"):
+def load_hf_snapshot(path: str, device="cuda", dtype=None):
     """Build a ``MambaLMHeadModel`` in eval mode from a LOCAL snapshot
     directory and load its weights strictly. Vocabulary rows are
     zero-padded up to the padded vocabulary; a tied ``lm_head.weight`` in
-    the file must equal the embedding and is dropped. Runs on the card
-    unless ``device`` asks for the CPU (raises when CUDA is asked for and
-    not available)."""
+    the file must equal the embedding and is dropped. ``dtype`` is the
+    compute dtype (default fp32; the weights load as fp32 either way).
+    Runs on the card unless ``device`` asks for the CPU (raises when CUDA
+    is asked for and not available)."""
     from mamba_unet_torch.models.mamba_lm import MambaLMHeadModel
 
     device = require_device(device)
@@ -129,7 +130,8 @@ def load_hf_snapshot(path: str, device="cuda"):
         n_layer=cfg["n_layer"], d_state=ssm_cfg.get("d_state", 16),
         rms_norm=cfg.get("rms_norm", True),
         pad_vocab_size_multiple=cfg.get("pad_vocab_size_multiple", 8),
-        bimamba_type=ssm_cfg.get("bimamba_type", "none"))
+        bimamba_type=ssm_cfg.get("bimamba_type", "none"),
+        dtype=torch.float32 if dtype is None else dtype)
     sd = {k: v.float() for k, v in _read_state(path).items()}
     emb = sd["backbone.embedding.weight"]
     head = sd.pop("lm_head.weight", None)

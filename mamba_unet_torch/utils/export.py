@@ -1,8 +1,9 @@
 """Serving: the predict function of a model, and its ``torch.export``
-artifact.
+artifact; the Mamba LM's whole generation as one artifact.
 
-Port of ``make_predict_fn``, ``export_predict``, ``save_exported`` and
-``load_exported`` from ``mamba_unet_tpu/utils/export.py``. Both keep that
+Port of ``make_predict_fn``, ``export_predict``, ``export_lm_generate``,
+``save_exported`` and ``load_exported`` from
+``mamba_unet_tpu/utils/export.py``. Both keep that
 module's ABI: (B, H, W, C) fp32 images in, (B, H, W, classes) fp32 logits
 of the main head out, whatever the compute dtype (:class:`Predictor`).
 
@@ -97,6 +98,37 @@ def export_predict(model: nn.Module, patch_size, in_channels: int = 1,
         prefer_deferred_runtime_asserts_over_guards=True)
 
 
+def export_lm_generate(model: nn.Module, prompt_len: int,
+                       max_new_tokens: int, batch: Union[int, str] = "b",
+                       temperature: float = 1.0, top_k: int = 1,
+                       top_p: float = 0.0) -> torch.export.ExportedProgram:
+    """Export ``model``'s (a ``MambaLMHeadModel``, on its device) prefill
+    and ``max_new_tokens - 1`` unrolled decode steps as one artifact:
+    ``tokens (b, prompt_len + max_new_tokens) = f(input_ids (b,
+    prompt_len) int64, seed () int64)``
+    (``models.mamba_lm.SeededGenerate``). The sampling settings are fixed
+    in the graph; the sampling noise is derived inside it from ``seed``
+    (greedy, ``top_k=1``, the default, draws none). The prefill's scans
+    are the custom ops ``torch.ops.mamba_unet.*``. ``batch`` as in
+    :func:`export_predict`, from 1 to MAX_BATCH when symbolic. The JAX
+    function takes a uint32 seed; this one an int64 (its low 31 bits)."""
+    from mamba_unet_torch.models.mamba_lm import SeededGenerate
+
+    device = model.backbone.embedding.weight.device
+    symbolic = isinstance(batch, str)
+    ids = torch.zeros(2 if symbolic else int(batch), int(prompt_len),
+                      dtype=torch.long, device=device)
+    seed = torch.zeros((), dtype=torch.long, device=device)
+    dynamic = ({0: torch.export.Dim(batch, min=1, max=MAX_BATCH)}, None
+               ) if symbolic else None
+    # traced under no grad: the graph holds no autograd
+    with torch.no_grad():
+        return torch.export.export(
+            SeededGenerate(model.eval(), max_new_tokens, temperature, top_k,
+                           top_p), (ids, seed), dynamic_shapes=dynamic,
+            prefer_deferred_runtime_asserts_over_guards=True)
+
+
 def save_exported(exported: torch.export.ExportedProgram, path: str) -> str:
     """Write the artifact (``torch.export.save``); returns ``path``."""
     torch.export.save(exported, path)
@@ -106,7 +138,8 @@ def save_exported(exported: torch.export.ExportedProgram, path: str) -> str:
 def load_exported(path: str) -> torch.export.ExportedProgram:
     """Read an artifact written by :func:`save_exported`, after importing
     ``mamba_unet_torch.ops`` so that its custom ops exist. Call it as
-    ``loaded.module()(images)``."""
+    ``loaded.module()(images)`` (an LM generation artifact:
+    ``loaded.module()(input_ids, seed)``, under ``torch.no_grad()``)."""
     import mamba_unet_torch.ops  # noqa: F401  (registers the custom ops)
 
     return torch.export.load(path)

@@ -1054,3 +1054,156 @@ def test_mamba_mask_logits_and_pretrain_gradients_on_card_match_cpu(cuda):
     for k, g in out["cpu"][4].items():
         err = (out["card"][4][k] - g).abs().max().item()
         assert err <= 1e-3 * top, (k, err, top)
+
+
+def _magic_draws(image, labeled, cube, recovery, seed=3):
+    """A MagicNet step's draws (``MagicNetTrainer._draws``) made on the CPU,
+    so that the card and the CPU take the same ones."""
+    from mamba_unet_torch.objectives.cube import (
+        cube_shuffle_indices,
+        random_permutations,
+    )
+
+    g = torch.Generator().manual_seed(seed)
+    b, nb = image.shape[0], image.shape[1] // cube
+    part, rec = cube_shuffle_indices(g, b, nb, image.dim() - 2)
+    draws = {"part": part, "rec": rec,
+             "noise": (0.1 * torch.randn(image[labeled:].shape, generator=g)
+                       ).clamp(-0.2, 0.2)}
+    if recovery:
+        draws["perms"] = random_permutations(g, b, nb * nb)
+        draws["vis"] = (torch.rand(b, nb * nb, generator=g) > 0.25).float()
+    return draws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mask_2d", "magicnet_3d"])
+def test_magicnet_step_gradients_on_card_match_cpu(cuda, case):
+    """One MagicNet step, card against CPU, the same draws: the toy
+    MambaUnetMask with --mask_recovery (64², 32² cubes, batch 8, 4
+    labeled: 7 serving launches for the EMA teacher, 2 x 7 + 4 + 3 + 3 x 7
+    = 42 state-saving forward and backward ones) in fp32 with TF32 off,
+    the loss terms within 1e-5 (the consistency Dice 1e-3), the class
+    histogram within 1e-4 of the pixels, every gradient within 1e-3 of
+    the model's largest; and a toy 3-D magicnet (32³, 16³ cubes, batch 2:
+    no scan) in fp64, whose fp32 gradients are ill-conditioned (instance
+    norms over small maps): the loss terms, the histogram and every
+    gradient against the model's largest within 1e-8."""
+    from mamba_unet_torch.models import net_factory
+    from mamba_unet_torch.train import MagicNetTrainer, TrainConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(4)
+    if case == "mask_2d":
+        shape, labeled, cube, recovery = (8, 64, 64, 1), 4, 32, True
+        dtype, tol, hist_tol = torch.float32, 1e-3, 1e-4
+        loss_tol, cons_tol = dict(rel=1e-5, abs=1e-6), dict(rel=1e-3,
+                                                            abs=1e-6)
+    else:
+        shape, labeled, cube, recovery = (2, 32, 32, 32, 1), 1, 16, False
+        dtype, tol, hist_tol = torch.float64, 1e-8, 0.0
+        loss_tol = cons_tol = dict(rel=1e-8)
+    batch = {"image": torch.rand(shape, generator=gen).to(dtype),
+             "label": torch.randint(0, 4, shape[:-1], generator=gen)}
+    draws = _magic_draws(batch["image"], labeled, cube, recovery)
+    kernels = (selective_scan_bidir, selective_scan_bidir_fwd_states,
+               selective_scan_bidir_bwd)
+    out = {}
+    for tag, dev in (("card", cuda), ("cpu", torch.device("cpu"))):
+        if case == "mask_2d":
+            model = _toy_mask(dev)
+        else:
+            model = net_factory("magicnet", num_classes=4, n_filters=4,
+                                cube_size=16, patch_size=32,
+                                generator=torch.Generator().manual_seed(0))
+        model.to(dtype)
+        cfg = TrainConfig(base_lr=0.01, max_iterations=10,
+                          batch_size=shape[0], patch_size=shape[1:-1],
+                          num_classes=4, seed=0)
+        trainer = MagicNetTrainer(model, cfg, labeled_bs=labeled,
+                                  cube_size=cube, mask_recovery=recovery,
+                                  device=dev)
+        trainer._draws = lambda image: {k: v.to(image.device)
+                                        for k, v in draws.items()}
+        before = [k.launches for k in kernels]
+        logs = trainer.train_step(batch)
+        launched = [k.launches - b for k, b in zip(kernels, before)]
+        out[tag] = (launched, {k: float(v) for k, v in logs.items()
+                               if k.startswith("loss")},
+                    logs["class_hist"].cpu(),
+                    {k: p.grad.cpu()
+                     for k, p in trainer.model.named_parameters()})
+    assert out["card"][0] == ([7, 42, 42] if case == "mask_2d"
+                              else [0, 0, 0])
+    # in fp32 the teacher's argmax meets ties under the two devices'
+    # rounding: a few pixels' pseudo-labels move (1e-4 of them at most),
+    # and with them the consistency Dice (weight 6.7e-4 at step 0)
+    moved = (out["card"][2] - out["cpu"][2]).abs().sum().item()
+    assert moved <= hist_tol * out["cpu"][2].sum().item()
+    for k, v in out["cpu"][1].items():
+        approx = cons_tol if k == "loss_cons" else loss_tol
+        assert out["card"][1][k] == pytest.approx(v, **approx), k
+    top = max(g.abs().max().item() for g in out["cpu"][3].values())
+    for k, g in out["cpu"][3].items():
+        err = (out["card"][3][k] - g).abs().max().item()
+        assert err <= tol * top, (k, err, top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["magicnet", "magicnet_2D"])
+def test_vnet_bf16_forward_on_card_matches_fp32(cuda, name):
+    """The VNet family's forward under bf16 autocast (cuDNN convolutions in
+    bf16, GroupNorm statistics in fp32) against fp32 on the card: finite
+    fp32 logits whose mean difference is within 2 % of the fp32 max, and
+    99 % of the argmax equal where fp32's top two logits part by more than
+    10 % of its max. (bf16 rounding through 19 instance norms at random
+    init moves single logits by up to 18 % of the max, and 13 % of the
+    2-D model's pixels, near-tied, change their argmax.)"""
+    from mamba_unet_torch.models import net_factory
+    from mamba_unet_torch.utils.export import make_predict_fn
+
+    model = net_factory(name, num_classes=14, cube_size=32, patch_size=64,
+                        generator=torch.Generator().manual_seed(0),
+                        device=cuda)
+    shape = (2, 64, 64, 64, 1) if name == "magicnet" else (4, 64, 64, 1)
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(1)).to(cuda)
+    fp32 = make_predict_fn(model)(x)
+    bf16 = make_predict_fn(model, torch.bfloat16)(x)
+    assert bf16.dtype == torch.float32 and torch.isfinite(bf16).all()
+    assert (bf16 - fp32).abs().mean() <= 0.02 * fp32.abs().max()
+    top2 = fp32.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 0.1 * fp32.abs().max()
+    same = bf16.argmax(-1) == fp32.argmax(-1)
+    assert same[clear].float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+def test_exported_lm_generation_on_card(cuda, tmp_path):
+    """A toy LM's exported greedy generation (symbolic batch) on the card:
+    the prefill's scans launch the grouped kernel through the custom op
+    (one per layer per call), and the tokens equal eager ``generate``'s at
+    batches 2 and 3."""
+    from mamba_unet_torch.models.mamba_lm import MambaLMHeadModel, generate
+    from mamba_unet_torch.ops.selective_scan_grouped import (
+        selective_scan_grouped,
+    )
+    from mamba_unet_torch.utils.export import (
+        export_lm_generate,
+        load_exported,
+        save_exported,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = MambaLMHeadModel(61, 32, 2, device=cuda,
+                             generator=torch.Generator().manual_seed(0))
+    path = save_exported(export_lm_generate(model, 6, 5),
+                         str(tmp_path / "lm.pt2"))
+    loaded = load_exported(path).module()
+    for bsz in (2, 3):
+        prompts = (torch.arange(bsz * 6).reshape(bsz, 6) % 61).to(cuda)
+        before = selective_scan_grouped.launches
+        with torch.no_grad():
+            got = loaded(prompts, torch.tensor(7, device=cuda))
+        assert selective_scan_grouped.launches - before == 2
+        assert torch.equal(got, generate(model, prompts, 5))

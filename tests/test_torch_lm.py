@@ -445,3 +445,80 @@ def test_loaders_default_to_the_card(tmp_path, loader):
             load_model_snapshot("ViM_seg", 4, 1)
         else:
             load_hf_snapshot(str(tmp_path))
+
+
+def test_bf16_lm_matches_jax_fp32(toy_lm, tmp_path):
+    """The compute dtype bf16 (weights fp32): the logits within bf16
+    tolerance of JAX's fp32 (JAX's bf16 scan keeps a bf16 state, so it is
+    no reference for an fp32-state scan); prefill and greedy generation
+    run; ``load_hf_snapshot(dtype=)`` builds the bf16 model."""
+    jmodel, variables, tmodel = toy_lm
+    half = tlm.MambaLMHeadModel(VOCAB, WIDTH, DEPTH,
+                                dtype=torch.bfloat16).eval()
+    half.load_state_dict(tmodel.state_dict())
+    assert all(p.dtype == torch.float32 for p in half.parameters())
+    ids = np.random.default_rng(19).integers(0, VOCAB, (2, 13))
+    want = np.asarray(jmodel.apply(variables, jnp.asarray(ids)))
+    with torch.no_grad():
+        got = half(t(ids))
+        logits, caches = half.prefill(t(ids))
+    assert got.dtype == torch.float32 and logits.dtype == torch.float32
+    bound = 3e-2 * np.abs(want).max() + BF16_STEP * np.abs(want)
+    assert (np.abs(got.numpy() - want) <= bound).all()
+    assert (np.abs(logits.numpy() - want[:, -1]) <= bound[:, -1]).all()
+    assert all(c.dtype == torch.float32 for cache in caches for c in cache)
+    tokens = tlm.generate(half, t(ids), max_new_tokens=4)
+    assert tokens.shape == (2, 17)
+    sd = {k: v.clone() for k, v in tmodel.state_dict().items()}
+    torch.save(sd, tmp_path / "pytorch_model.bin")
+    (tmp_path / "config.json").write_text(json.dumps({
+        "d_model": WIDTH, "n_layer": DEPTH, "vocab_size": 64}))
+    loaded = load_hf_snapshot(str(tmp_path), device="cpu",
+                              dtype=torch.bfloat16)
+    assert loaded.dtype == torch.bfloat16
+    with torch.no_grad():
+        assert torch.equal(loaded(t(ids)), got)
+    with pytest.raises(ValueError):
+        tlm.MambaLMHeadModel(VOCAB, WIDTH, DEPTH, dtype=torch.float16)
+
+
+def test_export_lm_generate_matches_jax(tmp_path):
+    """JAX's own export test's toy (vocab 61, d_model 32, 2 layers, 6
+    prompt tokens, 5 new): the artifact, saved and loaded, gives JAX's
+    greedy tokens at batches 2 and 3 (and 1), the prompt echoed. A
+    sampling artifact (top-k 0, temperature 0.8) gives the eager seeded
+    module's tokens, and its seed changes them."""
+    from mamba_unet_torch.utils.export import (
+        export_lm_generate,
+        load_exported,
+        save_exported,
+    )
+
+    jmodel = jlm.MambaLMHeadModel(vocab_size=61, d_model=32, n_layer=2)
+    variables = jax.jit(jmodel.init)(jax.random.key(0),
+                                     jnp.zeros((1, 6), jnp.int32))
+    model = tlm.MambaLMHeadModel(61, 32, 2).eval()
+    model.load_state_dict(params_from_jax_lm(_flat(variables)), strict=True)
+    path = save_exported(export_lm_generate(model, prompt_len=6,
+                                            max_new_tokens=5),
+                         str(tmp_path / "lm.pt2"))
+    loaded = load_exported(path).module()
+    for bsz in (1, 2, 3):
+        prompts = np.arange(bsz * 6).reshape(bsz, 6) % 61
+        with torch.no_grad():
+            got = loaded(t(prompts), torch.tensor(7))
+        want = jlm.generate(jmodel, variables, jnp.asarray(prompts),
+                            max_new_tokens=5, rng=jax.random.key(7))
+        assert got.shape == (bsz, 11)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(got[:, :6].numpy(), prompts)
+    sampling = dict(temperature=0.8, top_k=0)
+    sampled = export_lm_generate(model, 6, 5, **sampling).module()
+    prompts = t(np.arange(12).reshape(2, 6) % 61)
+    eager = tlm.SeededGenerate(model, 5, **sampling)
+    with torch.no_grad():
+        for seed in (3, 4):
+            seed = torch.tensor(seed)
+            assert torch.equal(sampled(prompts, seed), eager(prompts, seed))
+        assert not torch.equal(eager(prompts, torch.tensor(3)),
+                               eager(prompts, torch.tensor(4)))

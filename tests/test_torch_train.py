@@ -381,8 +381,8 @@ def test_train_cli_synthetic_on_cpu(tmp_path):
     model = load_model_snapshot("ViM_seg", 4, 1, str(snap / "best_4"),
                                 device="cpu")
     assert not model.training
-    with pytest.raises(NotImplementedError):
-        train_cli.main(["--method", "magicnet", "--device", "cpu"])
+    with pytest.raises(NotImplementedError):  # a method not ported yet
+        train_cli.main(["--method", "mad_pretrain", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("cli", ["train", "test"])
