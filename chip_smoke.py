@@ -10,8 +10,11 @@ cross-teaching, mean teacher and UAMT), the scribble-supervised
 Weak-Mamba-UNet, a from-scratch trainability check, contrastive
 consistency (two ``ViM_seg`` with CTAugment views and projectors), the
 Mamba mask model's self-supervised pretraining, MagicNet (on the Mamba
-mask model, and the 3-D VNet on BTCV-style volumes), and the Mamba LM's
-bf16 compute and exported generation.
+mask model, and the 3-D VNet on BTCV-style volumes), the Mamba LM's
+bf16 compute and exported generation, MAD (the label denoiser's
+pretraining, the stacked fine-tuning and the stacked test CLI), and the
+rest of the model zoo: the 2-D models through the train CLI, the 3-D ones
+a training step each, and SegMamba on the grouped scan kernels.
 
     python3 chip_smoke.py
 
@@ -88,7 +91,8 @@ exits non-zero; nothing is caught):
               stage shape and at the mamba-130m shape (batch 8, L=1024,
               dg=1536), the timed calls' outputs compared again.
 13. tm_grad_parity - phase 7 through ``MambaUnet(scan_impl="tm")``: loss
-              and every gradient card vs CPU, 14 + 14 grouped launches;
+              and every gradient card vs phase 7's CPU step (the same
+              weights and batch), 14 + 14 grouped launches;
               then the same weights' logits on the card through the tm and
               the bidir branch.
 14. tm_training - phase 8 with ``scan_impl="tm"``: per step 14 grouped
@@ -109,7 +113,8 @@ exits non-zero; nothing is caught):
               timed at bs24 per stage shape, the timed calls' outputs
               compared again.
 17. folded_grad_parity - phase 7 through ``MambaUnet(scan_impl="folded")``:
-              loss and every gradient card vs CPU, 14 + 14 folded launches
+              loss and every gradient card vs phase 7's CPU step, 14 + 14
+              folded launches
               and none of the other kernels; then the same weights' logits
               on the card through the folded and the bidir branch.
 18. folded_training - phase 8 with ``scan_impl="folded"``: per step 14
@@ -144,7 +149,7 @@ exits non-zero; nothing is caught):
               bf16 against fp32 on the card; no scan kernel launches.
 23. cross_teaching_parity - one ``CrossTeachingTrainer`` step of two
               full-width ``ViM_seg``, batch 2 (1 labeled + 1 unlabeled)
-              at 128², fp32 with TF32 off, drop_path 0: the loss and both models'
+              at 64², fp32 with TF32 off, drop_path 0: the loss and both models'
               every gradient card vs CPU; 28 + 28 bidir training launches.
 24. zoo_training - ``Trainer.fit`` of ``unet`` and ``ViT_seg``, bs24, bf16,
               ZOO_ITERS steps with one eval: a falling loss, moved weights
@@ -252,7 +257,7 @@ exits non-zero; nothing is caught):
               its largest gradient: fp32 conditioning); 14 + 14 bidir
               training launches.
 41. cc_parity - one contrastive step of the full-width ``ViM_seg`` pair
-              with its projectors (batch 2, 128²), then one mask-
+              with its projectors (batch 2, 64²), then one mask-
               pretraining step of ``MambaUnetMask`` (batch 8, 64²), fp32
               with TF32
               off, drop_path 0: the losses and every gradient card vs CPU.
@@ -263,8 +268,56 @@ exits non-zero; nothing is caught):
               few pixels, every gradient within MODEL_GRAD_TOL of its
               model's largest) and of a reduced 3-D ``magicnet`` (32³,
               cubes of 16, batch 2) in fp64 (the losses, the histogram
-              and every gradient within MAGIC3D_FP64_TOL). 40-42 last, as their CPU backwards would
-              share the host with a timed phase.
+              and every gradient within MAGIC3D_FP64_TOL).
+43. mad_pretrain - ``cli.train --method mad_pretrain --model unet`` (4
+              input channels) on phantom slices, bs24 @ 224², bf16, 20
+              steps and the corrupted-label validation: no scan launch,
+              falling losses; step ms, device ms, peak GB; the
+              validation Dice again with the denoiser's BatchNorm
+              statistics re-estimated over 8 training batches.
+44. mad_finetune - ``cli.train --method mad_finetune --model ViM_seg
+              --mad_model unet``, warm-started from ``[trainability]``'s
+              ``ViM_seg`` (``--seg_ckpt``) and the pretraining's snapshot
+              (``--mad_ckpt``), bs24 bf16, 20 steps and one stacked
+              validation: 14 + 14 bidir training launches per step, 14
+              serving ones per validation forward; the trio's best,
+              saved by the trainer (a stacked Dice above 0); the same
+              step numbers.
+45. mad_test - ``cli.test --model ViM_seg --denoiser_model unet`` on
+              phantom volumes, with the pretrained denoiser and with the
+              fine-tuned den (``--denoiser_ckpt_name best3``): both
+              metric tables, 14 serving launches per segmenter forward,
+              none per denoiser forward.
+46. zoo_2d - ``cli.train`` of ``enet``, ``efficient_unet`` and
+              ``preUnet``, bs24 @ 224², bf16, 6 steps each: no scan
+              launch; device ms per step, peak GB; a bs24 forward of
+              ``fc_discriminator``.
+47. zoo_3d - one fp32 training step (TF32 convolutions) of ``unet_3D``,
+              ``unet_3D_dv_semi``, ``voxresnet``, ``attention_unet``,
+              ``nnUNet`` (a 24 x 192² patch), ``unetr`` and ``SwinUNETR``
+              (window 6) at their default widths on 96³ at batch 2:
+              device ms, peak GB, no scan launch.
+48. segmamba_kernel - the grouped kernels (#3, #3s, #4u) against their
+              plain versions at SegMamba's scan shapes (batch 2, (L,
+              d_inner) = (13,824, 192) in bf16, (1,728, 384) and (216,
+              768) in fp32 and bf16, stage 0's (110,592, 96) on its first
+              4,096 tokens in both); each timed at every full stage shape
+              beside its bound.
+49. segmamba - full-width SegMamba on 96³ at batch 2, bf16: a no-grad
+              forward (16 #3 launches) and a training step (16 #3s, 16
+              #4u), their device ms and peak GB.
+50. mad_parity - one MAD fine-tuning step of ``ViM_seg`` + two ``unet``
+              (batch 2, 128², fp32, TF32 off) card vs CPU: the losses and
+              every gradient within 1e-3 of its model's largest.
+51. zoo3d_parity, segmamba_parity - the 3-D zoo's eval-mode logits
+              (32³, nnU-Net 8 x 64²) and SegMamba's logits and gradients
+              (32³, stage 0 L = 4,096) at full width, one Mamba layer
+              per stage, card vs CPU: fp32 logits and loss, each Mamba
+              layer's gradients alone (1e-3 of each leaf's max), the
+              whole step's in fp64 with plain fp64 Mamba layers (1e-8 of
+              the largest). 40-42
+              and 50-51 last, as their CPU backwards would share the host
+              with a timed phase.
 
 ``[phase_seconds]`` follows each group of phases. Then one JSON line with
 the kernel table, and the last line ``{"ok": true, "device": {...}}``. It
@@ -273,6 +326,8 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import math
 import subprocess
@@ -373,18 +428,20 @@ ZOO_BF16_REL_TOL, ZOO_STATS_TOL = 0.05, 1e-5
 # folded branches: 2 images at 224², so that a kernel that mixes up the
 # batch stride shows in the model's gradients. [cross_teaching_parity] and
 # [cc_parity] run smaller than before the MagicNet and LM-export phases
-# joined (4 images at 224² and 2 at 224² / 8 at 128², now 2 at 128² and 2
-# at 128² / 8 at 64²), so that the whole script stays within its 1,200 s:
+# joined (4 images at 224² and 2 at 224² / 8 at 128², then 2 at 128² and 2
+# at 128² / 8 at 64², and since the MAD and zoo phases 2 at 64² and 2 at
+# 64² / 8 at 64²), so that the whole script stays within its 1,200 s:
 # their CPU backwards took ~300 s of a 1,290 s run on an NVIDIA H100 80GB
 # HBM3 host; the kernels meet the full stage shapes at batch 2 here and in
-# phases 3, 6 and 12-18
+# phases 3, 6 and 12-18, whose tm and folded branches hold their card step
+# against this phase's one CPU step (cpu_reference_step)
 GRAD_PARITY_BATCH = 2
 # the semi-supervised phases: labeled slices per bs24 batch; the cross-
 # teaching parity step's batch (labeled + unlabeled); fit steps of
 # [cross_teaching] and its eval cadence, and of [mean_teacher] / [uamt];
 # UAMT's teacher passes (the consistency target + T = 8 MC passes)
 SEMI_LABELED = 8
-CROSS_PARITY_BATCH, CROSS_PARITY_LABELED, CROSS_PARITY_PATCH = 2, 1, 128
+CROSS_PARITY_BATCH, CROSS_PARITY_LABELED, CROSS_PARITY_PATCH = 2, 1, 64
 CROSS_ITERS, CROSS_EVAL_EVERY, EMA_ITERS = 10, 6, 5
 UAMT_TEACHER_PASSES = 9
 # EMA after a step: alpha * ema + (1 - alpha) * param in fp32
@@ -426,9 +483,9 @@ CC_MASK_ITERS = 4
 # cubes): its heads' train-mode BatchNorms normalize over the batch, and at
 # batch 4 features whose variance nears eps move the gradients by 1.6e-2 of
 # their largest (measured on an NVIDIA H100 80GB HBM3); the contrastive
-# pair's step runs at 128²
+# pair's step runs at 64²
 CC_PARITY_BATCH, MASK_PARITY_BATCH, MASK_PARITY_PATCH = 2, 8, 64
-CC_PARITY_PATCH = 128
+CC_PARITY_PATCH = 64
 CC_PREDICTED_DEVICE_MS, CC_PREDICTED_PEAK_GB = "300-320", 30
 MASK_PREDICTED_DEVICE_MS, MASK_PREDICTED_PEAK_GB = "250-270", 25
 CC_MASK_PREDICTED_DEVICE_MS, CC_MASK_PREDICTED_PEAK_GB = 520, 50
@@ -481,6 +538,44 @@ MAGIC3D_FP64_TOL = 1e-8
 MAGIC_PARITY_2D = (8, 4, 64)
 MAGIC_PARITY_3D = (2, 1, 32, 16)  # batch, labeled, size, cube
 MAGIC_HIST_TOL, MAGIC_CONS_TOL = 1e-4, 1e-3
+# MAD: the pretraining and fine-tuning CLI runs' steps (an eval after the
+# last), the test CLI's volumes, the card-vs-CPU step; predicted device ms
+# per step and peak GB (PERF.md, section 6, PR 14)
+MAD_ITERS, MAD_TEST_VOLUMES = 20, 2
+# [mad_pretrain]'s witness: the denoiser's BatchNorm statistics
+# re-estimated over this many training batches
+MAD_BN_BATCHES = 8
+MAD_PARITY_BATCH, MAD_PARITY_PATCH = 2, 128
+MAD_PRE_PREDICTED = ("24-30", "1.5-2.5")
+MAD_FT_PREDICTED = ("120-140", "10-13")
+# the rest of the zoo: the 2-D models' CLI steps; the 3-D models' batch
+# and classes (BTCV's 14); SegMamba's batch, depths and scan shapes per
+# stage ((L, d_inner) on a 96³ volume: the stem's stride 2 leaves 48³
+# tokens at stage 0), stage 0 checked on its first SEGMAMBA_L0_CHECK
+# tokens
+ZOO2D_ITERS = 6
+ZOO3D_BATCH, ZOO3D_CLASSES = 2, 14
+SEGMAMBA_BATCH, SEGMAMBA_DEPTHS = 2, (2, 2, 2, 2)
+SEGMAMBA_VOLUME, SEGMAMBA_PARITY_VOLUME = 96, 32
+SEGMAMBA_STAGES = ((48 ** 3, 96), (24 ** 3, 192), (12 ** 3, 384),
+                   (6 ** 3, 768))
+SEGMAMBA_L0_CHECK = 4096
+SEGMAMBA_PREDICTED_STEP_MS = "500-800"
+# [segmamba_parity]: SegMamba's fp32 step is ill-conditioned at full
+# width: its fp32 gradients lie far from an fp64 step's, by an amount
+# that depends on the arithmetic (the phase prints the card's distance and
+# the CPU's). So the gradients are held in two well-conditioned parts:
+# each Mamba layer alone (the grouped kernels' gradients), card vs CPU in
+# fp32 on the CPU step's own input and upstream gradient, within
+# MODEL_GRAD_TOL of each leaf's own max; and the rest of the model in fp64
+# on both sides, its Mamba layers a plain fp64 reference
+# (fp64_mamba_forward), within SEGMAMBA_FP64_TOL of the largest gradient,
+# as [magicnet_parity]'s 3-D step
+SEGMAMBA_FP64_TOL = 1e-8
+FP64_SCAN_CHUNK = 16  # fp64_mamba_forward's steps per chunk
+# [segmamba_parity] runs one Mamba layer per stage (full width): its CPU
+# fp64 step costs tens of seconds per layer on a slow host
+SEGMAMBA_PARITY_DEPTHS = (1, 1, 1, 1)
 # [lm_bf16]: the scoring forward's shape; bf16 logits against fp32 on the
 # card within this share of the fp32 logits' max abs (BF16_LOGIT_TOL is 5 %
 # of ViM_seg's); fp32's device ms per scoring forward (PERF.md, section 5)
@@ -897,29 +992,55 @@ def branch_serving_phase(torch, dev, model, batch, iters=10):
         del other
 
 
+_CPU_REFERENCE = {}
+
+
+def cpu_reference_step(torch):
+    """The CPU side of phases 7, 13 and 17, computed once: full-width
+    ``ViM_seg`` (seed 0, drop_path 0) on the CPU (the bidir branch's plain
+    scan), its loss and every gradient of one backward on a seeded batch
+    of GRAD_PARITY_BATCH; each branch's card step is held against it (the
+    three branches compute one function of the same weights)."""
+    from mamba_unet_torch.models.vssm import MambaUnet
+    from mamba_unet_torch.objectives import supervised_ce_dice
+
+    if not _CPU_REFERENCE:
+        gen = torch.Generator().manual_seed(2)
+        model = MambaUnet(num_classes=4, drop_path_rate=0.0,
+                          generator=torch.Generator().manual_seed(0))
+        x = torch.randn(GRAD_PARITY_BATCH, PATCH, PATCH, 1, generator=gen)
+        label = torch.randint(0, 4, (GRAD_PARITY_BATCH, PATCH, PATCH),
+                              generator=gen)
+        t0 = time.perf_counter()
+        loss = supervised_ce_dice(model.train()(x), label)
+        loss.backward()
+        _CPU_REFERENCE.update(
+            state={k: v.clone() for k, v in model.state_dict().items()},
+            x=x, label=label, loss=loss.item(),
+            grads={k: p.grad.clone() for k, p in model.named_parameters()},
+            seconds=time.perf_counter() - t0)
+    return _CPU_REFERENCE
+
+
 def grad_parity_phase(torch, dev, scan_impl="auto"):
     """Phases 7, 13 and 17: one full-width backward (batch
-    GRAD_PARITY_BATCH) on the card against a CPU copy, through SS2D's
-    ``scan_impl`` branch (14 state-saving forward
-    and 14 backward launches of its kernels, none of the other branches');
+    GRAD_PARITY_BATCH) on the card through SS2D's ``scan_impl`` branch (14
+    state-saving forward and 14 backward launches of its kernels, none of
+    the other branches') against the CPU's (:func:`cpu_reference_step`);
     returns the card model."""
     from mamba_unet_torch.models.vssm import MambaUnet
     from mamba_unet_torch.objectives import supervised_ce_dice
 
     phase = "grad_parity" if scan_impl == "auto" else f"{scan_impl}_grad_parity"
     kernels, others = scan_kernels(scan_impl)
-    gen = torch.Generator().manual_seed(2)
-    cpu_model = MambaUnet(num_classes=4, drop_path_rate=0.0,
-                          scan_impl=scan_impl,
-                          generator=torch.Generator().manual_seed(0))
+    ref = cpu_reference_step(torch)
     model = MambaUnet(num_classes=4, drop_path_rate=0.0, scan_impl=scan_impl,
                       device=dev)
-    model.load_state_dict(cpu_model.state_dict())
-    x = torch.randn(GRAD_PARITY_BATCH, PATCH, PATCH, 1, generator=gen)
-    label = torch.randint(0, 4, (GRAD_PARITY_BATCH, PATCH, PATCH),
-                          generator=gen)
-    losses, grads, secs = {}, {}, {}
-    for tag, m in (("gpu", model), ("cpu", cpu_model)):
+    model.load_state_dict(ref["state"])
+    x, label = ref["x"], ref["label"]
+    losses, grads, secs = ({"cpu": ref["loss"]}, {"cpu": ref["grads"]},
+                           {"cpu": ref["seconds"]})
+    for tag, m in (("gpu", model),):
         d = next(m.parameters()).device
         before = [k.launches for k in kernels + others]
         t0 = time.perf_counter()
@@ -1111,8 +1232,9 @@ def profile_calls(torch, path, calls, top=12):
 
     steps = len(calls)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the card's activity only: the host's op events, which no row reads,
+    # cost seconds of post-processing per call
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for call in calls:
             call()
@@ -2731,7 +2853,7 @@ def weak_scribble_phase(torch, dev):
     return launches, med, device, peak
 
 
-def trainability_phase(torch, dev):
+def trainability_phase(torch, dev, snap):
     """``[trainability]``: full-width ``ViM_seg`` from scratch under
     ``warmup_adamw`` (base lr 1e-3, weight decay 0.05, linear warm-up over
     250 iterations, then poly decay), drop_path 0.2, on the easy phantom,
@@ -2739,7 +2861,8 @@ def trainability_phase(torch, dev):
     TRAINABILITY_EVAL_EVERY: at the last eval every foreground class's val
     Dice must be above 0 (from scratch under poly-SGD the model predicts
     background only: PERF.md). Prints the loss every 25 steps and the
-    per-class val Dice."""
+    per-class val Dice; saves the model as ``best`` in ``snap`` (the
+    segmenter ``[mad_finetune]`` warm-starts from)."""
     from mamba_unet_torch.eval.inference import evaluate_slice_volumes
     from mamba_unet_torch.models.vssm import MambaUnet
     from mamba_unet_torch.train import TrainConfig, Trainer, warmup_adamw
@@ -2777,6 +2900,10 @@ def trainability_phase(torch, dev):
         raise AssertionError(f"from scratch under AdamW, a foreground class "
                              f"is never predicted: per-class Dice "
                              f"{per_class}, evals {dice}")
+    from mamba_unet_torch.utils.checkpoint import save_checkpoint
+
+    save_checkpoint(str(snap), iters, trainer.model.state_dict(),
+                    name="best")
     del trainer, loader
 
 
@@ -3346,6 +3473,14 @@ def magicnet_phase(torch, dev, recovery):
         raise AssertionError(f"[{phase}] the class distribution after "
                              f"step 20 counts {dist.sum()} pixels, expected "
                              f"{want}")
+    # the blend weights of that histogram (millions of pixels per class):
+    # finite, in [0, 1], max 1
+    blend = trainer._blend_weight(dist, torch.arange(4, device=dev))[..., 0]
+    log(phase, blend_weight=" ".join(f"{v:.6g}" for v in blend.tolist()))
+    if not (bool(torch.isfinite(blend).all()) and float(blend.min()) >= 0
+            and float(blend.max()) == 1.0):
+        raise AssertionError(f"[{phase}] blend weights {blend.tolist()} of "
+                             f"the class distribution {dist}")
     if not sum(losses[-3:]) < sum(losses[:3]) or ema_moved < len(ema0) // 2:
         raise AssertionError(f"[{phase}] losses {losses}, EMA moved "
                              f"{ema_moved}/{len(ema0)}")
@@ -3730,6 +3865,814 @@ def magic_entry_points_phase(torch, np, dev):
                                      f"{want}")
 
 
+@contextlib.contextmanager
+def captured_fit(torch, cls, iters, phase):
+    """While open, the next ``cls.fit`` (a CLI's trainer) runs through
+    :func:`counted_fit` over ``iters`` batches, logging every step; yields
+    a dict that then holds the trainer, its loader and val set and
+    counted_fit's (result, steps, ms, peak)."""
+    out = {}
+    had = "fit" in cls.__dict__
+    orig = cls.fit
+
+    def fit(self, loader, val=None, **kw):
+        if had:
+            cls.fit = orig
+        else:
+            del cls.fit
+        self.config.log_every = 1
+        result, steps, ms, peak = counted_fit(torch, self, loader, val,
+                                              iters, phase, **kw)
+        out.update(trainer=self, loader=loader, val=val, result=result,
+                   steps=steps, ms=ms, peak=peak)
+        return result
+
+    cls.fit = fit
+    try:
+        yield out
+    finally:
+        if cls.__dict__.get("fit") is fit:
+            if had:
+                cls.fit = orig
+            else:
+                del cls.fit
+
+
+def cli_fit_phase(torch, phase, trainer_cls, argv, iters):
+    """Run ``cli.train`` with ``argv`` for ``iters`` steps (evaluated after
+    the last), its fit counted (:func:`captured_fit`); returns the capture
+    and the CLI's seconds."""
+    from mamba_unet_torch.cli import train as train_cli
+
+    t0 = time.perf_counter()
+    with captured_fit(torch, trainer_cls, iters, phase) as cap:
+        train_cli.main([*argv, "--synthetic", "--bf16", "--device", "cuda",
+                        "--patch_size", str(PATCH), str(PATCH),
+                        "--batch_size", str(TRAIN_BATCH), "--max_iterations",
+                        str(iters), "--eval_every", str(iters),
+                        "--ckpt_every", str(iters)])
+    if "steps" not in cap:
+        raise AssertionError(f"[{phase}] the CLI ran no {trainer_cls.__name__}"
+                             f" fit")
+    return cap, time.perf_counter() - t0
+
+
+def val_forwards(batch=16):
+    """Serving forwards of one evaluation of the CLI's default phantom
+    split (8 8 2 0 PATCH: 2 val volumes of 8 slices) at ``batch``."""
+    return 2 * math.ceil(8 / batch)
+
+
+def reestimated_bn_dice(torch, trainer, loader, val, batches):
+    """The validation Dice (``trainer.evaluate``) of a copy of
+    ``trainer.model`` whose BatchNorm running statistics are the plain
+    mean of the batch statistics over ``batches`` training batches of
+    ``loader`` (train-mode forwards as the step runs them, no grad), in
+    place of the momentum-0.99 averages the steps left."""
+    import itertools
+
+    model = copy.deepcopy(trainer.model)
+    norms = [m for m in model.modules()
+             if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    for m in norms:
+        m.reset_running_stats()
+    model.train()
+    epochs = itertools.chain.from_iterable(itertools.repeat(loader))
+    with torch.no_grad():
+        for k, batch in enumerate(itertools.islice(epochs, batches), 1):
+            for m in norms:
+                m.momentum = 1.0 / k  # the running mean of k batches
+            with trainer._autocast():
+                model(batch["image"].to(trainer.device).float())
+    return trainer.evaluate(val, model=model)
+
+
+def mad_pretrain_phase(torch, snap):
+    """``[mad_pretrain]``: ``cli.train --method mad_pretrain --model unet``
+    on phantom slices, bs24 @ 224², bf16, MAD_ITERS steps (corrupted
+    near-one-hot labels in, the clean label the target) and the
+    corrupted-label validation after the last, saved to ``snap``: no scan
+    launch, finite falling losses; step ms, device ms per step (profiler),
+    peak GB. The eval-mode denoiser predicts background only this early,
+    so its validation Dice is 0 and it saves no ``best``: its warm starts
+    and the test CLI load the newest periodic checkpoint, as the CLIs do
+    without a best. The phase logs, as a witness of the cause (flax's
+    BatchNorm momentum 0.99: the running statistics are still 0.99^20 =
+    82 % their init), the Dice of a copy whose BatchNorm statistics are
+    re-estimated over MAD_BN_BATCHES training batches
+    (:func:`reestimated_bn_dice`)."""
+    from mamba_unet_torch.train import MADPretrainTrainer
+
+    cap, secs = cli_fit_phase(
+        torch, "mad_pretrain", MADPretrainTrainer,
+        ["--method", "mad_pretrain", "--model", "unet", "--snapshot_dir",
+         str(snap)], MAD_ITERS)
+    check_step_launches("mad_pretrain", cap["steps"], [0] * 9)
+    losses = [h["loss"] for h in cap["result"]["history"] if "loss" in h]
+    dice = [h["val_dice"] for h in cap["result"]["history"]
+            if "val_dice" in h]
+    saved = sorted(p.name for p in Path(snap).iterdir())
+    bn_dice = reestimated_bn_dice(torch, cap["trainer"], cap["loader"],
+                                  cap["val"], MAD_BN_BATCHES)
+    log("mad_pretrain", model="unet", in_chans=4, iterations=MAD_ITERS,
+        batch=TRAIN_BATCH, dtype="bf16", cli_seconds=f"{secs:.1f}",
+        val_dice=" ".join(f"{d:.4f}" for d in dice), scan_launches=0,
+        saved=" ".join(saved))
+    log("mad_pretrain", witness="BatchNorm statistics re-estimated",
+        batches=MAD_BN_BATCHES, val_dice_reestimated=f"{bn_dice:.4f}",
+        val_dice_running_stats=f"{dice[-1]:.4f}" if dice else None)
+    med, device = report_fit("mad_pretrain", cap["trainer"], cap["loader"],
+                             cap["result"], cap["ms"], cap["peak"],
+                             (MAD_ITERS,), MAD_PRE_PREDICTED)
+    if (not sum(losses[-3:]) < sum(losses[:3]) or len(dice) != 1
+            or f"state_{MAD_ITERS}" not in saved
+            or not math.isfinite(bn_dice)):
+        raise AssertionError(f"[mad_pretrain] losses {losses}, val Dice "
+                             f"{dice}, saved {saved}, re-estimated "
+                             f"{bn_dice}")
+    return med, device, cap["peak"]
+
+
+def mad_finetune_phase(torch, seg_snap, mad_snap, snap):
+    """``[mad_finetune]``: ``cli.train --method mad_finetune --model
+    ViM_seg --mad_model unet``, the segmenter warm-started from
+    ``seg_snap`` (``[trainability]``'s ``ViM_seg``) and both denoisers
+    from ``mad_snap`` (``[mad_pretrain]``'s newest best, else its newest
+    periodic checkpoint), bs24 @ 224², bf16,
+    MAD_ITERS steps and one stacked validation after the last: 14 #2b and
+    14 #4 launches per step (the segmenter; the denoisers launch none), 14
+    #1 per validation forward of the segmenter; step ms, device ms per step
+    (profiler), peak GB. The phase fails unless the trainer's own
+    best-Dice path saved the trio as best/best2/best3 after the stacked
+    validation (a stacked Dice above 0), for ``[mad_test]`` to serve
+    ``best3``. Returns (launches of #1, #2b, #4, ...)."""
+    from mamba_unet_torch.train import MADFineTuneTrainer
+
+    n = SS2D_PER_FORWARD
+    cap, secs = cli_fit_phase(
+        torch, "mad_finetune", MADFineTuneTrainer,
+        ["--method", "mad_finetune", "--model", "ViM_seg", "--mad_model",
+         "unet", "--seg_ckpt", str(seg_snap), "--mad_ckpt", str(mad_snap),
+         "--snapshot_dir", str(snap)], MAD_ITERS)
+    check_step_launches("mad_finetune", cap["steps"], [0, n, n] + [0] * 6,
+                        (MAD_ITERS,), [n * val_forwards()] + [0] * 8)
+    launches = [sum(s[i] for s in cap["steps"]) for i in range(3)]
+    losses = [h["loss"] for h in cap["result"]["history"] if "loss" in h]
+    dice = [h["val_dice"] for h in cap["result"]["history"]
+            if "val_dice" in h]
+    saved = sorted(p.name for p in Path(snap).iterdir())
+    log("mad_finetune", models="ViM_seg+unet+unet", iterations=MAD_ITERS,
+        batch=TRAIN_BATCH, dtype="bf16", cli_seconds=f"{secs:.1f}",
+        launches_serve_fwd_states_bwd=tuple(launches),
+        per_step=(0, n, n), per_eval_forward=(n, 0, 0),
+        eval_forwards=val_forwards(),
+        stacked_val_dice=" ".join(f"{d:.4f}" for d in dice),
+        saved=" ".join(saved))
+    med, device = report_fit("mad_finetune", cap["trainer"], cap["loader"],
+                             cap["result"], cap["ms"], cap["peak"],
+                             (MAD_ITERS,), MAD_FT_PREDICTED)
+    want = {f"{name}_{MAD_ITERS}" for name in ("best", "best2", "best3")}
+    if (not all(math.isfinite(v) for v in losses) or len(dice) != 1
+            or not dice[0] > 0 or not want <= set(saved)):
+        raise AssertionError(f"[mad_finetune] losses {losses}, stacked Dice "
+                             f"{dice}, saved {saved}")
+    return launches, med, device, cap["peak"]
+
+
+def mad_test_phase(torch, ft_snap, mad_snap):
+    """``[mad_test]``: ``cli.test`` of the fine-tuned ``ViM_seg`` (the
+    ``best`` of ``ft_snap``) with a stacked ``unet`` denoiser, once the
+    pretraining's (``mad_snap``: its best, else its newest periodic
+    checkpoint, the CLI's default) and once the fine-tuned den
+    (``--denoiser_ckpt_name best3``), on MAD_TEST_VOLUMES phantom volumes:
+    both metric tables finite, 14 #1 launches per segmenter forward and
+    none per denoiser forward. Returns the #1 launches."""
+    import numpy as np
+
+    from mamba_unet_torch.cli import test as test_cli
+    from mamba_unet_torch.data.synthetic import phantom_volumes
+
+    vols = phantom_volumes(MAD_TEST_VOLUMES, 10, *NATIVE, seed=3)
+    forwards = sum(math.ceil(len(v["image"]) / test_cli.BATCH_SIZE)
+                   for v in vols)
+    kernels = all_scan_kernels()
+    total = 0
+    for tag, den in (("pretrained", ["--denoiser_checkpoint", str(mad_snap)]),
+                     ("fine_tuned", ["--denoiser_checkpoint", str(ft_snap),
+                                     "--denoiser_ckpt_name", "best3"])):
+        args = test_cli.build_parser().parse_args(
+            ["--model", "ViM_seg", "--patch_size", str(PATCH), str(PATCH),
+             "--checkpoint", str(ft_snap), "--ckpt_name", "best",
+             "--denoiser_model", "unet", *den])
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = test_cli.run_inference(args, dataset=vols)
+        secs = time.perf_counter() - t0
+        launched = launch_counts(kernels)
+        total += launched[0]
+        log("mad_test", denoiser=tag, volumes=len(vols), forwards=forwards,
+            seconds=f"{secs:.1f}", launches_serve=launched[0],
+            expected=SS2D_PER_FORWARD * forwards,
+            mean_dice_hd95_asd=" ".join(f"{v:.4f}" for v in out["mean"]),
+            denoised_mean_dice_hd95_asd=" ".join(
+                f"{v:.4f}" for v in out["mean_denoised"]))
+        if (launched != [SS2D_PER_FORWARD * forwards] + [0] * 8
+                or out["per_case_denoised"].shape != (len(vols), 3, 3)
+                or not np.isfinite(out["per_case_denoised"]).all()
+                or not np.isfinite(out["per_case"]).all()):
+            raise AssertionError(f"[mad_test] {tag}: launches {launched}, "
+                                 f"tables {out['per_case'].shape}, "
+                                 f"{out['per_case_denoised'].shape}")
+    return total
+
+
+def zoo_2d_phase(torch, dev):
+    """``[zoo_2d]``: ``cli.train --method fully_supervised`` of ``enet``,
+    ``efficient_unet`` and ``preUnet`` (JAX default widths) on phantom
+    slices, bs24 @ 224², bf16, ZOO2D_ITERS steps with one eval after the
+    last: no scan launch, finite losses; step ms, device ms per step, peak
+    GB; then a bs24 forward of ``fc_discriminator`` on (softmax map,
+    image) pairs: (24, 2) finite logits, its ms."""
+    from mamba_unet_torch.models import net_factory
+    from mamba_unet_torch.train import Trainer
+
+    out = {}
+    for name in ("enet", "efficient_unet", "preUnet"):
+        cap, secs = cli_fit_phase(
+            torch, "zoo_2d", Trainer,
+            ["--method", "fully_supervised", "--model", name], ZOO2D_ITERS)
+        check_step_launches("zoo_2d", cap["steps"], [0] * 9)
+        losses = [h["loss"] for h in cap["result"]["history"]
+                  if "loss" in h]
+        log("zoo_2d", model=name, iterations=ZOO2D_ITERS, batch=TRAIN_BATCH,
+            dtype="bf16", cli_seconds=f"{secs:.1f}", scan_launches=0)
+        out[name] = report_fit("zoo_2d", cap["trainer"], cap["loader"],
+                               cap["result"], cap["ms"], cap["peak"],
+                               (ZOO2D_ITERS,), ("not predicted",) * 2,
+                               model=name) + (cap["peak"],)
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"[zoo_2d] {name}: losses {losses}")
+        del cap
+        torch.cuda.empty_cache()
+    disc = net_factory("fc_discriminator", num_classes=4, device=dev,
+                       generator=torch.Generator().manual_seed(5)).eval()
+    g = torch.Generator().manual_seed(6)
+    seg = torch.softmax(torch.randn(TRAIN_BATCH, PATCH, PATCH, 4,
+                                    generator=g), -1).to(dev)
+    img = torch.randn(TRAIN_BATCH, PATCH, PATCH, 1, generator=g).to(dev)
+    with torch.no_grad():
+        ms, logits = cuda_ms(torch, lambda: disc(seg, img), 10)
+    log("zoo_2d", model="fc_discriminator", batch=TRAIN_BATCH,
+        shape=tuple(logits.shape), forward_ms=f"{ms:.3f}")
+    if logits.shape != (TRAIN_BATCH, 2) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"[zoo_2d] fc_discriminator {logits.shape}")
+    return out
+
+
+def zoo3d_models(torch, dev, size, seed=7):
+    """The 3-D zoo at the JAX modules' default widths, (name, model,
+    input shape), seeded, on ``dev``: a ``size``³ volume (96 or 32), and
+    nnU-Net's anisotropic patch (depth pooled 4x, plane 64x). SwinUNETR
+    tiles its windows without padding: window 6 at 96³, 4 at 32³ (7 tiles
+    only 224k³)."""
+    from mamba_unet_torch.models import net_factory
+
+    nn_patch = (24, 192, 192) if size == 96 else (8, 64, 64)
+    specs = (("unet_3D", {}, (size,) * 3),
+             ("unet_3D_dv_semi", {}, (size,) * 3),
+             ("voxresnet", {}, (size,) * 3),
+             ("attention_unet", {}, (size,) * 3),
+             ("nnUNet", {}, nn_patch),
+             ("unetr", dict(img_size=size), (size,) * 3),
+             ("SwinUNETR", dict(img_size=size,
+                                window_size=6 if size == 96 else 4),
+              (size,) * 3))
+    for name, kw, shape in specs:
+        yield name, net_factory(
+            name, num_classes=ZOO3D_CLASSES, device=dev,
+            generator=torch.Generator().manual_seed(seed), **kw), shape
+
+
+def zoo_3d_phase(torch, dev):
+    """``[zoo_3d]``: one training step (forward, CE + Dice, backward,
+    poly-SGD) of each 3-D zoo model (:func:`zoo3d_models`) at batch 2 on a
+    96³ crop (nnU-Net its patch), ZOO3D_CLASSES classes, fp32 with
+    PyTorch's TF32 defaults (as ``[magicnet_3d]``): finite losses, no scan
+    launch; device ms per step (profiler, 2 steps after the first) and
+    peak GB of each."""
+    from mamba_unet_torch.nn.layers import set_generator
+    from mamba_unet_torch.objectives import supervised_ce_dice
+    from mamba_unet_torch.train.optim import poly_sgd
+
+    kernels = all_scan_kernels()
+    out = {}
+    for name, model, shape in zoo3d_models(torch, dev, 96):
+        g = torch.Generator().manual_seed(8)
+        x = torch.randn(ZOO3D_BATCH, *shape, 1, generator=g).to(dev)
+        y = torch.randint(0, ZOO3D_CLASSES, (ZOO3D_BATCH, *shape),
+                          generator=g).to(dev)
+        model.train()
+        set_generator(model, torch.Generator(dev).manual_seed(0))
+        opt, sched = poly_sgd(model.parameters(), 0.01, 1000)
+        losses = []
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            logits = model(x)
+            if isinstance(logits, (tuple, list)):
+                logits = logits[0]
+            loss = supervised_ce_dice(logits, y)
+            loss.backward()
+            opt.step()
+            sched.step()
+            losses.append(loss.detach())
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        step()
+        device = profile_calls(torch, f"zoo3d_{name}", [step, step])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launched = launch_counts(kernels)
+        losses = [float(v) for v in losses]
+        log("zoo_3d", model=name, batch=ZOO3D_BATCH, shape=shape,
+            classes=ZOO3D_CLASSES, dtype="fp32",
+            params=sum(p.numel() for p in model.parameters()),
+            losses=" ".join(f"{v:.4f}" for v in losses),
+            device_ms_per_step=f"{device:.2f}", peak_mem_gb=f"{peak:.2f}",
+            scan_launches=sum(launched))
+        if any(launched) or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"[zoo_3d] {name}: launches {launched}, "
+                                 f"losses {losses}")
+        out[name] = (device, peak)
+        del model, opt, x, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo3d_parity_phase(torch, dev):
+    """``[zoo3d_parity]``: eval-mode logits of each 3-D zoo model at full
+    width on a 32³ volume (nnU-Net an 8 x 64² patch), batch 1, fp32 (TF32
+    off by the caller), card against a CPU copy, within LOGIT_TOL of the
+    largest logit."""
+    from mamba_unet_torch.utils.export import make_predict_fn
+
+    for name, model, shape in zoo3d_models(torch, "cpu", 32):
+        x = torch.randn(1, *shape, 1, generator=torch.Generator()
+                        .manual_seed(9))
+        gpu = copy.deepcopy(model).to(dev)
+        with torch.no_grad():
+            want = model.eval()(x)
+            got = gpu.eval()(x.to(dev))
+        want = want[0] if isinstance(want, tuple) else want
+        got = (got[0] if isinstance(got, tuple) else got).cpu()
+        err = (got - want).abs().max().item()
+        top = want.abs().max().item()
+        log("zoo3d_parity", model=name, shape=tuple(got.shape),
+            max_abs_err=f"{err:.3e}", logit_max=f"{top:.3f}",
+            tol=f"{LOGIT_TOL} x max(1, logit_max)")
+        if not (err <= LOGIT_TOL * max(1.0, top)
+                and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"[zoo3d_parity] {name}: card logits "
+                                 f"{err} from the CPU's")
+        del gpu, model
+
+
+def segmamba_kernel_phase(torch, dev):
+    """``[segmamba_kernel]``: the grouped kernels at SegMamba's shapes
+    (batch 2, one group per direction, (L, d_inner) of SEGMAMBA_STAGES):
+    the serving forward (#3), the state-saving forward (#3s) and the
+    backward (#4u) against their plain versions, fp32 and bf16 (stage 1
+    bf16 only), at stages 1-3 in full and at stage 0 on its first
+    SEGMAMBA_L0_CHECK tokens (the plain loops at L = 110,592 would take
+    minutes); then each timed at
+    every stage's full shape (fp32, device ms per call) beside its bound
+    (:func:`scan_bound`). Returns ({kernel: worst error}, {kernel: [(ms,
+    bound ms, bound_by) per stage]})."""
+    from mamba_unet_torch.ops.selective_scan_grouped import (
+        selective_scan_grouped,
+        selective_scan_grouped_ref,
+    )
+
+    from mamba_unet_torch.utils.compare import assert_close_to_max
+
+    fwd_states, _, bwd, _, _ = training_kernels("grouped")
+    worst = {"serve": 0.0, "fwd_states": 0.0, "bwd": 0.0}
+    for i, (L, dg) in enumerate(SEGMAMBA_STAGES):
+        L_check = min(L, SEGMAMBA_L0_CHECK) if i == 0 else L
+        # stage 1's plain loops (13,824 steps) run in bf16, the dtype the
+        # model runs under autocast, only
+        for dtype in ((torch.bfloat16,) if i == 1
+                      else (torch.float32, torch.bfloat16)):
+            tag = str(dtype).split(".")[-1]
+            args = grouped_args(torch, SEGMAMBA_BATCH, L_check, 1, dg, dtype,
+                                dev, L + dg)
+            err = assert_close_to_max(
+                selective_scan_grouped(*args),
+                selective_scan_grouped_ref(*args), KERNEL_TOL,
+                f"segmamba #3 at stage {i} L={L_check} {tag}")
+            log("segmamba_kernel", kernel="serve", stage=i, L=L_check, dg=dg,
+                batch=SEGMAMBA_BATCH, dtype=tag, max_abs_err=f"{err:.3e}",
+                tol=KERNEL_TOL, ok=True)
+            worst["serve"] = max(worst["serve"], err)
+            gy = torch.randn(args[0].shape, generator=torch.Generator()
+                             .manual_seed(L)).to(dev, dtype)
+            errs, _, _ = check_training_kernels(
+                torch, args, gy, "segmamba_kernel", "grouped", stage=i,
+                L=L_check, dg=dg, batch=SEGMAMBA_BATCH, dtype=tag)
+            for kind, err in errs.items():
+                worst[kind] = max(worst[kind], err)
+            del args, gy
+            torch.cuda.empty_cache()
+    times = {"serve": [], "fwd_states": [], "bwd": []}
+    for i, (L, dg) in enumerate(SEGMAMBA_STAGES):
+        args = grouped_args(torch, SEGMAMBA_BATCH, L, 1, dg, torch.float32,
+                            dev, 0)
+        gy = torch.randn(args[0].shape, generator=torch.Generator()
+                         .manual_seed(1)).to(dev)
+        serve_ms, _ = device_ms(torch, lambda: selective_scan_grouped(*args),
+                                5)
+        fwd_ms, (y, cs) = device_ms(torch, lambda: fwd_states(*args), 5)
+        bwd_ms, _ = device_ms(torch, lambda: bwd(*args, cs, gy), 5)
+        fields = {}
+        for kind, ms, bound_kind in (("serve", serve_ms, "grouped"),
+                                     ("fwd_states", fwd_ms,
+                                      "grouped_fwd_states"),
+                                     ("bwd", bwd_ms, "grouped_bwd")):
+            bound, by = scan_bound(bound_kind, SEGMAMBA_BATCH, L, dg, 4)
+            times[kind].append((ms, bound, by))
+            fields.update({f"{kind}_ms": f"{ms:.4f}",
+                           f"{kind}_bound_ms": f"{bound:.4f}",
+                           f"{kind}_bound_by": by,
+                           f"{kind}_x_bound": f"{ms / bound:.1f}"})
+        blocks = SEGMAMBA_BATCH * math.ceil(dg / 32)
+        log("segmamba_kernel_time", stage=i, L=L, dg=dg,
+            batch=SEGMAMBA_BATCH, dtype="float32", blocks=blocks,
+            calls_per_forward=2 * SEGMAMBA_DEPTHS[i], **fields)
+        del args, gy, y, cs
+        torch.cuda.empty_cache()
+    log("segmamba_kernel", **{f"worst_{k}": f"{v:.3e}"
+                              for k, v in worst.items()})
+    return worst, times
+
+
+def segmamba_phase(torch, dev):
+    """``[segmamba]``: full-width SegMamba (feat 48/96/192/384, depths
+    2/2/2/2, d_state 16) on 96³ volumes at batch SEGMAMBA_BATCH under bf16
+    autocast (fp32 scan state), ZOO3D_CLASSES classes: a no-grad forward
+    (16 #3 launches: 8 bidirectional Mamba layers x 2 directions) and a
+    training step (16 #3s and 16 #4u, no #3), no bidir or folded launch;
+    device ms of each (profiler), peak GB. Returns the launches (#3, #3s,
+    #4u)."""
+    from mamba_unet_torch.models.segmamba import SegMamba
+    from mamba_unet_torch.objectives import supervised_ce_dice
+    from mamba_unet_torch.train.optim import poly_sgd
+
+    per = 2 * sum(SEGMAMBA_DEPTHS)
+    model = SegMamba(num_classes=ZOO3D_CLASSES, depths=SEGMAMBA_DEPTHS,
+                     device=dev, generator=torch.Generator().manual_seed(11))
+    g = torch.Generator().manual_seed(12)
+    vol = (SEGMAMBA_VOLUME,) * 3
+    x = torch.randn(SEGMAMBA_BATCH, *vol, 1, generator=g).to(dev)
+    y = torch.randint(0, ZOO3D_CLASSES, (SEGMAMBA_BATCH, *vol),
+                      generator=g).to(dev)
+    kernels = all_scan_kernels()
+    opt, sched = poly_sgd(model.parameters(), 0.01, 1000)
+
+    def forward():
+        with torch.no_grad(), torch.autocast("cuda", torch.bfloat16):
+            return model.eval()(x)
+
+    losses = []
+
+    def step():
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        with torch.autocast("cuda", torch.bfloat16):
+            loss = supervised_ce_dice(model(x), y)
+        loss.backward()
+        opt.step()
+        sched.step()
+        losses.append(loss.detach())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    logits = forward()
+    torch.cuda.synchronize()
+    fwd_launched = launch_counts(kernels)
+    fwd_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    step()
+    torch.cuda.synchronize()
+    step_launched = launch_counts(kernels)
+    step_peak = torch.cuda.max_memory_allocated() / 1e9
+    fwd_device = profile_calls(torch, "segmamba_forward", [forward] * 2)
+    step_device = profile_calls(torch, "segmamba_step", [step] * 2)
+    losses = [float(v) for v in losses]
+    log("segmamba", batch=SEGMAMBA_BATCH, volume=f"{SEGMAMBA_VOLUME}^3",
+        dtype="bf16",
+        classes=ZOO3D_CLASSES, mamba_layers=sum(SEGMAMBA_DEPTHS),
+        logits=tuple(logits.shape),
+        forward_launches_serve_fwd_states_bwd=tuple(fwd_launched[3:6]),
+        step_launches_serve_fwd_states_bwd=tuple(step_launched[3:6]),
+        other_launches=sum(fwd_launched[:3] + fwd_launched[6:]
+                           + step_launched[:3] + step_launched[6:]),
+        forward_device_ms=f"{fwd_device:.2f}",
+        step_device_ms=f"{step_device:.2f}",
+        forward_peak_gb=f"{fwd_peak:.2f}", step_peak_gb=f"{step_peak:.2f}",
+        losses=" ".join(f"{v:.4f}" for v in losses),
+        predicted_step_device_ms=SEGMAMBA_PREDICTED_STEP_MS)
+    if (fwd_launched != [0, 0, 0, per, 0, 0, 0, 0, 0]
+            or step_launched != [0, 0, 0, 0, per, per, 0, 0, 0]
+            or logits.shape != (SEGMAMBA_BATCH, *vol, ZOO3D_CLASSES)
+            or not bool(torch.isfinite(logits).all())
+            or not all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"[segmamba] launches {fwd_launched} / "
+                             f"{step_launched}, losses {losses}")
+    del model, opt, x, y, logits
+    torch.cuda.empty_cache()
+    return per, per, per
+
+
+def instance_norm_fed_biases(model) -> set:
+    """The names of the biases of SegMamba's convolutions whose output an
+    instance norm normalizes (every ``UnetrBasicBlock``'s ``Conv_0``,
+    ``Conv_1``, ``Conv_2``): exact zeros of the gradient."""
+    from mamba_unet_torch.models.segmamba import UnetrBasicBlock
+
+    return {f"{prefix}.{name}.bias"
+            for prefix, block in model.named_modules()
+            if isinstance(block, UnetrBasicBlock)
+            for name in ("Conv_0", "Conv_1", "Conv_2")
+            if hasattr(block, name)}
+
+
+def module_errors(want, got, zeros) -> dict:
+    """Per top-level module of gradient dicts ``want`` and ``got``: the
+    largest max abs difference among its leaves, each relative to the
+    leaf's own max abs in ``want`` (the leaves in ``zeros``, and any of
+    max 0, relative to the module's largest gradient)."""
+    top = {}
+    for k, w in want.items():
+        m = k.split(".")[0]
+        top[m] = max(top.get(m, 0.0), w.abs().max().item())
+    errs = {}
+    for k, w in want.items():
+        m = k.split(".")[0]
+        own = w.abs().max().item()
+        scale = top[m] if k in zeros or own == 0.0 else own
+        rel = (got[k] - w).abs().max().item() / max(scale, 1e-30)
+        errs[m] = max(errs.get(m, 0.0), rel)
+    return errs
+
+
+def fp64_mamba_forward(self, hidden_states):
+    """A plain fp64 forward of the port's ``Mamba`` in its own weights
+    (bidirectional where it has the ``_b`` leaves), bound to an fp64 copy's
+    layers by :func:`segmamba_parity_phase` as its reference: in_proj, the
+    causal depthwise conv and SiLU, x_proj / dt_proj, the selective scan,
+    the D skip, the SiLU gate, out_proj; no kernel and no cast to fp32.
+    The scan runs FP64_SCAN_CHUNK steps at a time: within a chunk, state
+    t = exp(s_t) * (state entering it) + sum over k <= t of exp(s_t - s_k)
+    * Δ_k B_k u_k, with s the running sum of Δ A over the chunk."""
+    import torch
+    F = torch.nn.functional
+    x, z = F.linear(hidden_states, self.in_proj.weight).chunk(2, dim=-1)
+    T = FP64_SCAN_CHUNK
+    causal = torch.ones(T, T, dtype=torch.bool,
+                        device=x.device).tril()[None, :, :, None, None]
+
+    def direction(x, tag):
+        conv = getattr(self, f"conv1d{tag}")
+        xt = F.pad(x.transpose(1, 2), (conv.weight.shape[-1] - 1, 0))
+        xc = F.silu(F.conv1d(xt, conv.weight, conv.bias,
+                             groups=xt.shape[1])).transpose(1, 2)
+        dt, Bm, Cm = F.linear(xc, getattr(self, f"x_proj{tag}").weight).split(
+            [self.dt_rank, self.d_state, self.d_state], dim=-1)
+        dt_proj = getattr(self, f"dt_proj{tag}")
+        delta = F.softplus(F.linear(dt, dt_proj.weight) + dt_proj.bias)
+        dA = delta[..., None] * -torch.exp(getattr(self, f"A{tag}_log"))
+        dBu = (delta * xc)[..., None] * Bm[:, :, None, :]  # (B, L, D, N)
+        state = dA.new_zeros(dA.shape[0], *dA.shape[2:])
+        ys = []
+        for c in range(0, xc.shape[1], T):
+            s = dA[:, c:c + T].cumsum(1)
+            n = s.shape[1]
+            decay = torch.exp((s[:, :, None] - s[:, None]).masked_fill(
+                ~causal[:, :n, :n], float("-inf")))  # (B, t, k, D, N)
+            h = ((decay * dBu[:, None, c:c + T]).sum(2)
+                 + torch.exp(s) * state[:, None])
+            ys.append(torch.einsum("btdn,btn->btd", h, Cm[:, c:c + T]))
+            state = h[:, -1]
+        return torch.cat(ys, 1) + xc * getattr(self, f"D{tag}")
+
+    y = direction(x, "")
+    if self.bimamba_type == "v2":
+        y = y + direction(x.flip(1), "_b").flip(1)
+    return F.linear(y * F.silu(z), self.out_proj.weight)
+
+
+def segmamba_parity_phase(torch, dev):
+    """``[segmamba_parity]``: full-width SegMamba, one Mamba layer per
+    stage (SEGMAMBA_PARITY_DEPTHS), on a 32³ volume (stage 0 L = 4,096),
+    batch 1, TF32 off by the caller, the gradients of a fixed
+    linear function of the logits. The fp32 step (the grouped kernels: 8
+    #3s, 8 #4u) card vs CPU (the plain loops): logits within LOGIT_TOL of
+    the largest, the loss within LOSS_TOL of the sum of its terms' sizes
+    (sum |logit * w|: the random-sign sum cancels, and each side rounds
+    it in its own order). Each Mamba layer alone, card
+    vs CPU on the CPU step's own input and upstream gradient: every leaf's
+    gradient and the input's within MODEL_GRAD_TOL of its own max. The
+    step in fp64, its Mamba layers the plain :func:`fp64_mamba_forward`,
+    card vs CPU: the loss (as above) and every gradient within
+    SEGMAMBA_FP64_TOL of the largest. Printed beside them: how far each
+    fp32 step's gradients lie from the CPU's fp64 ones, module by module
+    (:func:`module_errors`)."""
+    import types
+
+    from mamba_unet_torch.models.segmamba import MambaLayer, SegMamba
+    from mamba_unet_torch.nn.mamba1d import Mamba
+
+    g = torch.Generator().manual_seed(13)
+    vol = (SEGMAMBA_PARITY_VOLUME,) * 3
+    x = torch.randn(1, *vol, 1, generator=g)
+    w = torch.randn(1, *vol, ZOO3D_CLASSES, generator=g)
+    cpu = SegMamba(num_classes=ZOO3D_CLASSES, depths=SEGMAMBA_PARITY_DEPTHS,
+                   generator=torch.Generator().manual_seed(11))
+    zeros = instance_norm_fed_biases(cpu)
+    grads, losses, secs, outs, seen, launched = {}, {}, {}, {}, {}, {}
+    kernels = all_scan_kernels()
+    for tag, d, dtype in (("cpu", "cpu", torch.float32),
+                          ("gpu", dev, torch.float32),
+                          ("cpu64", "cpu", torch.float64),
+                          ("gpu64", dev, torch.float64)):
+        model = copy.deepcopy(cpu).to(d, dtype)
+        hooks = []
+        if dtype == torch.float64:
+            for m in model.modules():
+                if isinstance(m, Mamba):
+                    m.forward = types.MethodType(fp64_mamba_forward, m)
+        elif tag == "cpu":  # each Mamba layer's input and upstream grad
+            def capture(inp, out, name):
+                seen[name] = [inp[0].detach().clone(), None]
+                out.register_hook(
+                    lambda g_, name=name: seen[name].__setitem__(1, g_))
+            hooks = [m.register_forward_hook(
+                lambda mod, inp, out, name=n: capture(inp, out, name))
+                for n, m in model.named_modules()
+                if isinstance(m, MambaLayer)]
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = model.train()(x.to(d, dtype))
+        loss = (out * w.to(d, dtype)).sum()
+        loss.backward()
+        secs[tag] = time.perf_counter() - t0
+        launched[tag] = launch_counts(kernels)
+        for h in hooks:
+            h.remove()
+        terms = (out.detach() * w.to(d, dtype)).abs().sum()
+        losses[tag] = (float(loss.detach()), float(terms))
+        outs[tag] = out.detach().cpu().double()
+        grads[tag] = {k: p.grad.cpu().double()
+                      for k, p in model.named_parameters()}
+        del model, out, loss
+    per = 2 * sum(SEGMAMBA_PARITY_DEPTHS)
+    logit_max = outs["cpu"].abs().max().item()
+    logits_err = (outs["gpu"] - outs["cpu"]).abs().max().item()
+    loss_err = abs(losses["gpu"][0] - losses["cpu"][0]) / losses["cpu"][1]
+    card = module_errors(grads["cpu64"], grads["gpu"], zeros)
+    fp32 = module_errors(grads["cpu64"], grads["cpu"], zeros)
+    worst = max(card, key=card.get)
+    worst_mamba = max((m for m in card if "_mamba" in m), key=card.get)
+    top64 = max(v.abs().max().item() for v in grads["cpu64"].values())
+    err64, at64 = max(((grads["gpu64"][k] - v).abs().max().item() / top64, k)
+                      for k, v in grads["cpu64"].items())
+    loss64 = (abs(losses["gpu64"][0] - losses["cpu64"][0])
+              / losses["cpu64"][1])
+
+    # each Mamba layer alone, on the CPU step's input and upstream gradient
+    layer_worst, layer_at = 0.0, None
+    for name, (xin, gy) in seen.items():
+        got = {}
+        for tag, d in (("cpu", "cpu"), ("gpu", dev)):
+            layer = copy.deepcopy(dict(cpu.named_modules())[name]).to(d)
+            xi = xin.detach().to(d).requires_grad_(True)
+            layer.train()(xi).backward(gy.to(d))
+            got[tag] = {k: p.grad.cpu().double()
+                        for k, p in layer.named_parameters()}
+            got[tag]["input"] = xi.grad.cpu().double()
+        for k, want in got["cpu"].items():
+            rel = ((got["gpu"][k] - want).abs().max().item()
+                   / max(want.abs().max().item(), 1e-30))
+            if not math.isfinite(rel) or rel > layer_worst:
+                layer_worst, layer_at = rel, f"{name}.{k}"
+    log("segmamba_parity", volume=f"{SEGMAMBA_PARITY_VOLUME}^3",
+        logits_max_abs_err=f"{logits_err:.3e}", logit_max=f"{logit_max:.3f}",
+        loss_gpu=f"{losses['gpu'][0]:.6f}",
+        loss_terms=f"{losses['cpu'][1]:.1f}", loss_rel_err=f"{loss_err:.2e}",
+        launches_fwd_states_bwd=tuple(launched["gpu"][4:6]),
+        **{f"{t}_s": f"{v:.2f}" for t, v in secs.items()})
+    log("segmamba_parity", mamba_layers_alone=len(seen),
+        worst_own_rel_err=f"{layer_worst:.2e}", worst_at=layer_at,
+        tol=MODEL_GRAD_TOL)
+    log("segmamba_parity", fp64_params=len(grads["cpu64"]),
+        fp64_loss_rel_err=f"{loss64:.2e}",
+        fp64_worst_grad_rel_err=f"{err64:.2e}", fp64_worst_param=at64,
+        relative_to="model_max_grad", tol=SEGMAMBA_FP64_TOL)
+    log("segmamba_parity", fp32_vs_fp64="module max of each leaf's error "
+        "relative to its own max", modules=len(card),
+        card_max=f"{card[worst]:.2e}", card_worst_module=worst,
+        cpu_there=f"{fp32[worst]:.2e}", cpu_max=f"{max(fp32.values()):.2e}",
+        card_worst_mamba_layer=worst_mamba,
+        card_mamba=f"{card[worst_mamba]:.2e}",
+        cpu_mamba=f"{fp32[worst_mamba]:.2e}")
+    finite = all(bool(torch.isfinite(v).all()) for v in grads["gpu"].values())
+    if (launched["gpu"] != [0, 0, 0, 0, per, per, 0, 0, 0]
+            or any(launched["gpu64"])
+            or logits_err > LOGIT_TOL * max(1.0, logit_max)
+            or loss_err > LOSS_TOL or not finite
+            or len(seen) != sum(SEGMAMBA_PARITY_DEPTHS)
+            or not layer_worst <= MODEL_GRAD_TOL
+            or not (err64 <= SEGMAMBA_FP64_TOL
+                    and loss64 <= SEGMAMBA_FP64_TOL)):
+        raise AssertionError(
+            f"[segmamba_parity] launches {launched}, logits {logits_err}, "
+            f"loss {loss_err}, finite {finite}, Mamba layers alone "
+            f"{layer_worst} at {layer_at}, fp64 {err64} at {at64}, fp64 "
+            f"loss {loss64}")
+
+
+def mad_parity_phase(torch, dev):
+    """``[mad_parity]``: one MAD fine-tuning step of full-width
+    ``ViM_seg`` + two ``unet`` denoisers (dropout and drop-path 0), batch
+    MAD_PARITY_BATCH on MAD_PARITY_PATCH², fp32 (TF32 off by the caller),
+    card against a CPU copy: the losses within LOSS_TOL and every
+    gradient within MODEL_GRAD_TOL of its model's largest (``unet``'s fp32
+    gradients are ill-conditioned), the biases of ``unet``'s convolutions
+    that feed a BatchNorm (exact zeros) below ZERO_GRAD_REL of their
+    model's largest on both sides; 14 #2b and 14 #4 launches."""
+    import numpy as np
+
+    from mamba_unet_torch.data.mad_augment import MADFineTuneTransform
+    from mamba_unet_torch.data.synthetic import phantom_acdc
+    from mamba_unet_torch.models import net_factory
+    from mamba_unet_torch.models.vssm import MambaUnet
+    from mamba_unet_torch.train import MADFineTuneTrainer, TrainConfig
+    from mamba_unet_torch.utils.compare import batchnorm_fed_biases
+
+    size = MAD_PARITY_PATCH
+    cfg = TrainConfig(base_lr=0.01, max_iterations=1000,
+                      batch_size=MAD_PARITY_BATCH, patch_size=(size, size),
+                      num_classes=4, seed=1337)
+    transform = MADFineTuneTransform((size, size), 4, seed=5)
+    samples = [transform(s) for s in phantom_acdc(
+        1, MAD_PARITY_BATCH, 0, 0, size + 32, seed=4)["train"]]
+    batch = {k: torch.from_numpy(np.stack([s[k] for s in samples]))
+             for k in samples[0]}
+    kernels = all_scan_kernels()
+    grads, losses, zeros = {}, {}, set()
+    for tag, d in (("cpu", "cpu"), ("gpu", dev)):
+        seg = MambaUnet(num_classes=4, drop_path_rate=0.0,
+                        generator=torch.Generator().manual_seed(1337))
+        draw_patch_bias(torch, seg.mamba_unet.patch_embed, 1437)
+        mad, den = (net_factory("unet", num_classes=4, in_chans=4,
+                                dropout=(0.0,) * 5,
+                                generator=torch.Generator().manual_seed(s))
+                    for s in (1338, 1339))
+        trainer = MADFineTuneTrainer(seg, cfg, mad_model=mad, den_model=den,
+                                     device=d)
+        for k in kernels:
+            k.launches = 0
+        logs = trainer.train_step(batch)
+        launched = launch_counts(kernels)
+        losses[tag] = {k: float(v) for k, v in logs.items()
+                       if k.startswith("loss")}
+        grads[tag] = {f"{name}.{k}": p.grad.cpu()
+                      for name, (m, _, _) in zip(("seg", "mad", "den"),
+                                                 trainer._members())
+                      for k, p in m.named_parameters()}
+        zeros = {f"{name}.{k}" for name, (m, _, _) in zip(
+            ("seg", "mad", "den"), trainer._members())
+            for k in batchnorm_fed_biases(m)}
+        del trainer, seg, mad, den
+    n = SS2D_PER_FORWARD
+    log("mad_parity", batch=MAD_PARITY_BATCH, patch=size,
+        launches_fwd_states_bwd=tuple(launched[1:3]))
+    if launched != [0, n, n] + [0] * 6:
+        raise AssertionError(f"[mad_parity] launched {launched}")
+    card_vs_cpu_grads("mad_parity", grads, losses, zeros=zeros,
+                      to_model_max=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4000,7 +4943,12 @@ def main() -> int:
     weak_launches, *_ = weak_scribble_phase(torch, dev)
     phase_done("weak_scribble")
     torch.cuda.empty_cache()
-    trainability_phase(torch, dev)
+    import tempfile
+
+    snaps = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    vim_snap, mad_snap, ft_snap = (Path(snaps.name, n)
+                                   for n in ("vim", "mad", "ft"))
+    trainability_phase(torch, dev, vim_snap)
     phase_done("trainability")
 
     # --- contrastive consistency and the mask model's pretraining: the
@@ -4043,6 +4991,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("lm_export")
 
+    # --- MAD: the denoiser's pretraining, the stacked fine-tuning (warm-
+    # started from [trainability]'s ViM_seg and the pretraining's best),
+    # the stacked test CLI
+    mad_pretrain_phase(torch, mad_snap)
+    torch.cuda.empty_cache()
+    phase_done("mad_pretrain")
+    mad_launches, *_ = mad_finetune_phase(torch, vim_snap, mad_snap, ft_snap)
+    torch.cuda.empty_cache()
+    phase_done("mad_finetune")
+    mad_test_launches = mad_test_phase(torch, ft_snap, mad_snap)
+    snaps.cleanup()
+    phase_done("mad_test")
+
+    # --- the rest of the zoo: the 2-D models through the train CLI, the
+    # 3-D ones a step each, SegMamba on the grouped kernels
+    zoo_2d_phase(torch, dev)
+    torch.cuda.empty_cache()
+    phase_done("zoo_2d")
+    zoo_3d_phase(torch, dev)
+    phase_done("zoo_3d")
+    seg_errs, _ = segmamba_kernel_phase(torch, dev)
+    phase_done("segmamba_kernel")
+    seg_launches = segmamba_phase(torch, dev)
+    phase_done("segmamba")
+
     # the steps card vs CPU: last, as their CPU backwards would share the
     # host with a timed phase
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4052,19 +5025,27 @@ def main() -> int:
     cc_parity_phase(torch, dev)
     phase_done("cc_parity")
     magicnet_parity_phase(torch, dev)
+    phase_done("magicnet_parity")
+    mad_parity_phase(torch, dev)
+    phase_done("mad_parity")
+    zoo3d_parity_phase(torch, dev)
+    phase_done("zoo3d_parity")
+    segmamba_parity_phase(torch, dev)
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32_defaults
-    phase_done("magicnet_parity")
+    phase_done("segmamba_parity")
 
     serve_bound = sum(calls * scan_bound("fwd", SERVE_BATCH, L, dg, 4)[0]
                       for L, dg, calls in STAGES)
     pallas = "mamba_unet_tpu/ops/selective_scan_pallas.py"
     # the bidir kernels' launches: their main path's run plus the weak
     # trio's (model 3), the contrastive pair's, the mask pretraining's, the
-    # mask variant's and MagicNet's without and with --mask_recovery
+    # mask variant's, MagicNet's without and with --mask_recovery, the MAD
+    # fine-tuning's and the stacked test CLI's
     later = [sum(t) for t in zip(weak_launches, cc_launches, mask_launches,
                                  cc_mask_launches, magic_launches,
-                                 magic_mask_launches)]
+                                 magic_mask_launches, mad_launches,
+                                 (mad_test_launches, 0, 0))]
     rows = [dict(name="selective_scan_bidir_fwd",
                  launches=launches + later[0],
                  max_abs_err=max_err, ms=ms_fwd, plain_ms=plain_ms_fwd,
@@ -4086,20 +5067,25 @@ def main() -> int:
                          source=f"mamba_unet_torch/csrc/{src}",
                          replaces=where))
     ms, plain, bound, by = lm_times["scoring"]
+    # the grouped kernels' launches: the LM's and the tm branch's runs
+    # plus SegMamba's forward and training step
     rows.append(dict(name="selective_scan_fwd",
-                     launches=lm_launches + lm_later,
-                     max_abs_err=lm_err, ms=LM_DEPTH * ms,
+                     launches=lm_launches + lm_later + seg_launches[0],
+                     max_abs_err=max(lm_err, seg_errs["serve"]),
+                     ms=LM_DEPTH * ms,
                      plain_ms=LM_DEPTH * plain, bound_ms=LM_DEPTH * bound,
                      bound_by=by,
                      source="mamba_unet_torch/csrc/selective_scan_fwd.cu",
                      replaces=f"{pallas}:229 (unidirectional)"))
     for kernel, kind, n, src, where in (
-            ("selective_scan_fwd_states", "fwd_states", tm_fwd,
-             "selective_scan_fwd.cu",
+            ("selective_scan_fwd_states", "fwd_states",
+             tm_fwd + seg_launches[1], "selective_scan_fwd.cu",
              f"{pallas}:229 (unidirectional, save_cs: _scan_core_fwd :586)"),
-            ("selective_scan_bwd", "bwd", tm_bwd, "selective_scan_bwd.cu",
+            ("selective_scan_bwd", "bwd", tm_bwd + seg_launches[2],
+             "selective_scan_bwd.cu",
              f"{pallas}:318 (unidirectional: _scan_core_bwd :701)")):
         err, ms, plain, bound, by = tm_kernels[kind]
+        err = max(err, seg_errs[kind])
         rows.append(dict(name=kernel, launches=n, max_abs_err=err, ms=ms,
                          plain_ms=plain, bound_ms=bound, bound_by=by,
                          source=f"mamba_unet_torch/csrc/{src}",

@@ -1,4 +1,5 @@
-"""Test/inference CLI for the PyTorch port (one model).
+"""Test/inference CLI for the PyTorch port (a model, or a model and a
+denoiser stacked on it).
 
 Port of ``mamba_unet_tpu/cli/test.py``. Per test case: order-0 zoom of each
 slice to the patch size, batched forward, argmax, order-0 zoom back, and
@@ -24,7 +25,18 @@ too; it is ``eval.inference.test_single_volume`` with the CLI's metrics.
 ``--patch_size``, the last three also for ``--cube_size``; a model with
 several outputs is served its first). The 3-D models (``vnet_3D``,
 ``magicnet``) are validated by ``train.magicnet.MagicNetTrainer.
-final_validation``, not here. ``--device`` defaults to
+final_validation``, not here.
+
+``--denoiser_model`` stacks a second model on the first, as the
+reference's ``Inference_seg_ema_model``/``Inference_mad_model``: it eats
+softmax(seg(x)) (``--num_classes`` input channels) and a second table of
+metrics is reported for argmax(den(softmax(seg(x)))) beside the first. One
+segmenter forward per batch feeds both. The denoiser loads from
+``--denoiser_checkpoint`` (e.g. a ``mad_pretrain`` snapshot), its newest
+``--denoiser_ckpt_name`` checkpoint (default ``best``, else ``state``;
+``best3`` picks the fine-tuned den out of a ``mad_finetune`` snapshot,
+whose trio is saved as best = seg, best2 = mad, best3 = den):
+``--ckpt_name`` selects in the main snapshot only. ``--device`` defaults to
 ``cuda`` and raises without a card; ``--device cpu`` runs on the CPU.
 """
 
@@ -66,6 +78,17 @@ def build_parser():
                    help="write {case}_pred.nii.gz and {case}_gt.nii.gz here")
     p.add_argument("--write_pred_key", type=str, default=None,
                    help="write predictions back into the case h5 under this key")
+    p.add_argument("--denoiser_model", type=str, default=None,
+                   help="a denoiser stacked on the model: it eats "
+                        "softmax(seg(x)); reports the raw and the denoised "
+                        "metrics")
+    p.add_argument("--denoiser_checkpoint", type=str, default=None,
+                   help="the denoiser's state_dict file or snapshot "
+                        "directory (e.g. a mad_pretrain run)")
+    p.add_argument("--denoiser_ckpt_name", type=str, default=None,
+                   help="checkpoint name prefix in the denoiser's snapshot "
+                        "(default 'best' falling back to 'state'; best3 = "
+                        "a mad_finetune run's den)")
     return p
 
 
@@ -79,6 +102,51 @@ def infer_volume(image: np.ndarray, label: np.ndarray,
         image, label, predict_fn, num_classes, patch_size, BATCH_SIZE,
         metric_fn=dice_hd95_asd, return_pred=True)
     return pred_small, metrics
+
+
+def _native_metrics(pred_small: np.ndarray, label: np.ndarray,
+                    num_classes: int):
+    """Per-class (dice, hd95, asd) of a (Z, ps0, ps1) prediction zoomed back
+    to the label's native slices."""
+    native = label.shape[1:]
+    pred = (np.stack([_zoom0(p, native) for p in pred_small])
+            if pred_small.shape[1:] != native else pred_small)
+    return [dice_hd95_asd(pred == c, label == c)
+            for c in range(1, num_classes)]
+
+
+class _Stacked:
+    """A predict function of the segmenter that also runs the denoiser on
+    the softmax of each batch's logits, on the device, and keeps its
+    argmax: one segmenter forward feeds both tables."""
+
+    def __init__(self, seg_fn: Callable, den_fn: Callable, device):
+        self.seg_fn, self.den_fn, self.device = seg_fn, den_fn, device
+        self.den_preds = []
+
+    def __call__(self, x: np.ndarray) -> np.ndarray:
+        import torch
+
+        seg = self.seg_fn(torch.as_tensor(x, device=self.device))
+        den = self.den_fn(torch.softmax(seg, dim=-1))
+        self.den_preds.append(den.argmax(-1).cpu().numpy())
+        return seg.cpu().numpy()
+
+    def take(self, z: int) -> np.ndarray:
+        """The denoised (z, ps0, ps1) argmax of the volume just served."""
+        out = np.concatenate(self.den_preds)[:z]
+        self.den_preds = []
+        return out
+
+
+def _log_table(arr: np.ndarray, tag: str = "") -> dict:
+    mean_by_class = arr.mean(axis=0)
+    overall = arr.mean(axis=(0, 1))
+    for c in range(arr.shape[1]):
+        logging.info("class %d%s: dice %.4f hd95 %.4f asd %.4f", c + 1, tag,
+                     *mean_by_class[c])
+    logging.info("MEAN%s: dice %.4f hd95 %.4f asd %.4f", tag, *overall)
+    return {"mean_by_class": mean_by_class, "mean": overall}
 
 
 def run_inference(args, dataset=None) -> dict:
@@ -95,15 +163,23 @@ def run_inference(args, dataset=None) -> dict:
         raise ValueError(f"{args.model} is a 3-D model; this CLI serves 2-D "
                          f"slices")
     model_kw = size_kwargs(args.model, args.patch_size[0], args.cube_size)
+    device = require_device(args.device)
     model = load_model_snapshot(args.model, args.num_classes, 1,
-                                args.checkpoint,
-                                device=require_device(args.device),
+                                args.checkpoint, device=device,
                                 ckpt_name=args.ckpt_name, **model_kw)
-    predict = make_predict_fn(model)
+    predict = stacked = make_predict_fn(model)
+    if args.denoiser_model:
+        den = load_model_snapshot(
+            args.denoiser_model, args.num_classes, args.num_classes,
+            args.denoiser_checkpoint, device=device,
+            ckpt_name=args.denoiser_ckpt_name,
+            **size_kwargs(args.denoiser_model, args.patch_size[0],
+                          args.cube_size))
+        predict = stacked = _Stacked(predict, make_predict_fn(den), device)
 
     ds = (VolumeDataset(args.root_path, args.split) if dataset is None
           else dataset)
-    per_case = []
+    per_case, per_case_den = [], []
     for i in range(len(ds)):
         case = ds[i]
         pred_small, metrics = infer_volume(
@@ -112,6 +188,12 @@ def run_inference(args, dataset=None) -> dict:
         per_case.append(metrics)
         logging.info("%s: dice %s", case["case"],
                      [round(m[0], 4) for m in metrics])
+        if args.denoiser_model:
+            dm = _native_metrics(stacked.take(len(pred_small)),
+                                 case["label"], args.num_classes)
+            per_case_den.append(dm)
+            logging.info("%s (denoised): dice %s", case["case"],
+                         [round(m[0], 4) for m in dm])
         if args.save_nii_dir:
             os.makedirs(args.save_nii_dir, exist_ok=True)
             native = case["label"].shape[1:]
@@ -131,13 +213,14 @@ def run_inference(args, dataset=None) -> dict:
                 f.create_dataset(args.write_pred_key, data=pred_small)
 
     arr = np.asarray(per_case)  # (cases, classes-1, 3)
-    mean_by_class = arr.mean(axis=0)
-    overall = arr.mean(axis=(0, 1))
-    for c in range(arr.shape[1]):
-        logging.info("class %d: dice %.4f hd95 %.4f asd %.4f", c + 1,
-                     *mean_by_class[c])
-    logging.info("MEAN: dice %.4f hd95 %.4f asd %.4f", *overall)
-    return {"per_case": arr, "mean_by_class": mean_by_class, "mean": overall}
+    out = {"per_case": arr, **_log_table(arr)}
+    if per_case_den:
+        darr = np.asarray(per_case_den)
+        table = _log_table(darr, " (denoised)")
+        out.update(per_case_denoised=darr,
+                   mean_by_class_denoised=table["mean_by_class"],
+                   mean_denoised=table["mean"])
+    return out
 
 
 def main(argv=None) -> int:

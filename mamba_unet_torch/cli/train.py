@@ -3,14 +3,16 @@
 Port of ``mamba_unet_tpu/cli/train.py`` for ``--method fully_supervised``,
 ``mean_teacher``, ``uamt``, ``cross_teaching`` (Semi-Mamba-UNet),
 ``weak_scribble`` (Weak-Mamba-UNet), ``contrastive_consistency``,
-``mask_pretrain`` and ``magicnet``, and the models ``ViM_seg``/
-``mambaunet``, the UNet family (``unet``, ``unet_ds``, ``unet_urpc``,
-``unet_cct``, ``TLunet``), ``ViT_seg`` (Swin-UNet), ``MambaUnetMask`` and
-the VNet family (``vnet``, ``vnet_3D``, ``magicnet``, ``magicnet_2D``,
-``magicnet_2D_mask``), with that CLI's
+``mask_pretrain``, ``magicnet``, ``mad_pretrain`` and ``mad_finetune``:
+every method of the JAX CLI. Its models are the registry's
+(``models/registry.py``): on ACDC slices ``ViM_seg``/``mambaunet``, the
+UNet family (``unet``, ``unet_ds``, ``unet_urpc``, ``unet_cct``,
+``TLunet``), ``ViT_seg`` (Swin-UNet), ``MambaUnetMask``, ``vnet``,
+``magicnet_2D``, ``magicnet_2D_mask``, ``enet``, ``efficient_unet`` and
+``preUnet``; on BTCV volumes ``vnet_3D`` and ``magicnet``. With that CLI's
 flags for these paths plus ``--device`` (default ``cuda``; it raises when
 there is no card rather than run on the CPU). ``--model`` defaults to
-``unet``, as there. Other methods raise "not ported yet". The
+``unet``, as there. The
 semi-supervised methods draw two-stream batches: ``--batch_size -
 --labeled_bs`` unlabeled slices after ``--labeled_bs`` labeled ones, the
 labeled set being the first ``--labeled_slices`` slices, else a quarter of
@@ -37,7 +39,16 @@ losses and needs a model with the mix-out head (``MambaUnetMask``,
 ``magicnet_2D_mask``: another raises ``ValueError``, where the JAX CLI
 fails with an ``AttributeError``). With any other method the flag raises
 (the JAX CLI ignores it there; the contrastive trainer's mask variant is
-reached through its Python API). ``--dataset btcv`` is the 3-D MagicNet
+reached through its Python API). ``mad_pretrain`` trains ``--model``
+(built with ``--num_classes`` input channels) to denoise corrupted
+near-one-hot labels (``MADPretrainTransform``, one-hot epsilon
+``--image_noise``), validated on corrupted val labels; ``mad_finetune``
+trains ``--model`` with two ``--mad_model`` denoisers (from ``--seed + 1``
+and ``+ 2``) on ``MADFineTuneTransform`` batches, validated stacked, the
+best trio saved as ``best``/``best2``/``best3`` (seg, mad, den);
+``--seg_ckpt`` warm-starts the segmenter and ``--mad_ckpt`` both
+denoisers from a snapshot directory of this port (its newest ``best``,
+else its newest periodic checkpoint's model). ``--dataset btcv`` is the 3-D MagicNet
 pipeline of the reference's BTCV script: ``--method magicnet --model
 magicnet`` and three ``--patch_size`` ints (else it raises, as JAX
 asserts), volumes from ``--root_path`` (``train.list``, ``val.list``,
@@ -92,6 +103,11 @@ the JAX package, and has no flag.
     python -m mamba_unet_torch.cli.train --method magicnet \\
         --model MambaUnetMask --mask_recovery --synthetic --bf16 \\
         --patch_size 224 224
+    python -m mamba_unet_torch.cli.train --method mad_pretrain --model unet \\
+        --synthetic --bf16 --patch_size 224 224 --snapshot_dir mad
+    python -m mamba_unet_torch.cli.train --method mad_finetune \\
+        --model ViM_seg --mad_model unet --seg_ckpt vim --mad_ckpt mad \\
+        --synthetic --bf16 --patch_size 224 224 --snapshot_dir ft
     python -m mamba_unet_torch.cli.train --dataset btcv --method magicnet \\
         --model magicnet --synthetic --patch_size 96 96 96 \\
         --num_classes 14 --batch_size 4 --labeled_bs 2 --cube_size 32 \\
@@ -106,7 +122,8 @@ import sys
 
 PORTED_METHODS = ("fully_supervised", "mean_teacher", "uamt",
                   "cross_teaching", "weak_scribble",
-                  "contrastive_consistency", "mask_pretrain", "magicnet")
+                  "contrastive_consistency", "mask_pretrain", "magicnet",
+                  "mad_pretrain", "mad_finetune")
 # the methods that train on two-stream (labeled, then unlabeled) batches
 TWO_STREAM_METHODS = ("mean_teacher", "uamt", "cross_teaching",
                       "contrastive_consistency", "magicnet")
@@ -115,7 +132,8 @@ TWO_STREAM_METHODS = ("mean_teacher", "uamt", "cross_teaching",
 WARM_START_MODELS = ("ViM_seg", "mambaunet", "ViT_seg")
 MODELS = ("ViM_seg", "mambaunet", "unet", "unet_ds", "unet_urpc", "unet_cct",
           "TLunet", "ViT_seg", "MambaUnetMask", "vnet", "vnet_3D", "magicnet",
-          "magicnet_2D", "magicnet_2D_mask")
+          "magicnet_2D", "magicnet_2D_mask", "enet", "efficient_unet",
+          "preUnet")
 # the models with the mix-out head that --mask_recovery trains
 MIX_HEAD_MODELS = ("MambaUnetMask", "magicnet_2D_mask")
 # the BTCV phantoms' classes (the JAX CLI's make_synthetic_btcv default)
@@ -202,6 +220,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pretrained_ckpt", type=str, default=None,
                    help="upstream torch .pth to warm-start ViM_seg or "
                         "ViT_seg from")
+    p.add_argument("--mad_model", type=str, default="unet", choices=MODELS,
+                   help="mad_finetune's denoiser (two of them are trained)")
+    p.add_argument("--seg_ckpt", type=str, default=None,
+                   help="mad_finetune: a snapshot directory to warm-start "
+                        "the segmenter from (newest best, else newest "
+                        "periodic checkpoint)")
+    p.add_argument("--mad_ckpt", type=str, default=None,
+                   help="mad_finetune: a snapshot directory to warm-start "
+                        "both denoisers from (e.g. a mad_pretrain run's)")
+    p.add_argument("--image_noise", type=float, default=1e-3,
+                   help="the one-hot epsilon of MAD's label corruption")
     p.add_argument("--synthetic", action="store_true",
                    help="train on in-memory phantom slices")
     p.add_argument("--synthetic_hard", action="store_true",
@@ -258,8 +287,8 @@ def _check_args(args) -> None:
     from mamba_unet_torch.models.registry import VOLUME_MODELS
 
     if args.method not in PORTED_METHODS:
-        raise NotImplementedError(
-            f"--method {args.method} is not ported yet; ported: "
+        raise ValueError(
+            f"unknown --method {args.method}; one of "
             f"{', '.join(PORTED_METHODS)}")
     if args.mask_recovery and args.method != "magicnet":
         raise NotImplementedError(
@@ -330,6 +359,50 @@ def _train_btcv(args, cfg, device) -> int:
     return 0
 
 
+def _mad_finetune_trainer(args, model, cfg, **kw):
+    """``model`` and two ``--mad_model`` denoisers (``--num_classes`` input
+    channels, from ``--seed + 1`` and ``+ 2``; no ``--scan_impl`` or
+    ``--drop_path``, as the JAX CLI builds them), warm-started from
+    ``--seg_ckpt`` and ``--mad_ckpt``."""
+    from mamba_unet_torch.models import net_factory
+    from mamba_unet_torch.models.registry import size_kwargs
+    from mamba_unet_torch.train import MADFineTuneTrainer
+
+    def denoiser(seed):
+        import torch
+
+        return net_factory(
+            args.mad_model, num_classes=args.num_classes,
+            in_chans=args.num_classes,
+            generator=torch.Generator().manual_seed(seed),
+            **size_kwargs(args.mad_model, args.patch_size[0],
+                          args.cube_size))
+
+    mad_model, den_model = denoiser(args.seed + 1), denoiser(args.seed + 2)
+    if args.seg_ckpt:
+        _warm_start(model, args.seg_ckpt)
+    if args.mad_ckpt:
+        _warm_start(mad_model, args.mad_ckpt)
+        _warm_start(den_model, args.mad_ckpt)
+    return MADFineTuneTrainer(model, cfg, mad_model=mad_model,
+                              den_model=den_model, **kw)
+
+
+def _warm_start(model, ckpt_dir: str) -> None:
+    """Load the newest ``best`` checkpoint of the snapshot directory
+    ``ckpt_dir`` into ``model``, else the model of its newest periodic
+    checkpoint (:func:`utils.checkpoint._snapshot_state`), as the JAX CLI's
+    ``_warm`` does; a warning when there is neither."""
+    from mamba_unet_torch.utils.checkpoint import _snapshot_state
+
+    try:
+        model.load_state_dict(_snapshot_state(ckpt_dir, None, "cpu"))
+    except FileNotFoundError:
+        logging.warning("no checkpoint found in %s", ckpt_dir)
+        return
+    logging.info("warm-start from %s", ckpt_dir)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s",
@@ -358,6 +431,7 @@ def main(argv=None) -> int:
     from mamba_unet_torch.models import net_factory
     from mamba_unet_torch.train import (
         ContrastiveConsistencyTrainer,
+        MADPretrainTrainer,
         MagicNetTrainer,
         MaskPretrainTrainer,
         TrainConfig,
@@ -390,6 +464,16 @@ def main(argv=None) -> int:
 
         cta = CTAugment(seed=args.seed)
         transform = CTATransform(cfg.patch_size, cta, seed=args.seed)
+    elif args.method in ("mad_pretrain", "mad_finetune"):
+        from mamba_unet_torch.data.mad_augment import (
+            MADFineTuneTransform,
+            MADPretrainTransform,
+        )
+
+        cls = (MADPretrainTransform if args.method == "mad_pretrain"
+               else MADFineTuneTransform)
+        transform = cls(cfg.patch_size, num_classes=args.num_classes,
+                        error_val=args.image_noise, seed=args.seed)
     else:
         transform = RandomGenerator(cfg.patch_size, seed=args.seed,
                                     label_cval=args.num_classes if weak
@@ -412,8 +496,11 @@ def main(argv=None) -> int:
                                 transform=transform, sup_type=sup_type)
         val_ds = VolumeDataset(args.root_path, "val")
 
-    model = net_factory(args.model, **_model_kwargs(args, args.model,
-                                                    args.seed))
+    model_kw = _model_kwargs(args, args.model, args.seed)
+    if args.method == "mad_pretrain":
+        # the denoiser eats near-one-hot label stacks
+        model_kw["in_chans"] = args.num_classes
+    model = net_factory(args.model, **model_kw)
     make_optimizer = _make_optimizer(args)
     if semi:
         if args.labeled_slices is not None:
@@ -457,18 +544,21 @@ def main(argv=None) -> int:
                                                       args.seed + 2)),
             pce_only=args.weak_pce_only, make_optimizer=make_optimizer,
             device=device)
-    elif args.method == "mask_pretrain":
-        sampler = EpochShuffleSampler(len(train_ds), cfg.batch_size,
-                                      seed=args.seed)
-        trainer = MaskPretrainTrainer(
-            model, cfg, cube_size=args.cube_size,
-            masked_rate=args.masked_rate, make_optimizer=make_optimizer,
-            device=device)
     else:
         sampler = EpochShuffleSampler(len(train_ds), cfg.batch_size,
                                       seed=args.seed)
-        trainer = Trainer(model, cfg, make_optimizer=make_optimizer,
-                          device=device)
+        kw = dict(make_optimizer=make_optimizer, device=device)
+        if args.method == "mask_pretrain":
+            trainer = MaskPretrainTrainer(
+                model, cfg, cube_size=args.cube_size,
+                masked_rate=args.masked_rate, **kw)
+        elif args.method == "mad_pretrain":
+            trainer = MADPretrainTrainer(model, cfg, transform=transform,
+                                         **kw)
+        elif args.method == "mad_finetune":
+            trainer = _mad_finetune_trainer(args, model, cfg, **kw)
+        else:
+            trainer = Trainer(model, cfg, **kw)
     if args.pretrained_ckpt:
         from mamba_unet_torch.utils.convert import (
             load_torch_checkpoint,

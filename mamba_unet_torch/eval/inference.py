@@ -3,7 +3,8 @@ and tiled 3-D inference.
 
 Copied from ``mamba_unet_tpu/eval/inference.py`` (``_zoom0``,
 ``_predict_batched``, ``test_single_volume``, ``evaluate_slice_volumes``,
-``gaussian_importance_map``, ``sliding_window_inference_3d``),
+``test_single_volume_mad``, ``test_single_volume_stacked`` (MAD's
+validations), ``gaussian_importance_map``, ``sliding_window_inference_3d``),
 not imported: any import from
 ``mamba_unet_tpu`` runs its ``data`` package, which imports ``jax``, and the
 machine that serves the port has no ``jax``. ``_zoom0`` here is scipy only
@@ -14,7 +15,7 @@ The copies are held equal by ``tests/test_torch_modules.py``.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 from scipy.ndimage import zoom as nd_zoom
@@ -133,6 +134,60 @@ def evaluate_slice_volumes(
             for i in range(1, classes)
         ])
     return np.asarray(metrics)
+
+
+def test_single_volume_mad(
+    label: np.ndarray,
+    predict_fn: Callable[[np.ndarray], np.ndarray],
+    classes: int,
+    corrupt_fn: Callable[[np.ndarray], np.ndarray],
+    patch_size: Sequence[int] = (256, 256),
+    batch_size: Optional[int] = None,
+) -> List[Tuple[float, float]]:
+    """The MAD denoiser's validation (the reference's ``val_2D.py:54-78``):
+    the network's input is a corrupted near-one-hot of each label slice
+    (``corrupt_fn``: (ps, ps) label -> (ps, ps, C)), and the metrics compare
+    the denoised argmax with the clean label. The image is not used (the
+    reference's ``image = label.copy()``)."""
+    label = np.asarray(label)
+    z, x, y = label.shape
+    ps = tuple(patch_size)
+    slices = [
+        corrupt_fn(_zoom0(label[i].astype(np.float32), ps)) for i in range(z)
+    ]
+    inp = np.stack(slices).astype(np.float32)  # (Z, ps, ps, C)
+    out = _predict_batched(inp, predict_fn, batch_size)
+    if (x, y) != ps:
+        prediction = np.stack([_zoom0(out[i], (x, y)) for i in range(z)])
+    else:
+        prediction = out
+    return [
+        calculate_metric_percase(prediction == i, label == i)
+        for i in range(1, classes)
+    ]
+
+
+def test_single_volume_stacked(
+    image: np.ndarray,
+    label: np.ndarray,
+    seg_fn: Callable[[np.ndarray], np.ndarray],
+    den_fn: Callable[[np.ndarray], np.ndarray],
+    classes: int,
+    patch_size: Sequence[int] = (256, 256),
+    batch_size: Optional[int] = None,
+) -> List[Tuple[float, float]]:
+    """The stacked seg -> denoiser validation (the reference's
+    ``val_2D.py:80-103``): prediction = argmax(den(softmax(seg(x)))), the
+    softmax in numpy on the host."""
+
+    def composed(x):
+        logits = np.asarray(seg_fn(x))
+        e = np.exp(logits - logits.max(axis=-1, keepdims=True))
+        return den_fn((e / e.sum(axis=-1, keepdims=True)).astype(np.float32))
+
+    return test_single_volume(
+        image, label, composed, classes, patch_size, batch_size
+    )
 
 
 def gaussian_importance_map(patch_size: Sequence[int],

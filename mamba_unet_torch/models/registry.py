@@ -1,7 +1,8 @@
 """Model registry: build a model by the name the reference scripts use.
 
-Port of ``mamba_unet_tpu/models/registry.py``. Models are resolved lazily,
-so importing the registry does not import the model zoo.
+Port of ``mamba_unet_tpu/models/registry.py``, with every name of it
+(``SwinUNETR`` also as ``swinunetr``). Models are resolved lazily, so
+importing the registry does not import the model zoo.
 """
 
 from __future__ import annotations
@@ -33,18 +34,40 @@ _LAZY: Dict[str, Tuple[str, str]] = {
     "magicnet_2D": ("mamba_unet_torch.models.vnet", "magicnet_2d"),
     "magicnet_2D_mask": ("mamba_unet_torch.models.magicnet_mask",
                          "VNetMagicMask"),
+    "enet": ("mamba_unet_torch.models.enet", "ENet"),
+    "fc_discriminator": ("mamba_unet_torch.models.misc_nets",
+                         "fc_discriminator"),
+    "fc3d_discriminator": ("mamba_unet_torch.models.misc_nets",
+                           "fc3d_discriminator"),
+    "preUnet": ("mamba_unet_torch.models.misc_nets", "PreUNet"),
+    "efficient_unet": ("mamba_unet_torch.models.misc_nets", "EffiUNet"),
+    "unet_3D": ("mamba_unet_torch.models.unet_3d", "UNet3D"),
+    "unet_3D_dv_semi": ("mamba_unet_torch.models.unet_3d", "UNet3DDVSemi"),
+    "voxresnet": ("mamba_unet_torch.models.unet_3d", "VoxResNet"),
+    "attention_unet": ("mamba_unet_torch.models.attention_unet",
+                       "AttentionUNet3D"),
+    "nnUNet": ("mamba_unet_torch.models.nnunet", "GenericUNet"),
+    "unetr": ("mamba_unet_torch.models.unetr", "UNETR"),
+    "SwinUNETR": ("mamba_unet_torch.models.swin_unetr", "SwinUNETR"),
+    "swinunetr": ("mamba_unet_torch.models.swin_unetr", "SwinUNETR"),
+    "segmamba": ("mamba_unet_torch.models.segmamba", "SegMamba"),
 }
-# the models that take SS2D's scan_impl, those with stochastic depth, those
-# built for one input size (img_size), those built for a cube size and a
-# patch size (cube_size, patch_size: MagicNet's location and mask heads),
-# and the 3-D ones
+# the models that take a scan_impl (SS2D's branches; SegMamba's 1-D Mamba
+# has one route, the grouped kernels), those with stochastic depth,
+# those built for one input size (img_size), those built for a cube size
+# and a patch size (cube_size, patch_size: MagicNet's location and mask
+# heads), and the 3-D ones
 SCAN_MODELS = frozenset({"ViM_seg", "mambaunet", "MambaUnetMask"})
 DROP_PATH_MODELS = frozenset({"ViM_seg", "mambaunet", "ViT_seg",
                               "MambaUnetMask"})
-IMG_SIZE_MODELS = frozenset({"ViT_seg", "MambaUnetMask"})
+IMG_SIZE_MODELS = frozenset({"ViT_seg", "MambaUnetMask", "unetr",
+                             "SwinUNETR", "swinunetr"})
 CUBE_MODELS = frozenset({"MambaUnetMask", "magicnet", "magicnet_2D",
                          "magicnet_2D_mask"})
-VOLUME_MODELS = frozenset({"vnet_3D", "magicnet"})
+VOLUME_MODELS = frozenset({"vnet_3D", "magicnet", "unet_3D",
+                           "unet_3D_dv_semi", "voxresnet", "attention_unet",
+                           "nnUNet", "unetr", "SwinUNETR", "swinunetr",
+                           "segmamba", "fc3d_discriminator"})
 
 
 def size_kwargs(net_type: str, patch_size: int, cube_size: int = 32

@@ -59,31 +59,39 @@ def dense(in_features: int, out_features: int, device,
     return layer
 
 
-def conv(ndim: int, cin: int, cout: int, kernel: int, stride: int = 1,
-         padding: int = 0, *, device=None,
+def conv(ndim: int, cin: int, cout: int, kernel, stride=1, padding=0, *,
+         dilation=1, groups: int = 1, bias: bool = True, device=None,
          generator: Optional[torch.Generator] = None) -> nn.Module:
-    """flax ``nn.Conv`` of rank ``ndim``: lecun-normal, zero bias."""
+    """flax ``nn.Conv`` of rank ``ndim``: lecun-normal, zero bias (kernel,
+    stride, padding and dilation an int or one per axis)."""
     cls = nn.Conv3d if ndim == 3 else nn.Conv2d
     layer = cls(cin, cout, kernel, stride=stride, padding=padding,
-                device=device)
+                dilation=dilation, groups=groups, bias=bias, device=device)
     lecun_normal_(layer.weight, generator)
-    nn.init.zeros_(layer.bias)
+    if bias:
+        nn.init.zeros_(layer.bias)
     return layer
 
 
-def conv_transpose(ndim: int, cin: int, cout: int, stride: int, *,
-                   device=None, generator: Optional[torch.Generator] = None
+def conv_transpose(ndim: int, cin: int, cout: int, stride, kernel=None, *,
+                   bias: bool = True, device=None,
+                   generator: Optional[torch.Generator] = None
                    ) -> nn.Module:
-    """flax ``nn.ConvTranspose(cout, stride, strides=stride)``: lecun-normal
-    with flax's fan-in (in x prod(kernel) of its (k..., in, out) kernel),
-    zero bias. flax applies the kernel unflipped and torch flipped
-    (``utils/convert.py`` flips it)."""
+    """flax ``nn.ConvTranspose(cout, kernel, strides=stride)`` (kernel
+    default the stride; an int or one per axis): lecun-normal with flax's
+    fan-in (in x prod(kernel) of its (k..., in, out) kernel), zero bias.
+    flax applies the kernel unflipped and torch flipped
+    (``utils/convert.py`` flips it). Where the kernel exceeds the stride,
+    torch's output is longer than flax's ``SAME`` one, which is its first
+    stride x input elements per axis: the caller crops."""
     cls = nn.ConvTranspose3d if ndim == 3 else nn.ConvTranspose2d
-    layer = cls(cin, cout, stride, stride=stride, device=device)
-    fan_in = cin * stride ** ndim
+    kernel = stride if kernel is None else kernel
+    layer = cls(cin, cout, kernel, stride=stride, bias=bias, device=device)
+    fan_in = cin * layer.weight[0, 0].numel()
     trunc_normal_(layer.weight, math.sqrt(1.0 / fan_in) / 0.87962566103423978,
                   generator)
-    nn.init.zeros_(layer.bias)
+    if bias:
+        nn.init.zeros_(layer.bias)
     return layer
 
 
@@ -102,11 +110,11 @@ def norm_layer(kind: str, channels: int, ndim: int, device
                      f"{kind!r}")
 
 
-def _to_channels_first(x: torch.Tensor) -> torch.Tensor:
+def channels_first(x: torch.Tensor) -> torch.Tensor:
     return x.movedim(-1, 1)
 
 
-def _to_channels_last(x: torch.Tensor) -> torch.Tensor:
+def channels_last(x: torch.Tensor) -> torch.Tensor:
     return x.movedim(1, -1)
 
 
@@ -259,8 +267,8 @@ class VNet(nn.Module):
         self.decoder = VNetDecoder(num_classes, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        seg, _ = self.decoder(self.encoder(_to_channels_first(x)))
-        return _to_channels_last(seg)
+        seg, _ = self.decoder(self.encoder(channels_first(x)))
+        return channels_last(seg)
 
 
 class VNetMagic(nn.Module):
@@ -298,22 +306,22 @@ class VNetMagic(nn.Module):
                                 generator=generator)
 
     def forward_encoder(self, x: torch.Tensor) -> List[torch.Tensor]:
-        return [_to_channels_last(f)
-                for f in self.encoder(_to_channels_first(x))]
+        return [channels_last(f)
+                for f in self.encoder(channels_first(x))]
 
     def forward_decoder(self, feats: Sequence[torch.Tensor]):
-        seg, emb = self.decoder([_to_channels_first(f) for f in feats])
-        return _to_channels_last(seg), _to_channels_last(emb)
+        seg, emb = self.decoder([channels_first(f) for f in feats])
+        return channels_last(seg), channels_last(emb)
 
     def forward_location(self, flat: torch.Tensor) -> torch.Tensor:
         return self.fc_layer(flat)
 
     def forward_prediction_head(self, emb: torch.Tensor) -> torch.Tensor:
-        return _to_channels_last(self.decoder.head(_to_channels_first(emb)))
+        return channels_last(self.decoder.head(channels_first(emb)))
 
     def forward(self, x: torch.Tensor):
-        seg, emb = self.decoder(self.encoder(_to_channels_first(x)))
-        return _to_channels_last(seg), _to_channels_last(emb)
+        seg, emb = self.decoder(self.encoder(channels_first(x)))
+        return channels_last(seg), channels_last(emb)
 
 
 def _renamed(kw: dict) -> dict:

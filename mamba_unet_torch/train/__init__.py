@@ -1,10 +1,11 @@
 """Training: the trainer, the semi-supervised methods, the scribble-
 supervised Weak-Mamba-UNet, contrastive consistency, mask pretraining,
-MagicNet and the optimizers."""
+MagicNet, MAD and the optimizers."""
 
 from mamba_unet_torch.train.contrastive_cc import (
     ContrastiveConsistencyTrainer,
 )
+from mamba_unet_torch.train.mad import MADFineTuneTrainer, MADPretrainTrainer
 from mamba_unet_torch.train.magicnet import MagicNetTrainer
 from mamba_unet_torch.train.mask_pretrain import MaskPretrainTrainer
 from mamba_unet_torch.train.methods import (
@@ -24,7 +25,7 @@ from mamba_unet_torch.train.trainer import (
 from mamba_unet_torch.train.weak import WeakScribbleTrainer
 
 __all__ = ["ContrastiveConsistencyTrainer", "CrossTeachingTrainer",
-           "MagicNetTrainer", "MaskPretrainTrainer", "MeanTeacherTrainer", "TrainConfig",
+           "MADFineTuneTrainer", "MADPretrainTrainer", "MagicNetTrainer", "MaskPretrainTrainer", "MeanTeacherTrainer", "TrainConfig",
            "Trainer", "UAMTTrainer", "WeakScribbleTrainer",
            "build_semi_method", "ema_update", "fully_supervised_loss",
            "poly_lr", "poly_sgd", "rampup_weight", "warmup_adamw"]

@@ -206,9 +206,14 @@ class MagicNetTrainer(Trainer):
     def _blend_weight(self, class_dist: np.ndarray,
                       teacher_class: torch.Tensor) -> torch.Tensor:
         """norm(dist^(1/t_dist)) gathered at the teacher's class, (..., 1),
-        in fp32 on the device as the JAX step computes it."""
+        in fp32 on the device. The counts are scaled to a maximum of 1
+        before the power, which the two normalizations after it cancel:
+        the JAX step's weights wherever its fp32 power is finite, and
+        finite weights where it overflows (a class counted more than about
+        7,000 times at t_dist = 0.1 gives inf there, then NaN)."""
         dist = torch.as_tensor(class_dist, dtype=torch.float32,
                                device=teacher_class.device)
+        dist = dist / dist.max().clamp_min(1e-12)
         dist = dist ** (1.0 / self.t_dist)
         dist = dist / dist.sum().clamp_min(1e-12)
         dist = dist / dist.max().clamp_min(1e-12)

@@ -26,7 +26,8 @@ trained network with its optimizer and schedule: the periodic checkpoint
 carries them all, and each is evaluated with its own best checkpoint,
 ``best``, ``best2``, ...; ``_load_best_marks(names)`` reads their marks),
 ``_periodic_tree``/``_load_periodic`` (what else the periodic checkpoint
-carries), ``_save_periodic`` (what else is written beside it) and
+carries), ``_save_periodic`` (what else is written beside it),
+``_save_best`` (what a new best Dice writes) and
 ``_after_step`` (host-side work after each step). :func:`zero_unreached_grads`
 gives the parameters a step's loss does not reach a zero gradient, so that
 the optimizer still decays them, as the JAX step does with its zero
@@ -263,6 +264,11 @@ class Trainer:
             opt.load_state_dict(tree[f"optimizer{_suffix(i)}"])
             sched.load_state_dict(tree[f"scheduler{_suffix(i)}"])
 
+    def _save_best(self, name: str, model: nn.Module, it: int) -> None:
+        """Write ``model``'s best checkpoint ``name`` of step ``it``."""
+        save_checkpoint(self.config.snapshot_dir, it, model.state_dict(),
+                        name=name)
+
     def _save_periodic(self, it: int) -> None:
         """Write the periodic checkpoint of step ``it``."""
         save_checkpoint(self.config.snapshot_dir, it, self._periodic_tree())
@@ -332,8 +338,7 @@ class Trainer:
                     if dice > best[name]:
                         best[name] = dice
                         if cfg.snapshot_dir:
-                            save_checkpoint(cfg.snapshot_dir, it,
-                                            model.state_dict(), name=name)
+                            self._save_best(name, model, it)
                             save_best_marks(cfg.snapshot_dir, {name: dice})
                 history.append(entry)
             if cfg.snapshot_dir and it % cfg.ckpt_every == 0:

@@ -24,7 +24,17 @@ which every registry name has), the small nets
 ``block{k}`` with ``conv1``, ``conv2``, ``BatchNorm_0``, ``BatchNorm_1``
 -> ``bn1``, ``bn2``) and any of their submodules. The map is a function
 of the path: a name is looked up with its parent's name first
-(``_IN_PARENT``), then alone.
+(``_IN_PARENT``), then alone. The rest of the zoo (ENet, the
+discriminators, ``preUnet``, ``efficient_unet``, the 3-D UNets,
+VoxResNet, the attention UNet, nnU-Net, UNETR, SwinUNETR, SegMamba) keeps
+the flax modules' own names in the port, auto-names (``Conv_0``,
+``BatchNorm_1``, ``PReLU_0``, ``MultiHeadDotProductAttention_0``, ...)
+included: given ``like``, a path whose ``"."``-joined form (leaves renamed
+as below) is one of its keys maps to that key. Inside a module named
+``mamba`` (SegMamba's bimamba-v2 layers) the leaves take the upstream
+``mamba_simple.py`` names (``utils/convert_lm.py``: ``x_proj_b_weight`` ->
+``x_proj_b.weight``, ``conv1d_b_weight`` (D, W) -> ``conv1d_b.weight``
+(D, 1, W), ``A_b_log``, ``D_b``, ...).
 The key map lives here, so the port does not import the JAX package.
 
 Layout transforms (flax -> torch):
@@ -32,11 +42,16 @@ Layout transforms (flax -> torch):
   Conv kernel (kh, kw, in, out)       -> Conv2d weight (out, in, kh, kw)
   Conv kernel (kd, kh, kw, in, out)   -> Conv3d weight (out, in, kd, kh, kw)
   depthwise (kh, kw, 1, C)            -> (C, 1, kh, kw)
-  ConvTranspose kernel (k..., in, out), the module ``up`` of an UpBlock
-  or a ``ConvTranspose_i``            -> ConvTranspose2d/3d weight
+  ConvTranspose kernel (k..., in, out), the module ``up`` of an UpBlock,
+  nnU-Net's ``up{i}`` or a ``ConvTranspose_i``
+                                      -> ConvTranspose2d/3d weight
                                          (in, out, k...), flipped in every
                                          spatial axis (flax applies the
                                          kernel unflipped, torch flipped)
+  DenseGeneral kernel (in, heads, d) of an attention's query/key/value
+                                      -> Linear weight (heads*d, in)
+  its out kernel (heads, d, out)      -> Linear weight (out, heads*d)
+  DenseGeneral bias (heads, d)        -> (heads*d,)
   LayerNorm / BatchNorm scale, bias   -> weight / bias
   BatchNorm batch_stats mean, var     -> running_mean / running_var, with
                                          num_batches_tracked set
@@ -59,6 +74,8 @@ from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
+
+from mamba_unet_torch.utils.convert_lm import _mixer_key, _transform
 
 # flax module name -> torch module path; {0} is the index in the flax name
 # (a callable takes it as a string)
@@ -108,6 +125,16 @@ _RAW_LEAVES = frozenset({"x_proj_weight", "dt_projs_weight", "dt_projs_bias",
                          "A_logs", "Ds", "bias",
                          "relative_position_bias_table"})
 _STATS = {"mean": "running_mean", "var": "running_var"}
+# flax leaf -> torch leaf where the port keeps the flax module names
+_LEAVES = {"kernel": "weight", "scale": "weight", **_STATS}
+_TRANSPOSED = re.compile(r"up\d*$|ConvTranspose_\d+$")
+
+
+def _flax_named_key(path: str) -> str:
+    """``path`` with its leaf renamed, ``"."``-joined: the key of a port
+    module that keeps the flax names."""
+    *mods, leaf = path.split("/")
+    return ".".join([*mods, _LEAVES.get(leaf, leaf)])
 
 
 def torch_key(path: str) -> str:
@@ -155,14 +182,20 @@ def torch_key(path: str) -> str:
 
 def to_torch_layout(path: str, value: np.ndarray) -> np.ndarray:
     """Transpose a flax leaf into the torch layout of its port parameter."""
+    module = path.split("/")[-2] if "/" in path else ""
+    if path.endswith("/bias") and value.ndim == 2:  # DenseGeneral
+        return value.reshape(-1)
     if path.endswith("/kernel"):
         if value.ndim == 2:
             return value.T
+        if value.ndim == 3:  # DenseGeneral: an attention's projections
+            if module == "out":
+                return value.reshape(-1, value.shape[-1]).T
+            return value.reshape(value.shape[0], -1).T
         if value.ndim not in (4, 5):
             raise ValueError(f"kernel {path!r} has rank {value.ndim}")
         k = value.ndim - 2
-        module = path.split("/")[-2]
-        if module == "up" or module.startswith("ConvTranspose"):
+        if _TRANSPOSED.match(module):
             flipped = value[(slice(None, None, -1),) * k]
             return flipped.transpose(k, k + 1, *range(k))
         return value.transpose(k + 1, k, *range(k))
@@ -185,11 +218,21 @@ def params_from_jax(
     a shape mismatch."""
     sd: Dict[str, torch.Tensor] = {}
     for path, value in {**flat, **(batch_stats or {})}.items():
-        key = torch_key(path)
+        parts = path.split("/")
+        if "mamba" in parts[:-1]:
+            i = parts.index("mamba") + 1
+            key, kind = _mixer_key(parts[i:])
+            key = ".".join([*parts[:i], key])
+            value = _transform(np.asarray(value), kind)
+        else:
+            key = _flax_named_key(path)
+            if like is None or key not in like:
+                key = torch_key(path)
+            value = to_torch_layout(path, np.asarray(value))
         if key in sd:
             raise KeyError(f"two flax paths map to {key!r}")
-        arr = np.array(to_torch_layout(path, np.asarray(value)),
-                       dtype=np.float32, order="C")  # an owned, writable copy
+        arr = np.array(value, dtype=np.float32,
+                       order="C")  # an owned, writable copy
         sd[key] = torch.from_numpy(arr)
         if key.endswith(".running_mean"):
             sd[key[:-len("running_mean")] + "num_batches_tracked"] = (

@@ -58,7 +58,12 @@ from mamba_unet_tpu.train.contrastive_cc import (  # noqa: E402
     ContrastiveConsistencyTrainer as JCCTrainer,
 )
 from mamba_unet_tpu.utils import checkpoint as j_ckpt  # noqa: E402
+from test_torch_train import _committed  # noqa: E402
 
+# the JAX models' scan: JAX's plain sequential reference (lax.scan), the
+# same function as its default chunked XLA route on the CPU, whose trace and
+# compile take about twice as long
+JAX_SCAN = "ref"
 FT = (4, 8, 16, 32, 64)
 NO_DROP = (0.0,) * 5
 TOY_VIM = dict(depths=(1, 1), dims=(16, 32))
@@ -317,8 +322,9 @@ def _states(cc):
 def _jax_cc(model):
     """(initial states of s1, s2, p3, p4; the losses of two steps; the
     states after them; the EMA projectors)."""
-    trainer = JCCTrainer(model, _cfg(JTrainConfig),
-                         mesh=make_mesh(jax.devices()[:1]), **CC)
+    trainer = _committed(JCCTrainer(model, _cfg(JTrainConfig),
+                                    mesh=make_mesh(jax.devices()[:1]),
+                                    **CC))
     start = _states(trainer.cc)
     logs = []
     for batch in _batches(2):
@@ -332,7 +338,8 @@ def _jax_cc(model):
 @pytest.fixture(scope="module")
 def jax_cc_vim():
     return _jax_cc(JMambaUnet(img_size=SIZE, num_classes=4,
-                              drop_path_rate=0.0, **TOY_VIM))
+                              drop_path_rate=0.0, scan_impl=JAX_SCAN,
+                              **TOY_VIM))
 
 
 @pytest.fixture(scope="module")

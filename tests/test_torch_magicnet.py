@@ -3,6 +3,8 @@
 (flax's ``GroupNorm`` and the VNet family's modules against JAX are in
 ``tests/test_torch_btcv.py``.)
 * ``magic_dice`` against JAX, with and without a weight map.
+* The blend weight against JAX's formula where that is finite, and
+  finite at million-count histograms, where JAX's overflows to NaN.
 * Two ``MagicNetTrainer`` steps with ``--mask_recovery`` on a toy
   ``magicnet_2D_mask`` (``magicnet_2D`` with the mask heads) against the
   JAX trainer, JAX's draws handed in, with ``blend_after=0`` and a
@@ -44,6 +46,7 @@ from mamba_unet_tpu.objectives import masked as j_masked  # noqa: E402
 from mamba_unet_tpu.parallel import make_mesh  # noqa: E402
 from mamba_unet_tpu.train import TrainConfig as JTrainConfig  # noqa: E402
 from mamba_unet_tpu.train import magicnet as j_magic  # noqa: E402
+from test_torch_train import _committed  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SEED = 0
@@ -116,6 +119,45 @@ def test_magic_dice_matches_jax():
                             torch.from_numpy(onehot))) < 1e-6
 
 
+# --- the blend weight -----------------------------------------------------------
+
+def _jax_blend(dist, t_dist=0.1):
+    """JAX's weight formula (``mamba_unet_tpu/train/magicnet.py:202-204``),
+    eagerly in ``jnp``."""
+    d = jnp.asarray(dist, jnp.float32) ** (1.0 / t_dist)
+    d = d / jnp.maximum(d.sum(), 1e-12)
+    return np.asarray(d / jnp.maximum(d.max(), 1e-12))
+
+
+def _port_blend(dist, t_dist=0.1):
+    holder = type("Holder", (), {"t_dist": t_dist})()
+    classes = torch.arange(len(dist))
+    return MagicNetTrainer._blend_weight(holder, np.asarray(dist, np.float32),
+                                         classes)[..., 0].numpy()
+
+
+def test_blend_weight_equals_jax_where_finite_and_stays_finite():
+    """At class counts up to 7,000 the weights equal JAX's within 1e-6
+    relative (JAX's fp32 power is finite there); at the card's counts
+    (3.0-6.9 M per class, where JAX's give NaN) they are finite, in [0, 1],
+    with max 1 and ranked as the counts; an all-zero histogram gives 0."""
+    rng = np.random.default_rng(5)
+    for dist in ([7000.0, 3000.0, 1200.0, 80.0], [1.0, 2.0, 3.0, 4.0],
+                 rng.integers(1, 7001, 4).astype(np.float32),
+                 [0.0, 0.0, 5.0, 7000.0]):
+        want = _jax_blend(dist)
+        assert np.isfinite(want).all()
+        np.testing.assert_allclose(_port_blend(dist), want, rtol=1e-6,
+                                   atol=0)
+    card = np.array([6.9e6, 3.0e6, 4.2e6, 5.5e6], np.float32)
+    assert np.isnan(_jax_blend(card)).all()
+    got = _port_blend(card)
+    assert np.isfinite(got).all() and got.min() >= 0 and got.max() == 1.0
+    np.testing.assert_array_equal(np.argsort(got), np.argsort(card))
+    np.testing.assert_array_equal(_port_blend(np.zeros(4)), np.zeros(4))
+    np.testing.assert_array_equal(_jax_blend(np.zeros(4)), np.zeros(4))
+
+
 # --- the trainer against the JAX trainer --------------------------------------
 
 def _cfg(cls, batch, size, **kw):
@@ -158,6 +200,7 @@ class TMagicNet(MagicNetTrainer):
 
 
 def _run_jax(trainer, batches, class_dist):
+    _committed(trainer)
     logs = []
     for batch in batches:
         trainer.state, out = trainer._step(trainer.state, {

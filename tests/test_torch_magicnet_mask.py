@@ -45,6 +45,10 @@ from test_torch_magicnet import (  # noqa: E402
     _run_jax,
 )
 
+# the JAX models' scan: JAX's plain sequential reference (lax.scan), the
+# same function as its default chunked XLA route on the CPU, whose trace and
+# compile take about twice as long
+JAX_SCAN = "ref"
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -87,7 +91,7 @@ def test_mask_recovery_step_on_mamba_unet_mask_matches_the_jax_trainer():
     histogram exactly; the parameters, the statistics (every train-mode
     pass throws its own away) and the EMA as :func:`_assert_near`."""
     trainer = j_magic.MagicNetTrainer(
-        JMambaUnetMask(**MASK_TOY),
+        JMambaUnetMask(**MASK_TOY, scan_impl=JAX_SCAN),
         _cfg(JTrainConfig, MASK_BATCH, MASK_SIZE), labeled_bs=MASK_LABELED,
         cube_size=MASK_CUBE, mask_recovery=True,
         mesh=make_mesh(jax.devices()[:1]))

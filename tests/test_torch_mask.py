@@ -53,7 +53,12 @@ from mamba_unet_tpu.train.contrastive_cc import (  # noqa: E402
 from mamba_unet_tpu.train.mask_pretrain import (  # noqa: E402
     MaskPretrainTrainer as JMaskPretrainTrainer,
 )
+from test_torch_train import _committed  # noqa: E402
 
+# the JAX models' scan: JAX's plain sequential reference (lax.scan), the
+# same function as its default chunked XLA route on the CPU, whose trace and
+# compile take about twice as long
+JAX_SCAN = "ref"
 TOY = dict(num_classes=4, cube_size=32, patch_size=64, depths=(1, 1, 1, 1),
            dims=(4, 8, 16, 32), d_state=4, drop_path_rate=0.0)
 # the contrastive mask variant's pair: no location head, so two stages
@@ -185,7 +190,7 @@ def test_masked_inputs_match_jax_with_its_draws():
 @pytest.fixture(scope="module")
 def jax_mask_model():
     """(JAX model, its init_all variables, the port model with them)."""
-    model = JMambaUnetMask(**TOY)
+    model = JMambaUnetMask(**TOY, scan_impl=JAX_SCAN)
     x = jnp.zeros((BATCH, SIZE, SIZE, 1))
     variables = jax.jit(lambda r, a: model.init(r, a, method="init_all"))(
         jax.random.key(3), x)
@@ -336,10 +341,12 @@ def jax_mask_pretrain():
     """JAX's two steps from the warm start: (start, logs of each step, the
     state after step 1, the spread of step 2's losses when the weights
     after step 1 carry 1e-7 relative noise)."""
-    trainer = JMaskPretrainTrainer(JMambaUnetMask(**TOY), _cfg(JTrainConfig),
+    trainer = JMaskPretrainTrainer(JMambaUnetMask(**TOY, scan_impl=JAX_SCAN),
+                                   _cfg(JTrainConfig),
                                    cube_size=CUBE,
                                    mesh=make_mesh(jax.devices()[:1]))
     trainer.state = trainer.state.replace(params=_warm(trainer.state.params))
+    _committed(trainer)  # the warm bias too: one compile serves every step
     start = (_flat(trainer.state.params), _flat(trainer.state.batch_stats))
     logs, after = [], None
     for image in _images(2):
@@ -419,7 +426,8 @@ def test_two_mask_pretrain_steps_match_the_jax_trainer(jax_mask_pretrain):
 def jax_cc_mask():
     """One contrastive step of the mask variant on a MambaUnetMask pair,
     with consistency weights that make every term count."""
-    trainer = JCCTrainer(JMambaUnetMask(**TOY_CC), _cfg(JTrainConfig),
+    trainer = JCCTrainer(JMambaUnetMask(**TOY_CC, scan_impl=JAX_SCAN),
+                         _cfg(JTrainConfig),
                          labeled_bs=4, mask_recovery=True,
                          mask_cube_size=CUBE, consistency1=40.0,
                          consistency2=40.0,

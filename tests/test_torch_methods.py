@@ -42,7 +42,12 @@ from mamba_unet_tpu.parallel import make_mesh  # noqa: E402
 from mamba_unet_tpu.train import TrainConfig as JTrainConfig  # noqa: E402
 from mamba_unet_tpu.train import methods as j_methods  # noqa: E402
 from mamba_unet_tpu.train import state as j_state  # noqa: E402
+from test_torch_train import _committed  # noqa: E402
 
+# the JAX models' scan: JAX's plain sequential reference (lax.scan), the
+# same function as its default chunked XLA route on the CPU, whose trace and
+# compile take about twice as long
+JAX_SCAN = "ref"
 FT = (4, 8, 16, 32, 64)
 NO_DROP = (0.0,) * 5
 TOY_VIM = dict(depths=(1, 1), dims=(16, 32))
@@ -206,7 +211,7 @@ class TUAMT(t_methods.UAMTTrainer):
 
 
 def _jax_run(trainer, n_steps=2):
-    result = trainer.fit(_batches(n_steps))
+    result = _committed(trainer).fit(_batches(n_steps))
     return [h["loss"] for h in result["history"]]
 
 
@@ -281,7 +286,7 @@ def test_two_ema_teacher_steps_match_the_jax_trainer(method, request):
 @pytest.fixture(scope="module")
 def jax_cross_teaching():
     model = JMambaUnet(img_size=SIZE, num_classes=4, drop_path_rate=0.0,
-                       **TOY_VIM)
+                       scan_impl=JAX_SCAN, **TOY_VIM)
     trainer = j_methods.CrossTeachingTrainer(
         model, _cfg(JTrainConfig), mesh=make_mesh(jax.devices()[:1]), **SEMI)
     start = [_flat(s.params) for s in (trainer.cross.s1, trainer.cross.s2)]

@@ -71,7 +71,12 @@ from mamba_unet_tpu.parallel import make_mesh  # noqa: E402
 from mamba_unet_tpu.train import TrainConfig as JTrainConfig  # noqa: E402
 from mamba_unet_tpu.train import weak as j_weak  # noqa: E402
 from mamba_unet_tpu.utils import convert as j_convert  # noqa: E402
+from test_torch_train import _committed  # noqa: E402
 
+# the JAX models' scan: JAX's plain sequential reference (lax.scan), the
+# same function as its default chunked XLA route on the CPU, whose trace and
+# compile take about twice as long
+JAX_SCAN = "ref"
 FT = (4, 8, 16, 32, 64)
 NO_DROP = (0.0,) * 5
 TOY_VIM = dict(depths=(1, 1), dims=(16, 32))
@@ -229,9 +234,9 @@ class TWeak(WeakScribbleTrainer):
 def _jax_trio(models, n_steps, **kw):
     """(initial (params, batch_stats) per model, losses of ``n_steps`` fit
     steps, final (params, batch_stats) per model) of the JAX trainer."""
-    trainer = j_weak.WeakScribbleTrainer(
+    trainer = _committed(j_weak.WeakScribbleTrainer(
         models[0], _cfg(JTrainConfig), model2=models[1], model3=models[2],
-        mesh=make_mesh(jax.devices()[:1]), **kw)
+        mesh=make_mesh(jax.devices()[:1]), **kw))
     states = lambda t: [(_flat(s.params), _flat(s.batch_stats))  # noqa: E731
                         for s in (t.s1, t.s2, t.s3)]
     start = states(trainer.tri)
@@ -246,7 +251,7 @@ def jax_weak():
          JSwinUnet(img_size=SIZE, num_classes=4, drop_path_rate=0.0,
                    **TOY_SWIN),
          JMambaUnet(img_size=SIZE, num_classes=4, drop_path_rate=0.0,
-                    **TOY_VIM)), 2)
+                    scan_impl=JAX_SCAN, **TOY_VIM)), 2)
 
 
 def _port_models(start, toys):
