@@ -14,7 +14,10 @@ mask model, and the 3-D VNet on BTCV-style volumes), the Mamba LM's
 bf16 compute and exported generation, MAD (the label denoiser's
 pretraining, the stacked fine-tuning and the stacked test CLI), and the
 rest of the model zoo: the 2-D models through the train CLI, the 3-D ones
-a training step each, and SegMamba on the grouped scan kernels.
+a training step each, and SegMamba on the grouped scan kernels; then the
+grouped kernels' carry over L, the sequence-, channel- and
+pipeline-parallel paths and data parallelism on gloo ranks sharing the
+card, and the remaining utilities.
 
     python3 chip_smoke.py
 
@@ -244,7 +247,7 @@ exits non-zero; nothing is caught):
               profiled; 24 grouped launches; then a bf16 greedy
               ``generate`` of 8 tokens after 4 prompts (24 launches).
 39. lm_export - ``export_lm_generate`` of mamba-130m's width cut to 2
-              layers, for 4 prompts of 128 tokens and 32 greedy new
+              layers, for 4 prompts of 128 tokens and 16 greedy new
               tokens (the export's host time grows with layers x
               tokens): its seconds, the exported program's tokens equal
               eager ``generate``'s, ms per token of each, 2 grouped
@@ -317,7 +320,36 @@ exits non-zero; nothing is caught):
               whole step's in fp64 with plain fp64 Mamba layers (1e-8 of
               the largest). 40-42
               and 50-51 last, as their CPU backwards would share the host
-              with a timed phase.
+              with a timed phase. Before them, after 49:
+52. scan_carry_kernel - #3, #3s and #4u with an incoming state
+              (``x_init``), the last state and its cotangent (``g_last``,
+              giving ``x_init``'s) against their plain versions at the
+              mamba-130m shape (8 x 1024 x 1536, G = 1) and ViM stage 0
+              (bs24, G = 4, dg 192, L 3136), fp32 and bf16; each timed
+              with and without the new arguments (fp32).
+53. seq_parallel, tp_parallel, pipeline, data_parallel - one group of 2
+              ``gloo`` ranks sharing card 0 (correctness, not speed), and
+              a third process running the one-process references beside
+              them, after the card-vs-CPU parity phases (beside those, the
+              ranks slowed them by more than they took alone):
+              full-width ``ViM_seg`` (bs8 @ 224², fp32) on
+              ``scan_impl="seq_sharded"`` and ``"tp_sharded"``, served
+              and trained, against the one-process tm branch of the same
+              weights and batch (every gradient); the mamba-130m-width LM
+              (24 layers) over 2 stages, 4 microbatches of 2 x 128
+              tokens, logits, loss and gradients against one process; 2
+              data-parallel steps of 2 x 12 rows of a bs24 bf16
+              ``ViM_seg`` batch with drop-path 0.2 and of a ``unet`` (fp32,
+              BatchNorm), losses and weights against the one-process
+              bs24 steps. The carry variants' launches are counted here.
+54. utils - ``cli.train --cfg configs/vmamba_tiny.yaml --opts
+              MODEL.DROP_PATH_RATE 0.1`` on phantoms (3 bf16 steps, 14
+              state-saving launches each), the native augmentation built
+              with g++ into ``build/`` (bitwise against the Python
+              generator), ``model_flops`` and ``parameter_count`` of
+              ``ViM_seg`` at bs24 @ 224² (the scans' share), a
+              ``profile_trace`` and a fit with ``TrainConfig.tensorboard``
+              (its ``scalars.jsonl``).
 
 ``[phase_seconds]`` follows each group of phases. Then one JSON line with
 the kernel table, and the last line ``{"ok": true, "device": {...}}``. It
@@ -586,9 +618,10 @@ LM_BF16_NEW_TOKENS = 8  # [lm_bf16]'s greedy generation
 # unrolled graph's export takes ~0.4-0.75 s of host time per layer and
 # token on the card's machine (277.6 s for 32 tokens at 24 layers, 118.8
 # for 8, 46.4-70.7 for 4, on NVIDIA H100 80GB HBM3 hosts), so the phase
-# exports 32 tokens of a 2-layer cut; the CPU and card tests cover the
+# exports 16 tokens of a 2-layer cut (32 until the parallelism phases
+# joined the script, 23.5 s of export); the CPU and card tests cover the
 # symbolic batch and the save / load round trip
-LM_EXPORT_BATCH, LM_EXPORT_PROMPT, LM_EXPORT_TOKENS = 4, 128, 32
+LM_EXPORT_BATCH, LM_EXPORT_PROMPT, LM_EXPORT_TOKENS = 4, 128, 16
 LM_EXPORT_DEPTH = 2
 # the new phases' Mamba models start with their patch embedding's bias
 # drawn from N(0, 0.02²), as after a warm start (the reference's scripts
@@ -697,7 +730,8 @@ def check_kernel(torch, got, want, **where) -> float:
 
 
 def scan_bound(kind: str, bsz: int, L: int, dg: int, itemsize: int,
-               n: int = 16, groups: int = 1, last_state: bool = False):
+               n: int = 16, groups: int = 1, last_state: bool = False,
+               carry: bool = False):
     """(least ms, "bytes" or "operations") of one scan call of ``kind``
     (fwd, fwd_states, bwd: the bidirectional kernels; folded,
     folded_fwd_states, folded_bwd: the batch-folded ones, whose operands
@@ -706,7 +740,9 @@ def scan_bound(kind: str, bsz: int, L: int, dg: int, itemsize: int,
     unidirectional ones over ``groups`` groups of ``dg`` channels, whose y,
     gy, du, ddelta, dB and dC are in the input dtype; ``last_state`` adds
     the serving forward's fp32 final state): each input read once, each
-    output written once;
+    output written once (``carry``: the grouped kernels' carry variants
+    also read the fp32 incoming state and write the last state, or read
+    the last state's cotangent and write the incoming state's);
     per (direction, step, channel, state) the forward needs 1 exp and ~6
     FLOPs, the backward 1 exp (a_t = exp(dt A), which the recompute of the
     states and the reverse scan can share) and ~20 FLOPs; softplus/sigmoid
@@ -725,6 +761,8 @@ def scan_bound(kind: str, bsz: int, L: int, dg: int, itemsize: int,
                       + (cs if kind == "grouped_fwd_states" else 0)
                       + (bsz * groups * dg * n * 4 if last_state else 0))
             exps, flops = trip * (n + 2), trip * n * 6
+        if carry:
+            nbytes += 2 * bsz * groups * dg * n * 4
     else:
         trip = bsz * 4 * L * dg                      # (dir, step, channel)
         io_in = (bsz * 2 * L * dg + bsz * 4 * L * dg
@@ -1830,9 +1868,11 @@ def export_phase(torch, dev):
     batches 2 and 24 (14 serving launches per call) against the eager
     ``make_predict_fn``: fp32 with TF32 off, and bf16 against fp32; both
     timed at bs24 beside eager. Then the tm and folded branches exported
-    with the same weights, at batch 2, against eager; then full-width
-    ``unet`` and ``ViT_seg`` (img 224), fp32 at batches 2 and 24 against
-    eager (no scan launch), their device ms at bs24 beside eager's."""
+    with the same weights (served without a save / load), at batch 2,
+    against eager; then full-width
+    ``unet`` and ``ViT_seg`` (img 224), saved and served from the program,
+    fp32 at batches 2 and 24 against eager (no scan launch), their device
+    ms at bs24 beside eager's."""
     from mamba_unet_torch.models.vssm import MambaUnet
     from mamba_unet_torch.utils.checkpoint import load_model_snapshot
     from mamba_unet_torch.utils.export import (
@@ -1898,9 +1938,9 @@ def export_phase(torch, dev):
         (serve, *_), others = scan_kernels(scan_impl)
         other = MambaUnet(num_classes=4, scan_impl=scan_impl, device=dev)
         other.load_state_dict(model.state_dict())
-        path = save_exported(export_predict(other, (PATCH, PATCH)),
-                             str(out_dir / f"vim_{scan_impl}.pt2"))
-        served = load_exported(path).module()
+        # served from the program itself: the fp32 and bf16 artifacts above
+        # made the save / load round trip
+        served = export_predict(other, (PATCH, PATCH)).module()
         before = launch_counts([serve, *others])
         got = served(xs[2])
         torch.cuda.synchronize()
@@ -1921,8 +1961,10 @@ def export_phase(torch, dev):
         t0 = time.perf_counter()
         exported = export_predict(other, (PATCH, PATCH))
         export_s = time.perf_counter() - t0
+        # saved for the artifact's size; served from the program itself
+        # (loading it back takes longer than exporting)
         path = save_exported(exported, str(out_dir / f"{name}.pt2"))
-        served = load_exported(path).module()
+        served = exported.module()
         eager = make_predict_fn(other)
         errs = []
         for b, x in xs.items():
@@ -4673,6 +4715,435 @@ def mad_parity_phase(torch, dev):
                       to_model_max=True)
 
 
+# --- the parallelism slice: the grouped kernels' carry variants, the
+# sequence-, channel- and pipeline-parallel paths and data parallelism on
+# gloo ranks that share card 0, and the remaining utilities
+
+# (name, batch, G, L, dg): mamba-130m's scoring shape and ViM stage 0
+CARRY_SHAPES = (("lm", 8, 1, 1024, LM_DINNER), ("vim_stage0", TRAIN_BATCH, 4,
+                                                3136, 192))
+PAR_RANKS = 2          # gloo ranks on card 0 (NCCL refuses two on one card)
+PAR_BATCH = 8          # full-width ViM_seg, fp32, [seq_parallel]/[tp_parallel]
+PIPE_MICRO, PIPE_ROWS, PIPE_L = 4, 2, 128  # [pipeline]: 4 x (2 x 128)
+DP_ITERS = 2           # [data_parallel] steps
+# card vs one process: each tensor within this share of its own max
+PAR_LOGIT_TOL, PAR_GRAD_TOL = 1e-4, MODEL_GRAD_TOL
+# the bf16 data-parallel step: the ranks' matrix products see 12 rows where
+# one process sees 24, so cuBLAS may round in another order. Each weight's
+# distance from the one-process step's is held to a share of its leaf's
+# largest update over the steps (w - w0), a share that the unscaled
+# control (gradients summed over the ranks, not divided by their count:
+# every update about doubled) must exceed
+DP_BF16_LOSS_TOL, DP_BF16_UPDATE_TOL = 2e-3, 5e-2
+DP_FP32_LOSS_TOL, DP_FP32_UPDATE_TOL = 1e-4, 5e-3
+DP_UPDATE_FLOOR = 1e-3
+UTILS_ITERS = 3        # [utils] train CLI steps
+
+
+def carry_args(torch, bsz, G, L, dg, dev, seed):
+    """fp32 grouped_args, an incoming state, a last state's cotangent and
+    y's: the bf16 case casts the same values."""
+    args = grouped_args(torch, bsz, L, G, dg, torch.float32, dev, seed)
+    g = torch.Generator().manual_seed(seed + 2)
+    x0 = (0.5 * torch.randn(bsz, G * dg, 16, generator=g)).to(dev)
+    g_last = torch.randn(bsz, G * dg, 16, generator=g).to(dev)
+    gy = torch.randn(args[0].shape, generator=g).to(dev)
+    return args, x0, g_last, gy
+
+
+def scan_carry_kernel_phase(torch, dev):
+    """``[scan_carry_kernel]``: #3, #3s and #4u with ``x_init``, the last
+    state and ``g_last`` against their plain versions at CARRY_SHAPES, fp32
+    and bf16, each plain version timed once; then each timed with and
+    without the new arguments (fp32). Returns {kind: (max err, ms,
+    plain ms, bound ms, bound_by)} of the carry variants at ViM stage 0,
+    fp32."""
+    from mamba_unet_torch.ops import selective_scan_grouped as g
+    from mamba_unet_torch.utils.compare import assert_close_to_max
+
+    names = g.ARG_NAMES + ("x_init",)
+    errs = {"serve": 0.0, "fwd_states": 0.0, "bwd": 0.0}
+    rows = {}
+    for shape, bsz, G, L, dg in CARRY_SHAPES:
+        fp32 = carry_args(torch, bsz, G, L, dg, dev, L + dg)
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype).split(".")[-1]
+            args, x0, gl, gy = fp32
+            args = [a.to(dtype) if i in (0, 1, 3, 4) else a
+                    for i, a in enumerate(args)]
+            gy = gy.to(dtype)
+            at = f"{shape} {tag}"
+            here = {k: 0.0 for k in errs}
+
+            def close(kind, got, want, what, rel=GRAD_KERNEL_TOL):
+                here[kind] = max(here[kind], assert_close_to_max(
+                    got, want, rel, f"{what} at {at}"))
+                errs[kind] = max(errs[kind], here[kind])
+
+            with torch.no_grad():
+                y, last = g.selective_scan_grouped(*args, True, True,
+                                                   x_init=x0)
+                plain = {"serve": timed_once(torch, lambda: g.
+                                             selective_scan_grouped_ref(
+                                                 *args, True, True, x0))}
+                close("serve", y, plain["serve"][1][0], "y")
+                close("serve", last, plain["serve"][1][1], "last")
+                del y, last
+                y, cs, last = g.selective_scan_grouped_fwd_states(
+                    *args, True, x0, True)
+                plain["fwd_states"] = timed_once(torch, lambda: g.
+                                                 selective_scan_grouped_states_ref(
+                                                     *args, True, x0, True))
+                for what, got, want in zip(("y", "cs", "last"), (y, cs, last),
+                                           plain["fwd_states"][1]):
+                    close("fwd_states", got, want, what)
+                grads = g.selective_scan_grouped_bwd(*args, cs, gy, True, x0,
+                                                     gl)
+                plain["bwd"] = timed_once(torch, lambda: g.
+                                          selective_scan_grouped_bwd_ref(
+                                              *args, gy, True, x0, gl))
+                for name, got, want in zip(names, grads, plain["bwd"][1]):
+                    close("bwd", got, want, "d" + name,
+                          GRAD_SUM_TOL if name in SUMMED else GRAD_KERNEL_TOL)
+                del grads
+                plain = {k: v[0] for k, v in plain.items()}
+                log("scan_carry_kernel", shape=shape, dtype=tag, batch=bsz,
+                    G=G, L=L, dg=dg, ok=True,
+                    **{f"max_err_{k}": f"{v:.3e}" for k, v in here.items()})
+                if dtype != torch.float32:
+                    continue
+                calls = {
+                    "serve": (lambda: g.selective_scan_grouped(
+                        *args, True, True, x_init=x0),
+                        lambda: g.selective_scan_grouped(*args, True)),
+                    "fwd_states": (lambda: g.selective_scan_grouped_fwd_states(
+                        *args, True, x0, True),
+                        lambda: g.selective_scan_grouped_fwd_states(
+                            *args, True)),
+                    "bwd": (lambda: g.selective_scan_grouped_bwd(
+                        *args, cs, gy, True, x0, gl),
+                        lambda: g.selective_scan_grouped_bwd(
+                            *args, cs, gy, True))}
+                for kind, (with_carry, without) in calls.items():
+                    ms_c, _ = device_ms(torch, with_carry, 20)
+                    ms_0, _ = device_ms(torch, without, 20)
+                    bkind = {"serve": "grouped", "fwd_states":
+                             "grouped_fwd_states", "bwd": "grouped_bwd"}[kind]
+                    bound, by = scan_bound(bkind, bsz, L, dg, 4, groups=G,
+                                           carry=True)
+                    log("scan_carry_kernel_time", shape=shape, kernel=kind,
+                        batch=bsz, G=G, L=L, dg=dg, ms=f"{ms_c:.4f}",
+                        ms_without=f"{ms_0:.4f}",
+                        ratio=f"{ms_c / ms_0:.3f}",
+                        plain_ms=f"{plain[kind]:.2f}",
+                        bound_ms=f"{bound:.4f}", bound_by=by)
+                    if shape == "vim_stage0":
+                        rows[kind] = (ms_c, plain[kind], bound, by)
+                del y, cs, last, args, gy
+            torch.cuda.empty_cache()
+        del fp32
+    return {kind: (errs[kind], *rows[kind]) for kind in rows}
+
+
+def _counts(launches):
+    """A rank's launch counts, compactly: serving/state-saving/backward
+    (and the carry variants' among them)."""
+    names = ("selective_scan_grouped", "selective_scan_grouped_fwd_states",
+             "selective_scan_grouped_bwd")
+    return ("/".join(str(launches[n]) for n in names) + " (carry "
+            + "/".join(str(launches[f"{n}.carry"]) for n in names) + ")")
+
+
+def _close_to(what, got, want, rel):
+    """``utils.compare.assert_close_to_max`` on fp32 numpy arrays (in
+    numpy: the pipeline's gradients are mamba-130m's 130 M values): raise
+    unless ``got`` is finite, has ``want``'s shape and |got - want| <= rel
+    * max|want| elementwise; return the max abs error."""
+    import numpy as np
+
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {got.shape} vs {want.shape}")
+    err = np.abs(got - want)
+    if not (np.isfinite(got).all()
+            and (err <= rel * np.abs(want).max()).all()):
+        raise AssertionError(f"{what}: max abs err {err.max():.3e}, ref max "
+                             f"{np.abs(want).max():.3e}")
+    return float(err.max())
+
+
+def vim_builder(scan_impl, drop_path=0.0):
+    return ("mamba_unet_torch.models.vssm", "MambaUnet",
+            dict(num_classes=4, drop_path_rate=drop_path, scan_impl=scan_impl))
+
+
+def lm_builder():
+    return ("mamba_unet_torch.models.mamba_lm", "MambaLMHeadModel",
+            dict(vocab_size=LM_VOCAB))
+
+
+def parallel_inputs(np):
+    """The seeded inputs of the multi-rank phases."""
+    r = np.random.default_rng(15)
+    x = r.random((PAR_BATCH, PATCH, PATCH, 1), np.float32)
+    cot = r.normal(size=(PAR_BATCH, PATCH, PATCH, 4)).astype(np.float32)
+    rows = PIPE_MICRO * PIPE_ROWS
+    ids = r.integers(0, LM_VOCAB, (rows, PIPE_L))
+    targets = r.integers(0, LM_VOCAB, (rows, PIPE_L))
+    batches = [{"image": r.random((TRAIN_BATCH, PATCH, PATCH, 1), np.float32),
+                "label": r.integers(0, 4, (TRAIN_BATCH, PATCH, PATCH))}
+               for _ in range(DP_ITERS)]
+    return x, cot, ids, targets, batches
+
+
+def dp_config(bf16):
+    return dict(base_lr=0.01, max_iterations=100, batch_size=TRAIN_BATCH,
+                patch_size=(PATCH, PATCH), num_classes=4, eval_every=10 ** 6,
+                log_every=1, seed=0, bf16=bf16)
+
+
+UNET_BUILDER = ("mamba_unet_torch.models.unet", "UNet", dict(num_classes=4))
+
+
+def start_parallel(np):
+    """Start the ranks of ``[seq_parallel]``, ``[tp_parallel]``,
+    ``[pipeline]`` and ``[data_parallel]``: one group of PAR_RANKS gloo
+    ranks on card 0 runs every multi-rank job (``parallel.checks``), and
+    one more process runs the one-process references of the same weights
+    and inputs (the tm branch, the plain LM, the one-rank trainer steps).
+    Returns (the ranks, the reference, the start time);
+    :func:`parallel_phases` collects them."""
+    from mamba_unet_torch.parallel.checks import run_jobs
+    from mamba_unet_torch.parallel.launch import Ranks
+
+    x, cot, ids, targets, batches = parallel_inputs(np)
+    dp = ((vim_builder("auto", 0.2), True, 23), (UNET_BUILDER, False, 24))
+    jobs = [("model", dict(builder=vim_builder("seq_sharded"), x=x, cot=cot,
+                           route="seq", seed=21, all_ranks=False)),
+            ("model", dict(builder=vim_builder("tp_sharded"), x=x, cot=cot,
+                           route="tp", seed=21, all_ranks=False)),
+            ("pipeline", dict(builder=lm_builder(), ids=ids, targets=targets,
+                              n_micro=PIPE_MICRO, seed=22, all_ranks=False)),
+            *(("train", dict(builder=b, config=dp_config(bf16),
+                             batches=batches, seed=seed))
+              for b, bf16, seed in dp),
+            *(("train", dict(builder=b, config=dp_config(bf16),
+                             batches=batches, seed=seed, unscaled_grads=True))
+              for b, bf16, seed in dp)]
+    reference = [("model", dict(builder=vim_builder("tm"), x=x, cot=cot,
+                                route="one", seed=21)),
+                 ("lm", dict(builder=lm_builder(), ids=ids, targets=targets,
+                             seed=22)),
+                 *(("train", dict(builder=b, config=dp_config(bf16),
+                                  batches=batches, seed=seed, start=True))
+                   for b, bf16, seed in dp)]
+    return (Ranks(PAR_RANKS, run_jobs, "cuda", jobs),
+            Ranks(1, run_jobs, "cuda", reference), time.perf_counter())
+
+
+def parallel_phases(np, started):
+    """Collect the processes that :func:`start_parallel` started and hold
+    each job against its one-process reference. Returns the carry
+    variants' launches in the ranks' runs."""
+    running, one, t0 = started
+    ranks = running.result(timeout=900)
+    (want_model, want_lm, *want_dp), = one.result(timeout=900)
+    log("parallel", ranks=PAR_RANKS, backend="gloo", device="cuda:0",
+        jobs=len(ranks[0]),
+        seconds_since_start=f"{time.perf_counter() - t0:.1f}")
+    first = ranks[0]
+    carry = {k: sum(r[j][key].get(f"{k}.carry", 0) for r in ranks
+                    for j, key in ((0, "serve_launches"), (0, "launches"),
+                                   (1, "serve_launches"), (1, "launches"),
+                                   (2, "launches")))
+             for k in ("selective_scan_grouped",
+                       "selective_scan_grouped_fwd_states",
+                       "selective_scan_grouped_bwd")}
+
+    # the sharded routes against the one-process tm branch
+    for job, phase in ((0, "seq_parallel"), (1, "tp_parallel")):
+        got = first[job]
+        e_eval = _close_to(f"{phase} eval", got["eval"], want_model["eval"],
+                           PAR_LOGIT_TOL)
+        e_log = _close_to(f"{phase} logits", got["logits"],
+                          want_model["logits"], PAR_LOGIT_TOL)
+        e_grad = max(_close_to(f"{phase} d{k}", got["grads"][k], w,
+                               PAR_GRAD_TOL)
+                     for k, w in want_model["grads"].items())
+        launches = [r[job]["launches"] for r in ranks]
+        for r in ranks:
+            if min(r[job]["launches"][k] for k in (
+                    "selective_scan_grouped_fwd_states",
+                    "selective_scan_grouped_bwd")) == 0 or r[job][
+                    "serve_launches"]["selective_scan_grouped"] == 0:
+                raise AssertionError(f"{phase}: a rank ran no grouped kernel")
+        log(phase, ranks=PAR_RANKS, batch=PAR_BATCH, patch=PATCH,
+            dtype="float32", eval_err=f"{e_eval:.3e}",
+            logit_err=f"{e_log:.3e}", grad_err=f"{e_grad:.3e}",
+            tol=f"{PAR_LOGIT_TOL}/{PAR_GRAD_TOL}", ok=True,
+            serve_launches=[_counts(r[job]["serve_launches"]) for r in ranks],
+            launches=[_counts(n) for n in launches])
+
+    # the pipelined LM against the plain one
+    got = first[2]
+    e_log = _close_to("pipeline logits", got["logits"], want_lm["logits"],
+                      PAR_LOGIT_TOL)
+    e_grad = max(_close_to(f"pipeline d{k}", got["grads"][k], w,
+                           PAR_GRAD_TOL)
+                 for k, w in want_lm["grads"].items())
+    loss = want_lm["loss"]
+    if abs(got["loss"] - loss) > LOSS_TOL * abs(loss):
+        raise AssertionError(f"pipeline loss {got['loss']} vs {loss}")
+    log("pipeline", stages=PAR_RANKS, n_micro=PIPE_MICRO, rows=PIPE_ROWS,
+        L=PIPE_L, d_model=768, n_layer=LM_DEPTH, logit_err=f"{e_log:.3e}",
+        grad_err=f"{e_grad:.3e}", loss=f"{got['loss']:.6f}",
+        loss_one_process=f"{loss:.6f}", ok=True,
+        launches=[_counts(r[2]["launches"]) for r in ranks])
+
+    # data parallelism against the one-rank steps, and the unscaled
+    # control, which must fail the same limits
+    for job, want, (model, bf16) in zip(
+            (3, 4), want_dp, (("MambaUnet", True), ("UNet", False))):
+        got, control = first[job], first[job + 2]
+        loss_tol, u_tol = ((DP_BF16_LOSS_TOL, DP_BF16_UPDATE_TOL) if bf16
+                           else (DP_FP32_LOSS_TOL, DP_FP32_UPDATE_TOL))
+        loss_err = max(abs(a - b) / abs(b) for a, b in
+                       zip(got["losses"], want["losses"]))
+        u_err = update_errors(np, got["state"], want)
+        c_loss = max(abs(a - b) / abs(b) for a, b in
+                     zip(control["losses"], want["losses"]))
+        c_err = update_errors(np, control["state"], want)
+        same = all(np.array_equal(ranks[1][job]["state"][k],
+                                  got["state"][k]) for k in got["state"])
+        log("data_parallel", model=model, ranks=PAR_RANKS,
+            rows_per_rank=TRAIN_BATCH // PAR_RANKS, steps=DP_ITERS,
+            dtype="bf16" if bf16 else "float32", losses=got["losses"],
+            one_process=want["losses"], loss_rel_err=f"{loss_err:.2e}",
+            update_err=f"{u_err[0][0]:.3e}",
+            worst_leaves=[(k, f"{e:.2e}") for e, k in u_err[:3]],
+            tol=f"{loss_tol}/{u_tol}", replicas_equal=same,
+            control_losses=control["losses"],
+            control_loss_rel_err=f"{c_loss:.2e}",
+            control_update_err=f"{c_err[0][0]:.3e}",
+            control_least_leaf=f"{c_err[-1][0]:.2e}")
+        if loss_err > loss_tol:
+            raise AssertionError(f"data_parallel losses {got['losses']} vs "
+                                 f"{want['losses']}")
+        if not u_err[0][0] <= u_tol:
+            raise AssertionError(f"data_parallel: {u_err[0][1]} is "
+                                 f"{u_err[0][0]:.3e} of its update away")
+        if not same:
+            raise AssertionError("data_parallel: the ranks' weights differ")
+        if c_err[0][0] <= u_tol:
+            raise AssertionError("data_parallel: the unscaled control "
+                                 "passes the weight check")
+    return carry
+
+
+def update_errors(np, state, want):
+    """[(error, leaf)], worst first: each floating leaf's largest distance
+    from the one-process step's weights over its largest update in that
+    step (``want``'s state minus its start), that update floored at
+    DP_UPDATE_FLOOR of the model's largest: a leaf whose gradient is
+    rounding noise (a convolution's bias before a BatchNorm) moves by
+    noise alone."""
+    moved = {k: float(np.abs(w - want["start"][k]).max())
+             for k, w in want["state"].items()}
+    floor = DP_UPDATE_FLOOR * max(moved.values())
+    out = [(float(np.abs(state[k] - w).max()) / max(moved[k], floor), k)
+           for k, w in want["state"].items()]
+    return sorted(out, reverse=True)
+
+
+def utils_phase(torch, np, dev):
+    """``[utils]``: the train CLI with ``--cfg``/``--opts`` on phantoms, the
+    native augmentation built with g++ (bitwise against the Python
+    generator), ``model_flops``/``parameter_count`` of ViM_seg at bs24,
+    224², a ``profile_trace`` and a fit with ``TrainConfig.tensorboard``."""
+    import tempfile
+
+    from mamba_unet_torch.cli import train as train_cli
+    from mamba_unet_torch.data import native
+    from mamba_unet_torch.data.augment import RandomGenerator
+    from mamba_unet_torch.models.vssm import MambaUnet
+    from mamba_unet_torch.ops.selective_scan_bidir import (
+        selective_scan_bidir_fwd_states,
+    )
+    from mamba_unet_torch.train.trainer import TrainConfig, Trainer
+    from mamba_unet_torch.utils import experiment, profiling
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        launches = selective_scan_bidir_fwd_states.launches
+        t0 = time.perf_counter()
+        rc = train_cli.main([
+            "--cfg", str(ROOT / "configs/vmamba_tiny.yaml"), "--opts",
+            "MODEL.DROP_PATH_RATE", "0.1", "--synthetic", "--bf16",
+            "--patch_size", str(PATCH), str(PATCH), "--batch_size", "8",
+            "--max_iterations", str(UTILS_ITERS), "--eval_every", "100",
+            "--synthetic_spec", "2", "8", "1", "0", str(PATCH),
+            "--snapshot_dir", str(tmp / "cfg"), "--device", dev.type])
+        n = selective_scan_bidir_fwd_states.launches - launches
+        log("utils", cli="--cfg configs/vmamba_tiny.yaml --opts "
+            "MODEL.DROP_PATH_RATE 0.1", rc=rc, steps=UTILS_ITERS,
+            fwd_states_launches=n, seconds=f"{time.perf_counter() - t0:.1f}")
+        if rc != 0 or n != UTILS_ITERS * SS2D_PER_FORWARD:
+            raise AssertionError(f"--cfg run: rc {rc}, {n} launches")
+
+        t0 = time.perf_counter()
+        lib = native.build()
+        gen = native.NativeRandomGenerator((PATCH, PATCH), seed=3)
+        py = RandomGenerator((PATCH, PATCH), seed=3)
+        r = np.random.default_rng(4)
+        for _ in range(8):
+            s = {"image": r.random(NATIVE, np.float32),
+                 "label": r.integers(0, 4, NATIVE)}
+            a, b = gen(s), py(s)
+            if not all(np.array_equal(a[k], b[k]) for k in a):
+                raise AssertionError("native augmentation differs from the "
+                                     "Python generator")
+        log("utils", native=lib.relative_to(ROOT), samples=8,
+            bitwise_equal=True, seconds=f"{time.perf_counter() - t0:.2f}")
+
+        model = MambaUnet(num_classes=4, generator=torch.Generator()
+                          .manual_seed(0)).to(dev).eval()
+        x = torch.zeros(TRAIN_BATCH, PATCH, PATCH, 1, device=dev)
+        cost = profiling.model_flops(model, x)
+        ms = profiling.time_fn(model, x, iters=3)
+        log("utils", model="ViM_seg", batch=TRAIN_BATCH, patch=PATCH,
+            params=profiling.parameter_count(model),
+            forward_gflops=f"{cost['flops'] / 1e9:.1f}",
+            scan_gflops=f"{cost['scan_flops'] / 1e9:.1f}",
+            scan_share=f"{cost['scan_flops'] / cost['flops']:.3f}",
+            forward_ms=f"{ms:.2f}")
+        with profiling.profile_trace(str(tmp / "trace")):
+            with torch.no_grad():
+                model(x)
+        table = (tmp / "trace/key_averages.txt").read_text()
+        log("utils", profile_trace=(tmp / "trace/trace.json").is_file(),
+            cuda_rows="selective_scan" in table)
+        del model
+
+        r = np.random.default_rng(5)
+        batches = [{"image": torch.as_tensor(r.random((4, PATCH, PATCH, 1),
+                                                      np.float32)),
+                    "label": torch.as_tensor(r.integers(0, 4, (4, PATCH,
+                                                               PATCH)))}
+                   for _ in range(2)]
+        cfg = TrainConfig(max_iterations=2, batch_size=4,
+                          patch_size=(PATCH, PATCH), log_every=1,
+                          snapshot_dir=str(tmp / "tb"), tensorboard=True)
+        from mamba_unet_torch.models.unet import UNet
+
+        Trainer(UNet(num_classes=4), cfg, device=dev).fit(batches)
+        records = experiment.read_scalars(str(tmp / "tb/log"))
+        events = [p.name for p in (tmp / "tb/log").iterdir()
+                  if p.name.startswith("events")]
+        log("utils", tensorboard_scalars=len(records),
+            event_file=bool(events), steps=[rec["step"] for rec in records])
+        if len(records) != 2:
+            raise AssertionError(f"tensorboard scalars: {records}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5016,6 +5487,16 @@ def main() -> int:
     seg_launches = segmamba_phase(torch, dev)
     phase_done("segmamba")
 
+    # --- the parallelism slice: the grouped kernels' carry variants, the
+    # sharded scans, the pipeline and data parallelism on gloo ranks
+    # sharing card 0, then the utilities
+    torch.cuda.empty_cache()
+    carry_kernels = scan_carry_kernel_phase(torch, dev)
+    phase_done("scan_carry_kernel")
+    utils_phase(torch, np, dev)
+    torch.cuda.empty_cache()
+    phase_done("utils")
+
     # the steps card vs CPU: last, as their CPU backwards would share the
     # host with a timed phase
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5031,9 +5512,12 @@ def main() -> int:
     zoo3d_parity_phase(torch, dev)
     phase_done("zoo3d_parity")
     segmamba_parity_phase(torch, dev)
+    phase_done("segmamba_parity")
+    torch.cuda.empty_cache()
+    carry_launches = parallel_phases(np, start_parallel(np))
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32_defaults
-    phase_done("segmamba_parity")
+    phase_done("seq_parallel, tp_parallel, pipeline, data_parallel")
 
     serve_bound = sum(calls * scan_bound("fwd", SERVE_BATCH, L, dg, 4)[0]
                       for L, dg, calls in STAGES)
@@ -5104,6 +5588,27 @@ def main() -> int:
         err, ms, plain, bound, by = folded_kernels[kind]
         rows.append(dict(name=kernel, launches=n, max_abs_err=err, ms=ms,
                          plain_ms=plain, bound_ms=bound, bound_by=by,
+                         source=f"mamba_unet_torch/csrc/{src}",
+                         replaces=where))
+    # the carry variants, launched by the sequence- and channel-parallel
+    # ranks and the pipeline's
+    xla = "mamba_unet_tpu/ops/selective_scan.py:174 (selective_scan_xla's x_init)"
+    for kernel, kind, counter, src, where in (
+            ("selective_scan_fwd (x_init, last state)", "serve",
+             "selective_scan_grouped", "selective_scan_fwd.cu",
+             f"{pallas}:229 (unidirectional), {xla}"),
+            ("selective_scan_fwd_states (x_init, last state)", "fwd_states",
+             "selective_scan_grouped_fwd_states", "selective_scan_fwd.cu",
+             f"{pallas}:229 (unidirectional, save_cs), {xla}"),
+            ("selective_scan_bwd (g_last, dx_init)", "bwd",
+             "selective_scan_grouped_bwd", "selective_scan_bwd.cu",
+             f"{pallas}:318 (unidirectional), {xla}")):
+        err, ms, plain, bound, by = carry_kernels[kind]
+        if carry_launches[counter] == 0:
+            raise AssertionError(f"{kernel}: no launch on the parallel paths")
+        rows.append(dict(name=kernel, launches=carry_launches[counter],
+                         max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=bound, bound_by=by,
                          source=f"mamba_unet_torch/csrc/{src}",
                          replaces=where))
     # no single PyTorch call computes the selective scan

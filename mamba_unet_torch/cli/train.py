@@ -80,7 +80,14 @@ reference's scripts load it into both networks; the JAX CLI into the
 first only). ``--exp`` is accepted and stored for
 command-line compatibility with the JAX CLI, which reads it nowhere else
 either. Activation recomputation (``use_remat``) is a model option, as in
-the JAX package, and has no flag.
+the JAX package, and has no flag. ``--cfg`` builds the first model from a
+yaml config (``configs/*.yaml``, ``utils/config.py``) instead of
+``--model``, with ``--opts KEY VALUE`` overrides (``--drop_path`` still
+overrides the config's rate). Launched by ``torchrun`` with more than one
+rank, the CLI joins a process group (``nccl``, one card per rank; ``gloo``
+with ``--device cpu``) and the fully supervised trainer runs data
+parallel over all ranks: each step's global batch is split over them
+(``train/trainer.py``); the multi-model methods refuse more than one rank.
 
     python -m mamba_unet_torch.cli.train --model ViM_seg \\
         --root_path ../data/ACDC --patch_size 224 224 --batch_size 24 \\
@@ -92,6 +99,10 @@ the JAX package, and has no flag.
     python -m mamba_unet_torch.cli.train --model ViM_seg --synthetic \\
         --device cpu --patch_size 32 32 --batch_size 4 --max_iterations 4 \\
         --eval_every 2
+    python -m mamba_unet_torch.cli.train --cfg configs/vmamba_tiny.yaml \\
+        --opts MODEL.DROP_PATH_RATE 0.1 --synthetic --patch_size 224 224
+    torchrun --nproc_per_node 2 -m mamba_unet_torch.cli.train --model unet \\
+        --synthetic --device cpu --patch_size 32 32 --batch_size 4
     python -m mamba_unet_torch.cli.train --method cross_teaching \\
         --model ViM_seg --model2 unet --bf16 --patch_size 224 224
     python -m mamba_unet_torch.cli.train --method weak_scribble \\
@@ -152,6 +163,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="acdc = the 2-D slice pipeline; btcv = the 3-D "
                         "volume pipeline (--method magicnet)")
     p.add_argument("--model", type=str, default="unet", choices=MODELS)
+    p.add_argument("--cfg", type=str, default=None,
+                   help="yaml model config (configs/*.yaml): builds the "
+                        "first model from it instead of --model")
+    p.add_argument("--opts", nargs="*", default=None,
+                   help="config overrides: KEY VALUE pairs")
     p.add_argument("--method", type=str, default="fully_supervised")
     p.add_argument("--max_iterations", type=int, default=10000)
     p.add_argument("--batch_size", type=int, default=24)
@@ -403,11 +419,43 @@ def _warm_start(model, ckpt_dir: str) -> None:
     logging.info("warm-start from %s", ckpt_dir)
 
 
+def _init_process_group(device: str):
+    """Under ``torchrun`` (``WORLD_SIZE`` > 1): join the process group,
+    ``nccl`` with one card per rank (``LOCAL_RANK``), ``gloo`` on the CPU;
+    returns the rank's device. Otherwise ``device`` as given."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return device
+    if torch.device(device).type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        torch.cuda.set_device(local)
+        dist.init_process_group("nccl")
+        return f"cuda:{local}"
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo")
+    return device
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s",
                         datefmt="%H:%M:%S", stream=sys.stdout)
     _check_args(args)
+    args.device = _init_process_group(args.device)
+    try:
+        return _main(args)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _main(args) -> int:
     if args.pretrained_ckpt and args.model not in WARM_START_MODELS:
         raise NotImplementedError(
             f"--pretrained_ckpt warm-starts {', '.join(WARM_START_MODELS)}; "
@@ -500,7 +548,21 @@ def main(argv=None) -> int:
     if args.method == "mad_pretrain":
         # the denoiser eats near-one-hot label stacks
         model_kw["in_chans"] = args.num_classes
-    model = net_factory(args.model, **model_kw)
+    if args.cfg:
+        from mamba_unet_torch.utils.config import (
+            build_model_from_config,
+            get_config,
+        )
+
+        cfg_model = get_config(args.cfg, args.opts)
+        model = build_model_from_config(
+            cfg_model, num_classes=args.num_classes,
+            img_size=args.patch_size[0], drop_path_rate=args.drop_path,
+            generator=model_kw["generator"],
+            **({"scan_impl": args.scan_impl}
+               if cfg_model.MODEL.TYPE == "vssm" else {}))
+    else:
+        model = net_factory(args.model, **model_kw)
     make_optimizer = _make_optimizer(args)
     if semi:
         if args.labeled_slices is not None:

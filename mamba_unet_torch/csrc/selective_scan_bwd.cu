@@ -25,6 +25,14 @@
 // (B,G*dg,16), dD and dΔbias (B,G*dg) over the batch. Every state and sum
 // is fp32.
 //
+// With a forward that started from an incoming state x_init (cs then holds
+// it as chunk 0's entry state, so step 0's dΔ and dA see x_{-1} = x_init
+// with no special case), and a forward whose last state x_{L-1} reaches
+// the loss: a non-null `g_last` (B,G*dg,16) fp32 is the cotangent of that
+// state, from which e_{L-1} starts (e_{L-1} = C g + g_last); a non-null
+// `dx_init` (B,G*dg,16) fp32 receives a_0 e_0, the cotangent of x_init.
+// Both are null for the plain scan (the folded backward passes null).
+//
 // What bounds it on an H100. At stage 0 of the trained Mamba-UNet with
 // scan_impl="tm" (bs24, G=4, L=3136, dg=192, fp32) one call reads u, delta,
 // gy (3 x 0.23 GB), cs (0.23 GB) and B/C (0.04 GB), and writes du and
@@ -98,7 +106,9 @@ grouped_bwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
                    T* __restrict__ du, T* __restrict__ ddelta,
                    float* __restrict__ dB_part, float* __restrict__ dC_part,
                    float* __restrict__ dA_part, float* __restrict__ dD_part,
-                   float* __restrict__ ddb_part, int batch, int G, int L,
+                   float* __restrict__ ddb_part,
+                   const float* __restrict__ g_last,
+                   float* __restrict__ dx_init, int batch, int G, int L,
                    int dg, int apply_softplus, int flags) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tile = blockIdx.x;
@@ -128,6 +138,8 @@ grouped_bwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
   io.dA = dA_part + out * kN;
   io.dD = dD_part + out;
   io.ddb = ddb_part + out;
+  io.g_last = g_last != nullptr ? g_last + out * kN : nullptr;
+  io.dx_init = dx_init != nullptr ? dx_init + out * kN : nullptr;
   io.u_base = u;
   io.B_base = Bm;
   io.cs_base = cs;
@@ -151,9 +163,9 @@ cudaError_t launch(const void* u, const void* delta, const void* Bm,
                    const void* Cm, const void* A, const void* D,
                    const void* delta_bias, const void* cs, const void* gy,
                    void* du, void* ddelta, void* dB_part, void* dC_part,
-                   void* dA_part, void* dD_part, void* ddb_part, int batch,
-                   int G, int L, int dg, int apply_softplus,
-                   cudaStream_t stream) {
+                   void* dA_part, void* dD_part, void* ddb_part,
+                   const void* g_last, void* dx_init, int batch, int G,
+                   int L, int dg, int apply_softplus, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       grouped_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmem);
@@ -173,20 +185,23 @@ cudaError_t launch(const void* u, const void* delta, const void* Bm,
       static_cast<const T*>(gy), static_cast<T*>(du), static_cast<T*>(ddelta),
       static_cast<float*>(dB_part), static_cast<float*>(dC_part),
       static_cast<float*>(dA_part), static_cast<float*>(dD_part),
-      static_cast<float*>(ddb_part), batch, G, L, dg, apply_softplus, flags);
+      static_cast<float*>(ddb_part), static_cast<const float*>(g_last),
+      static_cast<float*>(dx_init), batch, G, L, dg, apply_softplus, flags);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches on `stream` and returns the CUDA error code (0 on success).
-// Pointers are contiguous device buffers laid out as documented above.
+// Pointers are contiguous device buffers laid out as documented above;
+// `g_last` and `dx_init` may be null.
 extern "C" int selective_scan_bwd(
     const void* u, const void* delta, const void* Bm, const void* Cm,
     const void* A, const void* D, const void* delta_bias, const void* cs,
     const void* gy, void* du, void* ddelta, void* dB_part, void* dC_part,
-    void* dA_part, void* dD_part, void* ddb_part, int batch, int G, int L,
-    int dg, int n, int apply_softplus, int is_bf16, void* stream) {
+    void* dA_part, void* dD_part, void* ddb_part, const void* g_last,
+    void* dx_init, int batch, int G, int L, int dg, int n,
+    int apply_softplus, int is_bf16, void* stream) {
   if (n != kN || batch <= 0 || batch > 65535 || G <= 0 || G > 65535 ||
       L <= 0 || dg <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -195,11 +210,13 @@ extern "C" int selective_scan_bwd(
   const cudaError_t err =
       is_bf16 ? launch<__nv_bfloat16>(u, delta, Bm, Cm, A, D, delta_bias, cs,
                                       gy, du, ddelta, dB_part, dC_part,
-                                      dA_part, dD_part, ddb_part, batch, G, L,
-                                      dg, apply_softplus, s)
+                                      dA_part, dD_part, ddb_part, g_last,
+                                      dx_init, batch, G, L, dg,
+                                      apply_softplus, s)
               : launch<float>(u, delta, Bm, Cm, A, D, delta_bias, cs, gy, du,
                               ddelta, dB_part, dC_part, dA_part, dD_part,
-                              ddb_part, batch, G, L, dg, apply_softplus, s);
+                              ddb_part, g_last, dx_init, batch, G, L, dg,
+                              apply_softplus, s);
   return static_cast<int>(err);
 }
 

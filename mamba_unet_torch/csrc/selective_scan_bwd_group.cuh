@@ -95,8 +95,11 @@ constexpr int kSmem =
 // channel (or its sequence's first step): per-channel values (t, c) at
 // t * ts + c; B/C values (t, n) at t * kN + n; entry states (data chunk k,
 // state n, channel c) at (k * kN + n) * cns + c; the dB/dC partial (t, n)
-// at t * kN + n; A (c, n) at c * kN + n, and dA likewise; D, bias, dD,
-// dΔbias at c. The *_base pointers are the tensors' own, valid and
+// at t * kN + n; A (c, n) at c * kN + n, and dA, g_last and dx_init
+// likewise; D, bias, dD, dΔbias at c. g_last, the cotangent of the state
+// after the last step, is null for none (zero); dx_init, the cotangent
+// carried past the first step (that of an incoming state), is null when
+// not wanted. The *_base pointers are the tensors' own, valid and
 // aligned, read by no copy (the source of a zero-filling cp.async).
 template <typename T, typename DuT>
 struct Group {
@@ -116,6 +119,8 @@ struct Group {
   float* dA;
   float* dD;
   float* ddb;
+  const float* g_last;
+  float* dx_init;
   const T* u_base;
   const T* B_base;
   const float* cs_base;
@@ -220,11 +225,15 @@ __device__ __forceinline__ void group_bwd(const Group<T, DuT>& io, int L,
       smem_raw + 2 * sizeof(GroupSmem))[r];
   const bool pairs = flags & kPairs;
 
+  // carry: the cotangent of the state after the step being reversed,
+  // from the steps after it; it starts from g_last (null: zero), the null
+  // test uniform per launch
+  const bool adj_in = io.g_last != nullptr && active;
   float a2[kNS], carry[kNS], dA[kNS];
 #pragma unroll
   for (int j = 0; j < kNS; ++j) {
     a2[j] = active ? io.A[c * kN + kNS * q + j] * kLog2e : 0.f;
-    carry[j] = 0.f;
+    carry[j] = adj_in ? io.g_last[c * kN + kNS * q + j] : 0.f;
     dA[j] = 0.f;
   }
   float skip = 0.f, bias = 0.f;  // skip of the scanned, bias of the staged
@@ -510,6 +519,11 @@ __device__ __forceinline__ void group_bwd(const Group<T, DuT>& io, int L,
   if (active) {
     *reinterpret_cast<float4*>(io.dA + c * kN + kNS * q) =
         make_float4(dA[0], dA[1], dA[2], dA[3]);
+    // past step 0, carry = exp(dt_0 A) e_0: the incoming state's cotangent
+    if (io.dx_init != nullptr) {
+      *reinterpret_cast<float4*>(io.dx_init + c * kN + kNS * q) =
+          make_float4(carry[0], carry[1], carry[2], carry[3]);
+    }
     if (q == 0) {
       io.dD[c] = dD;
       io.ddb[c] = ddb;

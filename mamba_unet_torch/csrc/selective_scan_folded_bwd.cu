@@ -158,6 +158,8 @@ folded_bwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
   io.dA = dA_part + out * kN;
   io.dD = dD_part + out;
   io.ddb = ddb_part + out;
+  io.g_last = nullptr;
+  io.dx_init = nullptr;
   io.u_base = u;
   io.B_base = Bm;
   io.cs_base = cs;

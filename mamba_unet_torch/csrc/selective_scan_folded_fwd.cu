@@ -124,6 +124,7 @@ folded_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
   io.y = y + dir;
   io.cs = kSave ? cs + (size_t)g * nc * kN * BD + lane : nullptr;
   io.last = nullptr;
+  io.x_init = nullptr;
   io.u_base = u;
   io.B_base = Bm;
   io.ts = static_cast<int>(BD);

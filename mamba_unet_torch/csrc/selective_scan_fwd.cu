@@ -17,11 +17,18 @@
 // is (G*dg, N), D and delta_bias are (G*dg,), fp32. The state x (N = 16) and
 // all arithmetic are fp32; y is rounded to the input dtype once. With a
 // non-null `last_state` the kernel also writes x_L as (B, G*dg, N) fp32: the
-// decode cache a prefill hands to the single-token step.
+// decode cache a prefill hands to the single-token step. With a non-null
+// `x_init`, (B, G*dg, N) fp32, the scan starts from it instead of zero
+// (x_{-1} = x_init): the carry that a sequence-sharded scan
+// (parallel/seq_scan.py) hands from the earlier shards, or any chunked
+// carry over L; it replaces the XLA scan's `x_init`
+// (mamba_unet_tpu/ops/selective_scan.py::selective_scan_xla), which the
+// TPU kernel did not take.
 //
 // With a non-null `cs` (the training forward) the kernel also writes the
 // fp32 state entering every 16-step chunk: cs[b, g, c, n, d] = the state
-// entering step 16c (zero for c = 0), nc = ceil(L / 16) chunks. The serving
+// entering step 16c (x_init, or zero, for c = 0), nc = ceil(L / 16)
+// chunks. The serving
 // call passes null and compiles without the stores (a template flag).
 //
 // What bounds it on an H100. At stage 0 of the Mamba-UNet trained with
@@ -85,7 +92,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 grouped_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
                    const T* __restrict__ Bm, const T* __restrict__ Cm,
                    const float* __restrict__ A, const float* __restrict__ D,
-                   const float* __restrict__ delta_bias, T* __restrict__ y,
+                   const float* __restrict__ delta_bias,
+                   const float* __restrict__ x_init, T* __restrict__ y,
                    float* __restrict__ last_state, float* __restrict__ cs,
                    int G, int L, int dg, int apply_softplus, int flags) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -108,6 +116,8 @@ grouped_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
   io.cs = kSave ? cs + (size_t)(b * G + g) * nc * kN * dg + d0 : nullptr;
   io.last = last_state != nullptr
                 ? last_state + ((size_t)b * G * dg + row) * kN : nullptr;
+  io.x_init = x_init != nullptr
+                  ? x_init + ((size_t)b * G * dg + row) * kN : nullptr;
   io.u_base = u;
   io.B_base = Bm;
   io.ts = dg;
@@ -130,9 +140,9 @@ dim3 grid_of(int batch, int G, int dg) {
 template <typename T>
 cudaError_t launch(const void* u, const void* delta, const void* Bm,
                    const void* Cm, const void* A, const void* D,
-                   const void* delta_bias, void* y, void* last_state,
-                   void* cs, int batch, int G, int L, int dg,
-                   int apply_softplus, cudaStream_t stream) {
+                   const void* delta_bias, const void* x_init, void* y,
+                   void* last_state, void* cs, int batch, int G, int L,
+                   int dg, int apply_softplus, cudaStream_t stream) {
   const int flags = flags_for<T>(dg, u, delta, y, Bm, Cm, cs);
   auto kernel =
       cs ? grouped_fwd_kernel<T, true> : grouped_fwd_kernel<T, false>;
@@ -140,7 +150,8 @@ cudaError_t launch(const void* u, const void* delta, const void* Bm,
       static_cast<const T*>(u), static_cast<const T*>(delta),
       static_cast<const T*>(Bm), static_cast<const T*>(Cm),
       static_cast<const float*>(A), static_cast<const float*>(D),
-      static_cast<const float*>(delta_bias), static_cast<T*>(y),
+      static_cast<const float*>(delta_bias),
+      static_cast<const float*>(x_init), static_cast<T*>(y),
       static_cast<float*>(last_state), static_cast<float*>(cs), G, L, dg,
       apply_softplus, flags);
   return cudaGetLastError();
@@ -150,13 +161,15 @@ cudaError_t launch(const void* u, const void* delta, const void* Bm,
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // Pointers are contiguous device buffers laid out as documented above;
+// `x_init` is null (a zero incoming state) or (batch, G*dg, 16) fp32;
 // `last_state` is null (no final state) or (batch, G*dg, 16) fp32; `cs` is
 // null (serving) or (batch, G, ceil(L / 16), 16, dg) fp32 (training).
 extern "C" int selective_scan_fwd(const void* u, const void* delta,
                                   const void* Bm, const void* Cm,
                                   const void* A, const void* D,
-                                  const void* delta_bias, void* y,
-                                  void* last_state, void* cs, int batch,
+                                  const void* delta_bias, const void* x_init,
+                                  void* y, void* last_state, void* cs,
+                                  int batch,
                                   int G, int L, int dg, int n,
                                   int apply_softplus, int is_bf16,
                                   void* stream) {
@@ -166,10 +179,10 @@ extern "C" int selective_scan_fwd(const void* u, const void* delta,
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(u, delta, Bm, Cm, A, D, delta_bias, y,
-                                      last_state, cs, batch, G, L, dg,
-                                      apply_softplus, s)
-              : launch<float>(u, delta, Bm, Cm, A, D, delta_bias, y,
+      is_bf16 ? launch<__nv_bfloat16>(u, delta, Bm, Cm, A, D, delta_bias,
+                                      x_init, y, last_state, cs, batch, G, L,
+                                      dg, apply_softplus, s)
+              : launch<float>(u, delta, Bm, Cm, A, D, delta_bias, x_init, y,
                               last_state, cs, batch, G, L, dg,
                               apply_softplus, s);
   return static_cast<int>(err);

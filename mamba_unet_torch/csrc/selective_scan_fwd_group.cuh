@@ -115,8 +115,10 @@ constexpr int kSmem = kRawBlockOffset + static_cast<int>(
 // channel (or its sequence's first step): per-channel values (t, c) at
 // t * ts + c; B/C values (t, n) at t * kN + n (the block's sequence);
 // entry states (data chunk k, state n, channel c) at (k * kN + n) * cns +
-// c; the final state (c, n) at c * kN + n; A (c, n) at c * kN + n; D and
-// bias at c. cs and last are null when not written. The *_base pointers
+// c; the final state (c, n) at c * kN + n, and the incoming state x_init
+// likewise; A (c, n) at c * kN + n; D and bias at c. cs and last are null
+// when not written, x_init null for a zero incoming state. The *_base
+// pointers
 // are the tensors' own, valid and aligned, read by no copy (the source of
 // a zero-filling cp.async).
 template <typename T>
@@ -131,6 +133,7 @@ struct Group {
   T* y;
   float* cs;
   float* last;
+  const float* x_init;
   const T* u_base;
   const T* B_base;
   int ts, cns;
@@ -181,11 +184,16 @@ __device__ __forceinline__ void group_fwd(const Group<T>& io, int L,
   constexpr int kPer = 16 / sizeof(T);  // values per 16-byte copy
   constexpr int kPerRow = kCh / kPer;   // 16-byte copies per row
 
+  // the state before the first scanned step: x_init (a carry handed in
+  // from an earlier part of the sequence) or zero; the null test is
+  // uniform per launch. The state-saving variant writes it as the first
+  // state chunk's entry state, as any other.
+  const bool carry_in = io.x_init != nullptr && active;
   float a2[kNS], x[kNS];
 #pragma unroll
   for (int j = 0; j < kNS; ++j) {
     a2[j] = active ? io.A[c * kN + kNS * q + j] * kLog2e : 0.f;
-    x[j] = 0.f;
+    x[j] = carry_in ? io.x_init[c * kN + kNS * q + j] : 0.f;
   }
   float bias = 0.f, skip = 0.f;  // of the staged channel
   if (stage_active) {

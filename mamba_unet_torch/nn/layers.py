@@ -9,7 +9,10 @@ parameter, so one seed gives the same weights on every device. Every
 module that draws in training (:class:`Drawing`: ``DropPath``, ``Dropout``
 and the UNet family's feature perturbations) draws from a generator its
 owner (the trainer) hands it with :func:`set_generator`, never from the
-global one.
+global one. Under a data-parallel step (``parallel.comm.batch_shard``)
+the dropout and drop-path masks are drawn for the global batch and the
+BatchNorms normalize with the global batch's statistics, so the ranks
+compute what one process computes on the whole batch.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mamba_unet_torch.parallel.comm import all_reduce, current_batch_shard
 
 
 def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
@@ -110,8 +115,8 @@ class DropPath(Drawing):
         if self.rate == 0.0 or not self.training:
             return None
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        return torch.rand(shape, device=x.device,
-                          generator=self._generator()) < 1.0 - self.rate
+        return _global_rand(shape, x.device, self._generator()
+                            ) < 1.0 - self.rate
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -126,12 +131,34 @@ class DropPath(Drawing):
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+def _global_rand(shape, device, generator: torch.Generator) -> torch.Tensor:
+    """``torch.rand(shape)`` for a batch (first axis) that is this rank's
+    rows of a global batch (``parallel.comm.batch_shard``): the draw is
+    made for the global batch and this rank's rows are kept, so the ranks
+    of a data-parallel step drop what one process would drop."""
+    shard = current_batch_shard()
+    if shard is None:
+        return torch.rand(shape, device=device, generator=generator)
+    full = (shape[0] * shard.count,) + tuple(shape[1:])
+    return shard.rows(torch.rand(full, device=device, generator=generator))
+
+
+def _batch_mean(x: torch.Tensor, dims, shard) -> torch.Tensor:
+    """The mean of ``x`` over ``dims`` and the global batch whose rows
+    ``shard`` holds, its sum taken over the shard's group
+    (differentiable); with no ``shard``, over this batch."""
+    count, group = (1, None) if shard is None else (shard.count, shard.group)
+    for d in dims:
+        count *= x.shape[d]
+    return all_reduce(x.sum(dims), group) / count
+
+
 def dropout(x: torch.Tensor, rate: float,
             generator: torch.Generator) -> torch.Tensor:
     """Elementwise dropout: keep with probability 1 - ``rate`` and rescale
     by 1/keep (flax ``nn.Dropout``)."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+    mask = _global_rand(x.shape, x.device, generator) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -161,6 +188,9 @@ class _FlaxBatchNorm:
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        shard = current_batch_shard()
+        if shard is not None:
+            return self._global_forward(x, shard)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         with torch.no_grad():
@@ -170,6 +200,25 @@ class _FlaxBatchNorm:
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _global_forward(self, x: torch.Tensor, shard) -> torch.Tensor:
+        """Training forward on this rank's rows of a global batch: the
+        statistics of the global batch, its sums taken over the shard's
+        group, the variance in two passes (the mean, then the mean square
+        deviation), as ``F.batch_norm`` computes it in one process."""
+        xf = at_least_fp32(x)
+        dims = (0, *range(2, x.dim()))
+        view = (1, -1) + (1,) * (x.dim() - 2)
+        mean = _batch_mean(xf, dims, shard)
+        var = _batch_mean((xf - mean.reshape(view)) ** 2, dims, shard)
+        y = ((xf - mean.reshape(view)) * (torch.rsqrt(var + self.eps)
+                                          * self.weight).reshape(view)
+             + self.bias.reshape(view))
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
@@ -207,8 +256,10 @@ class BatchNorm1d(nn.BatchNorm1d):
         if not self.training:
             return super().forward(x)
         xf = at_least_fp32(x)
-        mean = xf.mean(0)
-        var = ((xf * xf).mean(0) - mean * mean).clamp_min(0.0)
+        shard = current_batch_shard()
+        mean = _batch_mean(xf, (0,), shard)
+        ex2 = _batch_mean(xf * xf, (0,), shard)
+        var = (ex2 - mean * mean).clamp_min(0.0)
         y = ((xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
              + self.bias)
         with torch.no_grad():

@@ -21,6 +21,13 @@ Port of the bidirectional, time-major and batch-folded branches of
     einsums (4, L, N, B)
     4-direction folded scan (one slab per direction, compute dtype) ->
     widened to fp32, pairs and row + col merged
+  seq_sharded / tp_sharded (inside parallel.sequence_sharding /
+  channel_sharding):
+    the tm branch's four direction copies and projections, replicated on
+    every rank; each rank scans its L range (seq) or its channel block of
+    each direction (tp) of the channel-major (B, 4 * d_inner, L) streams
+    in fp32 (parallel/seq_scan.py, parallel/tp_scan.py: the grouped
+    kernels), and y is gathered back differentiably -> cross-merge
   LayerNorm -> * silu(z) -> out_proj
 
 Direction k of the tm and folded branches is direction 2*j + m of the
@@ -36,8 +43,11 @@ JAX route sums y in the compute dtype). The scans are
 versions on CPU tensors. The JAX package folds only when B * d_inner is a
 multiple of 128 (TPU lane padding) and otherwise warns and takes its XLA
 route, which computes the same function; the port runs the folded kernels
-at every batch. The JAX package's other scan routes (``hwbc_folded``, the
-sharded ones) are not ported. Parameter names follow the upstream torch
+at every batch. The sharded routes compute the JAX routes' function: the
+rest of the model stays replicated, as under JAX's ``shard_map`` whose
+``out_specs`` assemble the global y; without their context they raise,
+as the JAX route's assertion does. The JAX package's ``hwbc_folded`` route
+is not ported. Parameter names follow the upstream torch
 checkpoints (``in_proj``, ``conv2d``, ``x_proj_weight``,
 ``dt_projs_weight``, ``dt_projs_bias``, ``A_logs``, ``Ds``, ``out_norm``,
 ``out_proj``).
@@ -64,6 +74,7 @@ from mamba_unet_torch.ops.selective_scan_folded import (
     selective_scan_folded_bidir,
 )
 from mamba_unet_torch.ops.selective_scan_grouped import selective_scan_grouped
+from mamba_unet_torch.parallel.comm import gather_out, scatter_in
 
 K = 4  # scan directions: [row, col, row-reversed, col-reversed]
 # Fixed hyper-parameters of the Mamba-UNet SS2D (the JAX module's defaults,
@@ -74,17 +85,16 @@ EXPAND, D_CONV = 2, 3
 DT_MIN, DT_MAX, DT_INIT_FLOOR = 0.001, 0.1, 1e-4
 # scan_impl values of the JAX SS2D that the port runs: the bidirectional
 # branch, the time-major one (which the xla route names too) and the
-# batch-folded one; and those it does not run, with why
+# batch-folded one, the sharded ones; and the one it does not run, with
+# why
 BIDIR_IMPLS, TM_IMPLS = ("auto", "bidir"), ("tm", "pallas", "xla")
 FOLDED_IMPLS = ("folded",)
-PORTED_IMPLS = BIDIR_IMPLS + TM_IMPLS + FOLDED_IMPLS
-_PARALLELISM = ("it waits for the parallelism item (ROADMAP.md, queue 1, "
-                "item 17)")
+SHARDED_IMPLS = ("seq_sharded", "tp_sharded")
+PORTED_IMPLS = BIDIR_IMPLS + TM_IMPLS + FOLDED_IMPLS + SHARDED_IMPLS
 NOT_PORTED = {"hwbc_folded": "the hwbc layout is TPU-only machinery (its "
                              "time-major batch-minor maps make the folded "
                              "scan's stream setup a free reshape on the TPU) "
-                             "and is not ported; use scan_impl='folded'",
-              "seq_sharded": _PARALLELISM, "tp_sharded": _PARALLELISM}
+                             "and is not ported; use scan_impl='folded'"}
 
 
 def check_scan_impl(scan_impl: str) -> None:
@@ -157,6 +167,8 @@ class SS2D(nn.Module):
         xx = F.silu(self.conv2d(xx.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
         if self.scan_impl in TM_IMPLS:
             y = self._scan_tm(xx)
+        elif self.scan_impl in SHARDED_IMPLS:
+            y = self._scan_sharded(xx)
         elif self.scan_impl in FOLDED_IMPLS:
             y = self._scan_folded(xx)
         else:
@@ -201,6 +213,74 @@ class SS2D(nn.Module):
             self.dt_projs_bias.float().reshape(-1), True,
         )                                                       # (B, 4, L, d)
         return cross_merge_tm(ys.float(), H, W)
+
+    def _scan_sharded(self, xx: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, d_inner) -> fp32 (B, H, W, d_inner): the tm branch's
+        streams and projections, channel-major, scanned by this rank's part
+        (an L range, or a block of each direction's channels) and gathered
+        back: JAX's seq_sharded and tp_sharded routes."""
+        # imported here: the parallel package imports the scan ops
+        from mamba_unet_torch.parallel.seq_scan import (
+            current_sequence_sharding,
+            selective_scan_seq_sharded,
+        )
+        from mamba_unet_torch.parallel.tp_scan import (
+            current_channel_sharding,
+            gather_channels,
+            selective_scan_tp_sharded,
+            shard_channels,
+        )
+
+        seq = self.scan_impl == "seq_sharded"
+        ctx = current_sequence_sharding() if seq else current_channel_sharding()
+        if ctx is None:
+            raise RuntimeError(
+                f"scan_impl={self.scan_impl!r} requires a "
+                f"{'sequence_sharding' if seq else 'channel_sharding'}(mesh) "
+                f"context")
+        bsz, H, W, d = xx.shape
+        L, R, n = H * W, self.dt_rank, self.d_state
+        xs = cross_scan_tm(xx)                                  # (B, 4, L, d)
+        x_dbl = torch.einsum("bkld,kcd->bklc", xs,
+                             self.x_proj_weight.to(xs.dtype))
+        dts, Bs, Cs = x_dbl.split([R, n, n], dim=-1)
+        dts = torch.einsum("bklr,kdr->bkld", dts,
+                           self.dt_projs_weight.to(dts.dtype))
+
+        def channel_major(t):  # (B, 4, L, w) -> fp32 (B, 4 * w, L)
+            return t.float().transpose(2, 3).reshape(bsz, -1, L)
+
+        u, delta = channel_major(xs), channel_major(dts)
+        Bc = Bs.float().transpose(2, 3)                         # (B, 4, N, L)
+        Cc = Cs.float().transpose(2, 3)
+        A = -torch.exp(self.A_logs.float())
+        Ds, bias = self.Ds.float(), self.dt_projs_bias.float().reshape(-1)
+        if seq:
+            mesh, axis = ctx
+            group = mesh.group(axis)
+            y = gather_out(selective_scan_seq_sharded(
+                scatter_in(u, 2, group), scatter_in(delta, 2, group), A,
+                scatter_in(Bc, 3, group), scatter_in(Cc, 3, group), D=Ds,
+                delta_bias=bias, delta_softplus=True, mesh=mesh, axis=axis),
+                2, group)
+        else:
+            mesh, axis, batch_axis = ctx
+            bgroup = None if batch_axis is None else mesh.group(batch_axis)
+
+            def shard(t, dim=1):
+                return scatter_in(shard_channels(t, K, dim, mesh, axis), 0,
+                                  bgroup)
+
+            y = selective_scan_tp_sharded(
+                shard(u), shard(delta), shard_channels(A, K, 0, mesh, axis),
+                scatter_in(Bc, 0, bgroup), scatter_in(Cc, 0, bgroup),
+                D=shard_channels(Ds, K, 0, mesh, axis),
+                delta_bias=shard_channels(bias, K, 0, mesh, axis),
+                delta_softplus=True, mesh=mesh, axis=axis,
+                batch_axis=batch_axis)
+            y = gather_channels(gather_out(y, 0, bgroup), K, 1, mesh, axis)
+        ys = y.reshape(bsz, K, d, L).transpose(2, 3)            # (B, 4, L, d)
+        return cross_merge_tm(ys, H, W)
 
     def _scan_folded(self, xx: torch.Tensor) -> torch.Tensor:
         """(B, H, W, d_inner) -> fp32 (B, H, W, d_inner): the two data

@@ -12,7 +12,11 @@ denominators and smooth 1e-5, per-class mean including background; the
 supervised objective is 0.5 * (CE + Dice). Logits/probs are (B, ..., C),
 labels integer (B, ...). The supervised losses and the Dice and
 contrastive terms are computed in fp32, and a label outside [0, C)
-one-hots to zeros, as ``jax.nn.one_hot`` does.
+one-hots to zeros, as ``jax.nn.one_hot`` does. The supervised losses take
+an optional process ``group``: the batch is then this rank's rows of a
+global batch, and the mean of the cross-entropy and the Dice's per-class
+sums are taken over the global batch (a data-parallel step computes the
+one-process loss; Dice is not a mean of per-rank Dice).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from mamba_unet_torch.nn.layers import at_least_fp32
+from mamba_unet_torch.parallel.comm import all_reduce
 
 _SMOOTH = 1e-5
 
@@ -35,15 +40,17 @@ def _one_hot(labels: torch.Tensor, n_classes: int) -> torch.Tensor:
 
 
 def dice_loss(probs: torch.Tensor, target_onehot: torch.Tensor,
-              weight: Optional[Sequence[float]] = None) -> torch.Tensor:
+              weight: Optional[Sequence[float]] = None,
+              group=None) -> torch.Tensor:
     """Per-class soft dice (incl. background), weighted mean over classes.
-    ``probs`` should already be softmaxed."""
+    ``probs`` should already be softmaxed. With a ``group`` the per-class
+    sums are summed over its ranks' batches."""
     n_classes = probs.shape[-1]
     axes = tuple(range(probs.dim() - 1))
     s = probs.float()
     t = target_onehot.float()
-    intersect = (s * t).sum(axes)
-    denom = (s * s).sum(axes) + (t * t).sum(axes)
+    intersect, denom = all_reduce(torch.stack([
+        (s * t).sum(axes), (s * s).sum(axes) + (t * t).sum(axes)]), group)
     per_class = 1.0 - (2.0 * intersect + _SMOOTH) / (denom + _SMOOTH)
     if weight is not None:
         per_class = per_class * torch.as_tensor(weight, dtype=torch.float32,
@@ -52,29 +59,35 @@ def dice_loss(probs: torch.Tensor, target_onehot: torch.Tensor,
 
 
 def dice_loss_from_labels(probs: torch.Tensor, labels: torch.Tensor,
-                          weight: Optional[Sequence[float]] = None
-                          ) -> torch.Tensor:
+                          weight: Optional[Sequence[float]] = None,
+                          group=None) -> torch.Tensor:
     """:func:`dice_loss` against integer labels (one-hot encoded here)."""
-    return dice_loss(probs, _one_hot(labels, probs.shape[-1]), weight)
+    return dice_loss(probs, _one_hot(labels, probs.shape[-1]), weight,
+                     group)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       ignore_index: Optional[int] = None) -> torch.Tensor:
+                       ignore_index: Optional[int] = None,
+                       group=None) -> torch.Tensor:
     """Mean softmax cross-entropy against integer labels; with
-    ``ignore_index``, the mean over the other pixels."""
+    ``ignore_index``, the mean over the other pixels; with a ``group``,
+    the mean over its ranks' batches."""
     logp = F.log_softmax(at_least_fp32(logits), dim=-1)
     nll = -(_one_hot(labels, logits.shape[-1]) * logp).sum(-1)
-    if ignore_index is not None:
-        mask = (labels != ignore_index).float()
-        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
-    return nll.mean()
+    mask = (torch.ones_like(nll) if ignore_index is None
+            else (labels != ignore_index).float())
+    total, count = all_reduce(torch.stack([(nll * mask).sum(), mask.sum()]),
+                              group)
+    return total / count.clamp(min=1.0)
 
 
-def supervised_ce_dice(logits: torch.Tensor, labels: torch.Tensor
-                       ) -> torch.Tensor:
-    """0.5 * (CE + Dice): the supervised objective of every 2-D method."""
-    ce = cross_entropy_loss(logits, labels)
-    dice = dice_loss_from_labels(F.softmax(logits.float(), dim=-1), labels)
+def supervised_ce_dice(logits: torch.Tensor, labels: torch.Tensor,
+                       group=None) -> torch.Tensor:
+    """0.5 * (CE + Dice): the supervised objective of every 2-D method
+    (over the ranks of ``group``'s global batch when given)."""
+    ce = cross_entropy_loss(logits, labels, group=group)
+    dice = dice_loss_from_labels(F.softmax(logits.float(), dim=-1), labels,
+                                 group=group)
     return 0.5 * (ce + dice)
 
 

@@ -40,13 +40,14 @@ _SIGNATURES = {
     "selective_scan_bidir_fwd_occupancy": [_I] * 5 + [_P],
     # batch, L, dg, is_bf16, out (int[9]) as above
     "selective_scan_bidir_bwd_occupancy": [_I] * 4 + [_P],
-    # u, delta, B, C, A, D, delta_bias, y, last_state (or null), cs (or
-    # null), batch, G, L, dg, n, softplus, is_bf16, stream
-    "selective_scan_fwd": [_P] * 10 + [_I] * 7 + [_P],
+    # u, delta, B, C, A, D, delta_bias, x_init (or null), y, last_state
+    # (or null), cs (or null), batch, G, L, dg, n, softplus, is_bf16, stream
+    "selective_scan_fwd": [_P] * 11 + [_I] * 7 + [_P],
     # u, delta, B, C, A, D, delta_bias, cs, gy,
     # du, ddelta, dB_part, dC_part, dA_part, dD_part, ddb_part,
+    # g_last (or null), dx_init (or null),
     # batch, G, L, dg, n, softplus, is_bf16, stream
-    "selective_scan_bwd": [_P] * 16 + [_I] * 7 + [_P],
+    "selective_scan_bwd": [_P] * 18 + [_I] * 7 + [_P],
     # batch, G, L, dg, is_bf16, save, out (int[9]) as the bidir occupancy
     "selective_scan_fwd_occupancy": [_I] * 6 + [_P],
     # batch, G, L, dg, is_bf16, out (int[9]) as the bidir occupancy

@@ -10,7 +10,8 @@ gives the same outputs in one piece, so :func:`selective_scan_ref` stands
 for both::
 
     delta = softplus(delta + delta_bias)            (both optional)
-    x_t   = exp(delta_t * A) * x_{t-1} + delta_t * B_t * u_t     (x_0 = 0)
+    x_t   = exp(delta_t * A) * x_{t-1} + delta_t * B_t * u_t
+            (x_{-1} = x_init, or 0)
     y_t   = <C_t, x_t> + D * u_t
     out   = y * silu(z)                             (if z is given)
 
@@ -20,6 +21,8 @@ Shapes (grouped B/C: channel block g of D shares B/C group g)::
     A             : (D, N)
     B, C          : (B, G, N, L)   or (B, N, L) for G = 1
     D, delta_bias : (D,) or None
+    x_init        : (B, D, N) or None: the incoming state (the carry of
+                    a sequence-sharded scan, ``parallel/seq_scan.py``)
 
 The state and all arithmetic are fp32 whatever the input dtype; the output
 takes the dtype of ``u``; the last state, when asked for, is fp32
@@ -71,9 +74,11 @@ def selective_scan_ref(
     return_last_state: bool = False,
     *,
     state_chunk: int = 0,
+    x_init: Optional[torch.Tensor] = None,
 ):
     """Sequential reference scan -> (B, D, L) in ``u.dtype``, and with
-    ``return_last_state`` also the fp32 (B, D, N) state after step L. With
+    ``return_last_state`` also the fp32 (B, D, N) state after step L. The
+    scan starts from ``x_init`` (B, D, N), or from zero. With
     ``state_chunk`` = k > 0 it also returns, last, the fp32 states entering
     steps 0, k, 2k, ... as (B, ceil(L / k), D, N): the chunk-entry states
     that a training forward saves for its backward."""
@@ -88,7 +93,8 @@ def selective_scan_ref(
     A_g = A_f.reshape(G, dg, n)
     u_g = u_f.reshape(bsz, G, dg, L)
     delta_g = delta_f.reshape(bsz, G, dg, L)
-    x = u_f.new_zeros(bsz, G, dg, n)
+    x = (u_f.new_zeros(bsz, G, dg, n) if x_init is None
+         else x_init.float().reshape(bsz, G, dg, n))
     ys, states = [], []
     for t in range(L):
         if state_chunk and t % state_chunk == 0:
@@ -107,12 +113,14 @@ def selective_scan_ref(
 
 
 def selective_scan_ref_bwd(u, delta, A, B, C, D, delta_bias, delta_softplus,
-                           gy):
-    """Plain backward of :func:`selective_scan_ref` (without ``z`` and the
-    last state) for the cotangent ``gy`` of its output: the forward loop
-    keeps the state entering every step, then one loop backwards in time
-    carries the state's cotangent. Returns fp32 (du, ddelta, dA, dB, dC,
-    dD, ddelta_bias) in the operands' shapes; dD and ddelta_bias are None
+                           gy, x_init=None, g_last=None):
+    """Plain backward of :func:`selective_scan_ref` (without ``z``) for the
+    cotangent ``gy`` of its output and ``g_last`` (B, D, N) of its last
+    state (None: zero): the forward loop, from ``x_init`` or zero, keeps
+    the state entering every step, then one loop backwards in time carries
+    the state's cotangent. Returns fp32 (du, ddelta, dA, dB, dC, dD,
+    ddelta_bias) in the operands' shapes, and with an ``x_init`` last also
+    dx_init, the cotangent carried past step 0; dD and ddelta_bias are None
     for a missing D or delta_bias. It needs no autograd, so the training
     ops' CPU implementations, which run below autograd, can call it."""
     u_f, dt, A_f, B_f, C_f = _prep(u, delta, A, B, C, delta_bias,
@@ -126,7 +134,8 @@ def selective_scan_ref_bwd(u, delta, A, B, C, D, delta_bias, delta_softplus,
     gy_g = gy.float().reshape(bsz, G, dg, L)
     D_g = (torch.zeros(G, dg) if D is None else D.float().reshape(G, dg)
            ).to(u_f.device)
-    x = u_f.new_zeros(bsz, G, dg, n)
+    x = (u_f.new_zeros(bsz, G, dg, n) if x_init is None
+         else x_init.float().reshape(bsz, G, dg, n))
     entering = []
     for t in range(L):
         entering.append(x)
@@ -136,7 +145,9 @@ def selective_scan_ref_bwd(u, delta, A, B, C, D, delta_bias, delta_softplus,
     du, ddt = torch.empty_like(u_g), torch.empty_like(dt_g)
     dB, dC = torch.empty_like(B_f), torch.empty_like(C_f)
     dA = torch.zeros_like(A_g)
-    h = torch.zeros_like(x)  # cotangent of the state after step t
+    # cotangent of the state after step t
+    h = (torch.zeros_like(x) if g_last is None
+         else g_last.float().reshape(bsz, G, dg, n))
     for t in reversed(range(L)):
         d_t, u_t, g_t = dt_g[..., t, None], u_g[..., t], gy_g[..., t]
         a_t = torch.exp(d_t * A_g)
@@ -158,8 +169,9 @@ def selective_scan_ref_bwd(u, delta, A, B, C, D, delta_bias, delta_softplus,
     ddelta = ddt.reshape(bsz, dim, L)
     dD = None if D is None else (gy_g * u_g).sum((0, 3)).reshape(dim)
     ddb = None if delta_bias is None else ddelta.sum((0, 2))
-    return (du.reshape(bsz, dim, L), ddelta, dA.reshape(dim, n),
-            dB.reshape(B.shape), dC.reshape(C.shape), dD, ddb)
+    grads = (du.reshape(bsz, dim, L), ddelta, dA.reshape(dim, n),
+             dB.reshape(B.shape), dC.reshape(C.shape), dD, ddb)
+    return grads if x_init is None else grads + (h.reshape(bsz, dim, n),)
 
 
 def selective_scan(
@@ -173,8 +185,10 @@ def selective_scan(
     delta_bias=None,
     delta_softplus: bool = False,
     return_last_state: bool = False,
+    x_init=None,
 ):
-    """The public selective scan on (B, D, L) inputs.
+    """The public selective scan on (B, D, L) inputs, from the incoming
+    state ``x_init`` (B, D, N) or zero.
 
     CPU tensors run :func:`selective_scan_ref`. CUDA tensors go time-major
     through ``selective_scan_grouped``, which launches the CUDA kernel
@@ -184,7 +198,8 @@ def selective_scan(
     the JAX package's Pallas wrapper does."""
     if u.device.type == "cpu":
         return selective_scan_ref(u, delta, A, B, C, D, z, delta_bias,
-                                  delta_softplus, return_last_state)
+                                  delta_softplus, return_last_state,
+                                  x_init=x_init)
     bsz, dim, L = u.shape
     B, C = _canon_bc(B), _canon_bc(C)
     G = B.shape[1]
@@ -201,7 +216,8 @@ def selective_scan(
         C.to(io).transpose(2, 3).contiguous(),
         zeros if D is None else D.float().contiguous(),
         zeros if delta_bias is None else delta_bias.float().contiguous(),
-        delta_softplus, return_last_state)
+        delta_softplus, return_last_state,
+        None if x_init is None else x_init.float().contiguous())
     y, last = out if return_last_state else (out, None)
     y = y.transpose(2, 3).reshape(bsz, dim, L)
     y = y.to(u.dtype) if z is None else silu_gate(y, z, u.dtype)

@@ -108,6 +108,7 @@ def _ce_dice(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 class ContrastiveConsistencyTrainer(Trainer):
     supports_grad_accum = False
+    supports_data_parallel = False
 
     def __init__(self, model: nn.Module, config: TrainConfig,
                  model2: nn.Module, labeled_bs: int = 12,

@@ -57,6 +57,7 @@ def _mean_dice(metrics) -> float:
 class MADPretrainTrainer(Trainer):
     """The base step on corrupted-label batches; validated on corrupted
     label slices (``transform.mask_label_only`` corrupts each one)."""
+    supports_data_parallel = False
 
     def __init__(self, model: nn.Module, config: TrainConfig,
                  transform=None, **kw):
@@ -84,6 +85,7 @@ class MADFineTuneTrainer(Trainer):
     """The stacked fine-tuning of a segmenter and two denoisers."""
 
     supports_grad_accum = False
+    supports_data_parallel = False
 
     def __init__(self, model: nn.Module, config: TrainConfig,
                  mad_model: nn.Module, den_model: nn.Module, **kw):

@@ -123,6 +123,7 @@ def magic_dice_labels(probs: torch.Tensor, labels: torch.Tensor,
 
 class MagicNetTrainer(Trainer):
     supports_grad_accum = False
+    supports_data_parallel = False
 
     def __init__(self, model: nn.Module, config: TrainConfig,
                  labeled_bs: int = 12, cube_size: int = 32,

@@ -56,6 +56,7 @@ MASK_MODEL_METHODS = ("forward_mix_pos_mask", "forward_encoder",
 
 class MaskPretrainTrainer(Trainer):
     supports_grad_accum = False
+    supports_data_parallel = False
 
     def __init__(self, model: nn.Module, config: TrainConfig,
                  cube_size: int = 32, masked_rate: float = 0.25,

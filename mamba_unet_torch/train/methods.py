@@ -81,6 +81,7 @@ class MeanTeacherTrainer(Trainer):
     # unlabeled batch and sliced, and one EMA update follows the one
     # optimizer update; the Dice term becomes per-microbatch Dice
     supports_grad_accum = True
+    supports_data_parallel = False
 
     def __init__(self, model: nn.Module, config: TrainConfig,
                  labeled_bs: int = 8, consistency: float = 0.1,
@@ -223,6 +224,7 @@ class CrossTeachingTrainer(Trainer):
     both models, both optimizers and schedules, and the step."""
 
     supports_grad_accum = False
+    supports_data_parallel = False
 
     def __init__(self, model: nn.Module, config: TrainConfig,
                  model2: nn.Module, labeled_bs: int = 8,

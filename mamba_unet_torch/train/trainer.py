@@ -34,6 +34,20 @@ the optimizer still decays them, as the JAX step does with its zero
 gradients (``torch.optim.SGD`` skips a parameter whose ``grad`` is None);
 :func:`call_discarding_stats` runs a pass whose BatchNorm statistics the
 step throws away.
+
+Data parallelism (``mesh``, as the JAX trainer's): over a mesh whose
+``data`` axis has S > 1 ranks, each rank runs the step on its rows of the
+global batch it is handed, and the step computes what the one-process
+step computes on that batch: BatchNorm statistics, the cross-entropy's
+mean and the Dice's per-class sums over the global batch, dropout and
+drop-path masks drawn for the global batch from the trainer's generator
+(each rank keeps its rows), and the gradients summed over the ranks. The
+collectives sum the gradients in their backward, so every rank's
+gradient is S times its share of the global loss's, and the sum over the
+ranks is divided by S once. The ranks start from rank 0's weights;
+validation, the scalar log and checkpoints run on rank 0 only. The
+multi-model trainers (``supports_data_parallel = False``) take a
+one-rank mesh only.
 """
 
 from __future__ import annotations
@@ -51,6 +65,13 @@ from torch.func import functional_call
 from mamba_unet_torch.eval.inference import evaluate_slice_volumes
 from mamba_unet_torch.nn.layers import set_generator
 from mamba_unet_torch.objectives import supervised_ce_dice
+from mamba_unet_torch.parallel.comm import batch_shard
+from mamba_unet_torch.parallel.mesh import (
+    Mesh,
+    batch_sharding,
+    make_mesh,
+    replicated,
+)
 from mamba_unet_torch.train.optim import poly_sgd
 from mamba_unet_torch.utils.checkpoint import (
     latest_step,
@@ -86,16 +107,20 @@ class TrainConfig:
     # bf16 autocast for the forward and the loss (the JAX package builds
     # its model with dtype=bfloat16 instead)
     bf16: bool = False
+    # scalars (loss, lr, the val mean Dice) into snapshot_dir/log
+    # (utils/experiment.py: an event file where tensorboard is installed,
+    # and scalars.jsonl)
+    tensorboard: bool = False
 
 
-def fully_supervised_loss(model: nn.Module, batch: Dict[str, torch.Tensor]
-                          ) -> Tuple[torch.Tensor, Dict]:
-    """0.5 * (CE + Dice) on the whole batch; a multi-head model trains on
-    its main head."""
+def fully_supervised_loss(model: nn.Module, batch: Dict[str, torch.Tensor],
+                          group=None) -> Tuple[torch.Tensor, Dict]:
+    """0.5 * (CE + Dice) on the whole batch (over ``group``'s global batch
+    when given); a multi-head model trains on its main head."""
     logits = model(batch["image"])
     if isinstance(logits, (tuple, list)):
         logits = logits[0]
-    loss = supervised_ce_dice(logits, batch["label"])
+    loss = supervised_ce_dice(logits, batch["label"], group)
     return loss, {"loss_total": loss.detach()}
 
 
@@ -149,15 +174,28 @@ class Trainer:
     # this False, so that grad_accum_steps > 1 raises instead of being
     # ignored
     supports_grad_accum: bool = True
+    # and this False, so that a data axis of more than one rank raises
+    supports_data_parallel: bool = True
 
     def __init__(self, model: nn.Module, config: TrainConfig,
                  make_optimizer: Optional[OptimizerFactory] = None,
-                 device="cuda"):
+                 device="cuda", mesh: Optional[Mesh] = None):
         """``make_optimizer(params) -> (optimizer, scheduler)``, by default
         :func:`poly_sgd` at ``config.base_lr`` over
         ``config.max_iterations``. The model moves to ``device``, which is
-        the card unless the caller asks for the CPU."""
+        the card unless the caller asks for the CPU. ``mesh`` (default: all
+        ranks of the process group on one ``data`` axis, one rank without
+        a process group) splits each batch over its ``data`` axis."""
         cfg = self.config = config
+        self.mesh = make_mesh() if mesh is None else mesh
+        n_data = self.mesh.shape.get("data", 1)
+        if n_data > 1 and not self.supports_data_parallel:
+            raise NotImplementedError(
+                f"{type(self).__name__} takes a one-rank mesh: data "
+                f"parallelism for the multi-model trainers is ROADMAP.md "
+                f"queue 1, item 17b")
+        self._shard = (None if n_data == 1
+                       else batch_sharding(self.mesh, "data"))
         k = cfg.grad_accum_steps
         if k > 1 and not self.supports_grad_accum:
             raise ValueError(f"{type(self).__name__} does not support "
@@ -165,8 +203,13 @@ class Trainer:
         if k < 1 or cfg.batch_size % k:
             raise ValueError(f"batch_size={cfg.batch_size} is not divisible "
                              f"by grad_accum_steps={k}")
+        if (cfg.batch_size // k) % n_data:
+            raise ValueError(f"a microbatch of {cfg.batch_size // k} rows "
+                             f"does not split over {n_data} data ranks")
         self.device = require_device(device)
         self.model = model.to(self.device).train()
+        if self._shard is not None:
+            replicated(self.model, self.mesh, "data")
         if make_optimizer is None:
             def make_optimizer(params):
                 return poly_sgd(params, cfg.base_lr, cfg.max_iterations)
@@ -197,19 +240,46 @@ class Trainer:
         image = batch["image"].to(self.device, non_blocking=True).float()
         label = batch["label"].to(self.device, non_blocking=True).long()
         k = cfg.grad_accum_steps
+        shard = self._shard
+        group = None if shard is None else shard.group
         self.optimizer.zero_grad(set_to_none=True)
         losses = []
         for img, lab in zip(image.chunk(k), label.chunk(k)):
-            with self._autocast():
+            if shard is not None:  # this rank's rows of the microbatch
+                img, lab = shard.rows(img), shard.rows(lab)
+            with self._autocast(), batch_shard(shard):
                 loss, logs = fully_supervised_loss(
-                    self.model, {"image": img, "label": lab})
-            (loss / k).backward()
+                    self.model, {"image": img, "label": lab}, group)
+                (loss / k).backward()
             losses.append(logs["loss_total"])
+        self._reduce_grads(self.model)
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1
         return {"loss_total": torch.stack(losses).mean(),
                 "lr": self.scheduler.get_last_lr()[0]}
+
+    def _reduce_grads(self, *modules: nn.Module) -> None:
+        """Data parallelism: each gradient summed over the data axis and
+        divided by its size (every rank's is S times its share), in one
+        flat all-reduce; nothing on one rank."""
+        if self._shard is None:
+            return
+        grads = [p.grad for m in modules for p in m.parameters()
+                 if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        torch.distributed.all_reduce(flat, group=self._shard.group)
+        flat /= self._shard.count
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+
+    @property
+    def is_main(self) -> bool:
+        """Rank 0 of the mesh: the rank that validates, logs scalars and
+        writes checkpoints."""
+        return self.mesh.rank == 0
 
     # --- eval -------------------------------------------------------------
     def predict_fn(self, model: Optional[nn.Module] = None) -> Callable:
@@ -310,6 +380,13 @@ class Trainer:
         cfg = self.config
         history = []
         it0 = self.try_resume()
+        main = self.is_main
+        snapshot_dir = cfg.snapshot_dir if main else None
+        tb = None
+        if cfg.tensorboard and snapshot_dir:
+            from mamba_unet_torch.utils.experiment import TensorboardLogger
+
+            tb = TensorboardLogger(f"{snapshot_dir}/log")
         names = [name for name, _ in self._best_models()]
         # the marks load whenever resume is asked for, not only when a
         # periodic checkpoint exists: a run killed after a best save but
@@ -328,21 +405,29 @@ class Trainer:
                 log.info("iter %d loss %.4f lr %.5f (%.1f it/s)", it, loss,
                          logs["lr"], (it - it0) / (time.time() - t0))
                 history.append({"iter": it, "loss": loss})
-            if val_dataset is not None and it % cfg.eval_every == 0:
+                if tb is not None:
+                    tb.scalars(it, {"info/total_loss": loss,
+                                    "info/lr": float(logs["lr"])})
+            if main and val_dataset is not None and it % cfg.eval_every == 0:
                 entry = {"iter": it}
                 for name, model in self._best_models():
                     dice = self.evaluate(val_dataset, model=model)
                     log.info("iter %d val mean dice (%s) %.4f (best %.4f)",
                              it, name, dice, best[name])
                     entry["val_dice" + name[len("best"):]] = dice
+                    if tb is not None:
+                        tb.scalars(it, {"info/val_mean_dice"
+                                        + name[len("best"):]: dice})
                     if dice > best[name]:
                         best[name] = dice
-                        if cfg.snapshot_dir:
+                        if snapshot_dir:
                             self._save_best(name, model, it)
-                            save_best_marks(cfg.snapshot_dir, {name: dice})
+                            save_best_marks(snapshot_dir, {name: dice})
                 history.append(entry)
-            if cfg.snapshot_dir and it % cfg.ckpt_every == 0:
+            if snapshot_dir and it % cfg.ckpt_every == 0:
                 self._save_periodic(it)
+        if tb is not None:
+            tb.close()
         result = {"iterations": self.step, "history": history}
         result.update({"best_dice" + name[len("best"):]: value
                        for name, value in best.items()})

@@ -46,6 +46,7 @@ class WeakScribbleTrainer(Trainer):
     """Three-network scribble-supervised trainer (Weak-Mamba-UNet)."""
 
     supports_grad_accum = False
+    supports_data_parallel = False
 
     def __init__(self, model: nn.Module, config: TrainConfig,
                  model2: nn.Module, model3: nn.Module,

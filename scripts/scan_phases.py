@@ -254,11 +254,13 @@ def launches(torch, dev, L, dg):
                         *ptrs(bi_grads), BATCH, L, dg, 16, 0, stream),
             2 * BATCH * nt),
         "selective_scan_fwd(states)": ("selective_scan_fwd", "fwd_group",
-            lambda f: f(*gr_in, gr_y.data_ptr(), None, gr_cs2.data_ptr(),
-                        BATCH, 4, L, dg, 16, 1, 0, stream), 4 * BATCH * fb),
+            lambda f: f(*gr_in, None, gr_y.data_ptr(), None,
+                        gr_cs2.data_ptr(), BATCH, 4, L, dg, 16, 1, 0,
+                        stream), 4 * BATCH * fb),
         "selective_scan_bwd": ("selective_scan_bwd", "bwd",
             lambda f: f(*gr_in, gr_cs.data_ptr(), gr_gy.data_ptr(),
-                        *ptrs(gr_grads), BATCH, 4, L, dg, 16, 1, 0, stream),
+                        *ptrs(gr_grads), None, None, BATCH, 4, L, dg, 16, 1,
+                        0, stream),
             4 * BATCH * gt),
         "selective_scan_folded_fwd": ("selective_scan_folded_fwd",
             "fwd_group", lambda f: f(*fo_in, fo_y.data_ptr(), None, BATCH, 4,
@@ -287,8 +289,8 @@ def lm_launches(torch, dev):
     stream = torch.cuda.current_stream().cuda_stream
     return (a, y), {"selective_scan_fwd(scoring)": (
         "selective_scan_fwd", "fwd_group",
-        lambda f: f(*ins, y.data_ptr(), None, None, bsz, 1, L, dg, 16, 1, 0,
-                    stream), bsz * -(-dg // 32))}
+        lambda f: f(*ins, None, y.data_ptr(), None, None, bsz, 1, L, dg, 16,
+                    1, 0, stream), bsz * -(-dg // 32))}
 
 
 def main() -> int:

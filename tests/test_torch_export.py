@@ -81,7 +81,9 @@ def _operands(kind, bsz=2, L=7, dg=4, n=16, seed=0):
 
 
 def _op_cases():
-    """(op, its arguments) for the nine custom ops."""
+    """(op, its arguments) for the nine custom ops, and the grouped ones
+    also with their optional incoming state, last state and its
+    cotangent (``*_carry``)."""
     cases = {}
     args = _operands("bidir")
     y, cs = sb.selective_scan_bidir_fwd_states(*args)
@@ -94,6 +96,15 @@ def _op_cases():
     cases["grouped_fwd_states"] = (sg._fwd_states_op, (*args, True))
     cases["grouped_bwd"] = (sg._bwd_op, (*args, cs, torch.randn(y.shape),
                                          True))
+    x0, g_last = (torch.randn(y.shape[0], args[2].shape[0], 16)
+                  for _ in range(2))
+    _, cs0 = sg.selective_scan_grouped_fwd_states(*args, True, x0)
+    cases["grouped_serve_carry"] = (sg._serve_op, (*args, True, True, x0))
+    cases["grouped_fwd_states_carry"] = (sg._fwd_states_op,
+                                         (*args, True, x0, True))
+    cases["grouped_bwd_carry"] = (sg._bwd_op, (*args, cs0,
+                                               torch.randn(y.shape), True,
+                                               x0, g_last))
     args = _operands("folded")
     y, cs = sf.selective_scan_folded_fwd_states(*args)
     cases["folded_serve"] = (sf._serve_op, (*args, True, True))
@@ -107,7 +118,8 @@ def _op_cases():
 
 OP_NAMES = ("bidir_serve", "bidir_fwd_states", "bidir_bwd", "grouped_serve",
             "grouped_fwd_states", "grouped_bwd", "folded_serve",
-            "folded_fwd_states", "folded_bwd")
+            "folded_fwd_states", "folded_bwd", "grouped_serve_carry",
+            "grouped_fwd_states_carry", "grouped_bwd_carry")
 
 
 @pytest.fixture(scope="module")

@@ -385,6 +385,82 @@ def test_grouped_training_kernels_match_plain_versions(cuda, dtype, G, L, dg,
                             f"d{name}")
 
 
+# (G, L, dg, offset) of the carry variants' checks at batch 2: a stage
+# shape of the tm branch, the mamba-130m width, a ragged L and dg, L = 1
+# and 17 (the incoming state is chunk 0's entry state), a view one element
+# into its buffer
+CARRY_SHAPES = [(4, 784, 384, 0), (1, 1000, 1536, 0), (1, 7, 130, 0),
+                (1, 1, 129, 0), (2, 17, 48, 0), (2, 33, 48, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G,L,dg,offset", CARRY_SHAPES)
+def test_grouped_kernels_with_a_carry_match_plain_versions(cuda, dtype, G, L,
+                                                           dg, offset):
+    """#3, #3s and #4u with an incoming state ``x_init``, the last state
+    and its cotangent ``g_last``: y, the last state, cs and all eight
+    gradients (``x_init``'s too) against the plain versions; each launch
+    also counts as a carry launch."""
+    from mamba_unet_torch.ops import selective_scan_grouped as sg
+
+    args = _offset([a.to(cuda) for a in _grouped_args(2, G, L, dg, dtype,
+                                                      seed=L + dg)], offset)
+    g = torch.Generator().manual_seed(5)
+    x0 = torch.randn(2, G * dg, 16, generator=g).to(cuda)
+    g_last = torch.randn(2, G * dg, 16, generator=g).to(cuda)
+    kernels = (sg.selective_scan_grouped, sg.selective_scan_grouped_fwd_states,
+               sg.selective_scan_grouped_bwd)
+    before = [k.carry_launches for k in kernels]
+    y, last = sg.selective_scan_grouped(*args, True, True, x_init=x0)
+    want_y, want_last = sg.selective_scan_grouped_ref(*args, True, True, x0)
+    assert_close_to_max(y, want_y, 1e-4, "y")
+    assert_close_to_max(last, want_last, 1e-4, "last state")
+    y, cs, last = sg.selective_scan_grouped_fwd_states(*args, True, x0, True)
+    for what, got, want in zip(("y", "cs", "last"), (y, cs, last),
+                               sg.selective_scan_grouped_states_ref(
+                                   *args, True, x0, True)):
+        assert_close_to_max(got, want, 1e-4, what)
+    gy = torch.randn(y.shape, generator=g).to(cuda, y.dtype)
+    got = sg.selective_scan_grouped_bwd(*args, cs, gy, True, x0, g_last)
+    torch.cuda.synchronize()
+    assert [k.carry_launches for k in kernels] == [b + 1 for b in before]
+    want = sg.selective_scan_grouped_bwd_ref(*args, gy, True, x0, g_last)
+    for name, gr, w in zip(sg.ARG_NAMES + ("x_init",), got, want):
+        assert_close_to_max(gr, w, 1e-3 if name in SUMMED else 1e-4,
+                            f"d{name}")
+
+
+@pytest.mark.cuda
+def test_scan_split_over_L_with_a_carry_matches_one_scan_on_card(cuda):
+    """The training scan of two halves of L, the second from the first's
+    differentiable last state, gives the one-piece scan's y and every
+    gradient: the chain that the sequence-sharded scan runs."""
+    from mamba_unet_torch.ops import selective_scan_grouped as sg
+
+    base = _grouped_args(2, 4, 200, 48, "float32", seed=9)
+    args = [a.to(cuda).requires_grad_() for a in base]
+    gy = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
+        2)).to(cuda)
+    y = sg.selective_scan_grouped(*args, True)
+    (y * gy).sum().backward()
+    want = [a.grad.clone() for a in args]
+    for a in args:
+        a.grad = None
+    k = 90
+    first = [t[:, :, :k].contiguous() if i in (0, 1, 3, 4) else t
+             for i, t in enumerate(args)]
+    second = [t[:, :, k:].contiguous() if i in (0, 1, 3, 4) else t
+              for i, t in enumerate(args)]
+    y1, last = sg.selective_scan_grouped(*first, True, True)
+    y2 = sg.selective_scan_grouped(*second, True, x_init=last)
+    got_y = torch.cat([y1, y2], 2)
+    (got_y * gy).sum().backward()
+    assert_close_to_max(got_y.detach(), y.detach(), 1e-5, "y")
+    for name, a, w in zip(sg.ARG_NAMES, args, want):
+        assert_close_to_max(a.grad, w, 1e-4, f"d{name}")
+
+
 @pytest.mark.cuda
 def test_mamba_gradients_on_card_match_cpu(cuda):
     """``loss.backward()`` through a small bimamba-v2 ``Mamba``: every
@@ -612,7 +688,9 @@ def _op_cases(dev):
     """(name, op, arguments) of the nine custom ops at toy shapes (batch 2,
     L = 37, dg = 20: a partial 16-step chunk and a ragged channel tile),
     fp32, on ``dev``; the cs and cotangent operands come from the plain
-    versions, so both devices' backwards read the same ones."""
+    versions, so both devices' backwards read the same ones. The
+    ``*_carry`` cases run the grouped training ops with an incoming state,
+    the last state and its cotangent (every output they have)."""
     from mamba_unet_torch.ops import selective_scan_folded as sf
     from mamba_unet_torch.ops import selective_scan_grouped as sg
 
@@ -654,6 +732,14 @@ def _op_cases(dev):
         ("folded_bwd", "selective_scan_folded_bwd",
          folded + [cs_f, r(4, L, bsz * dg), True, True]),
     ]
+    x0, g_last = r(bsz, 4 * dg, n), r(bsz, 4 * dg, n)
+    _, cs_g0 = sg.selective_scan_grouped_states_ref(*grouped, True, x0)
+    cases += [
+        ("grouped_fwd_states_carry", "selective_scan_grouped_fwd_states",
+         grouped + [True, x0, True]),
+        ("grouped_bwd_carry", "selective_scan_grouped_bwd",
+         grouped + [cs_g0, r(bsz, 4, L, dg), True, x0, g_last]),
+    ]
     return [(name, getattr(torch.ops.mamba_unet, op),
              [a.to(dev) if torch.is_tensor(a) else a for a in args])
             for name, op, args in cases]
@@ -661,7 +747,8 @@ def _op_cases(dev):
 
 OP_CASES = ("bidir_serve", "bidir_fwd_states", "bidir_bwd", "grouped_serve",
             "grouped_fwd_states", "grouped_bwd", "folded_serve",
-            "folded_fwd_states", "folded_bwd")
+            "folded_fwd_states", "folded_bwd", "grouped_fwd_states_carry",
+            "grouped_bwd_carry")
 
 
 @pytest.mark.cuda
@@ -670,7 +757,7 @@ def test_custom_op_cuda_matches_its_cpu_implementation(cuda, case):
     """Each ``torch.ops.mamba_unet`` op: its CUDA implementation (the
     kernel) against its CPU implementation (the plain version) on the same
     operands, each output at 1e-4 of its max (1e-3 for the sums dA, dD,
-    ddelta_bias)."""
+    ddelta_bias); an output that was not asked for is empty on both."""
     (name, op, args), = [c for c in _op_cases("cpu") if c[0] == case]
     want = op(*args)
     got = op(*[a.to(cuda) if torch.is_tensor(a) else a for a in args])
@@ -678,8 +765,10 @@ def test_custom_op_cuda_matches_its_cpu_implementation(cuda, case):
     got = got if isinstance(got, tuple) else (got,)
     assert len(got) == len(want)
     for i, (g, w) in enumerate(zip(got, want)):
-        rel = 1e-3 if name.endswith("bwd") and i in (2, 5, 6) else 1e-4
+        rel = 1e-3 if "_bwd" in name and i in (2, 5, 6) else 1e-4
         assert g.device.type == "cuda" and g.shape == w.shape
+        if w.numel() == 0:
+            continue
         assert_close_to_max(g.cpu(), w, rel, f"{name} output {i}")
 
 

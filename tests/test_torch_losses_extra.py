@@ -30,6 +30,16 @@ from mamba_unet_tpu.utils import sdf as j_sdf  # noqa: E402
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def fast_jax_compiles():
+    """XLA's cheaper compile while this file runs: the JAX references are
+    compile-bound."""
+    before = jax.config.values["jax_disable_most_optimizations"]
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", before)
+
+
 def _scribble_batch(rng):
     """Logits and scribble labels (4 = unlabeled): class 2 is scribbled
     nowhere, and the second sample nowhere at all."""

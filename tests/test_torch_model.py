@@ -41,6 +41,16 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def fast_jax_compiles():
+    """XLA's cheaper compile while this file runs: the JAX references are
+    compile-bound."""
+    before = jax.config.values["jax_disable_most_optimizations"]
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", before)
+
+
 @pytest.fixture(scope="module")
 def toy():
     """The toy JAX model, its weights, an input, and the port model holding

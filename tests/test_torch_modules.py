@@ -34,6 +34,16 @@ from mamba_unet_tpu.nn.ss2d import SS2D as JSS2D  # noqa: E402
 from mamba_unet_tpu.ops import selective_scan_persistent as ssper  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def fast_jax_compiles():
+    """XLA's cheaper compile while this file runs: the JAX references are
+    compile-bound."""
+    before = jax.config.values["jax_disable_most_optimizations"]
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", before)
+
+
 def _port_forward(jmodule, tmodule, x):
     """Init ``jmodule`` on ``x``, carry its weights into ``tmodule``; return
     (jax variables, port output as numpy)."""

@@ -65,6 +65,16 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def fast_jax_compiles():
+    """XLA's cheaper compile while this file runs: the JAX references are
+    compile-bound."""
+    before = jax.config.values["jax_disable_most_optimizations"]
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", before)
+
+
 def t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
@@ -173,7 +183,9 @@ def test_plain_training_scan_bf16_against_jax_fp32():
 def test_autograd_function_on_cpu_runs_the_plain_versions():
     """Under grad, ``selective_scan_grouped`` is the autograd Function: the
     gradients of autograd through the plain forward, no launches counted;
-    ``return_last_state`` is refused there and served without grad."""
+    with ``return_last_state`` there the last state carries a gradient
+    too (autograd's through the plain forward), and without grad it is
+    served."""
     inp = _scan_inputs(np.random.default_rng(9), 2, 2, 21, 8)
     leaves = [t(inp[k]).requires_grad_() for k in sg.ARG_NAMES]
     counts = (sg.selective_scan_grouped.launches,
@@ -191,8 +203,14 @@ def test_autograd_function_on_cpu_runs_the_plain_versions():
     assert counts == (sg.selective_scan_grouped.launches,
                       sg.selective_scan_grouped_fwd_states.launches,
                       sg.selective_scan_grouped_bwd.launches)
-    with pytest.raises(ValueError, match="no_grad"):
-        sg.selective_scan_grouped(*leaves, True, True)
+    y1, last1 = sg.selective_scan_grouped(*leaves, True, True)
+    g_last = t(np.random.default_rng(11).normal(size=last1.shape).astype(
+        np.float32))
+    got = torch.autograd.grad((y1, last1), leaves, (gy, g_last))
+    want = torch.autograd.grad(sg.selective_scan_grouped_ref(
+        *plain, True, True), plain, (gy, g_last))
+    for name, g, w in zip(sg.ARG_NAMES, got, want):
+        torch.testing.assert_close(g, w, msg=name)
     with torch.no_grad():
         y2, last = sg.selective_scan_grouped(*leaves, True, True)
     torch.testing.assert_close(y2, y.detach())
@@ -377,13 +395,12 @@ def test_train_cli_scan_impl_tm_on_cpu(monkeypatch):
 
 @pytest.mark.parametrize("impl,error,reason", [
     ("hwbc_folded", NotImplementedError, "TPU-only"),
-    ("no_such_route", ValueError, "unknown SS2D scan_impl"),
-    ("seq_sharded", NotImplementedError, "parallelism item"),
-    ("tp_sharded", NotImplementedError, "parallelism item")])
+    ("no_such_route", ValueError, "unknown SS2D scan_impl")])
 def test_unported_scan_impl_names_its_reason(impl, error, reason):
-    """Each refused route of the JAX SS2D says why it is refused: the TPU
-    layout, or the parallelism item it waits for; a value the JAX SS2D
-    does not know is refused as such."""
+    """The refused route of the JAX SS2D says why it is refused (the TPU
+    layout); a value the JAX SS2D does not know is refused as such. The
+    sharded routes are ported (``parallel/``): they pass the check and
+    need their context to run (``tests/test_torch_parallel.py``)."""
     with pytest.raises(error, match=reason):
         tss2d.check_scan_impl(impl)
 
@@ -398,11 +415,18 @@ def test_ported_scan_impl_passes(impl):
 
 @pytest.mark.parametrize("impl", ["hwbc_folded", "seq_sharded"])
 def test_train_cli_unported_scan_impl_raises(impl):
-    """The model refuses both; the CLI offers neither (its parser refuses
-    them before any data is loaded) and offers the ported ``xla``."""
+    """The CLI offers neither, as the JAX CLI (its parser refuses them
+    before any data is loaded), and offers the ported ``xla``. The model
+    refuses ``hwbc_folded``; ``seq_sharded`` builds and its forward
+    raises outside a ``sequence_sharding`` context."""
     with pytest.raises(SystemExit):
         train_cli.build_parser().parse_args(["--scan_impl", impl])
     assert train_cli.build_parser().parse_args(
         ["--scan_impl", "xla"]).scan_impl == "xla"
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TMambaUnet(depths=(1,), dims=(8,), scan_impl=impl)
+    if impl == "hwbc_folded":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            TMambaUnet(depths=(1,), dims=(8,), scan_impl=impl)
+    else:
+        model = TMambaUnet(depths=(1,), dims=(8,), scan_impl=impl)
+        with pytest.raises(RuntimeError, match="sequence_sharding"):
+            model(torch.zeros(1, 16, 16, 1))

@@ -57,6 +57,16 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def fast_jax_compiles():
+    """XLA's cheaper compile while this file runs: the JAX references are
+    compile-bound."""
+    before = jax.config.values["jax_disable_most_optimizations"]
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", before)
+
+
 def _flat(params):
     return {k: np.asarray(v) for k, v in flatten_dict(params, sep="/").items()}
 
@@ -281,10 +291,13 @@ def _as_torch(batch):
 
 @pytest.fixture(scope="module")
 def jax_two_steps():
-    """The JAX Trainer (poly-SGD, fp32, Pallas scan in interpret mode) on a
-    one-device mesh: initial weights, two steps' losses, final weights."""
+    """The JAX Trainer (poly-SGD, fp32) on a one-device mesh: initial
+    weights, two steps' losses, final weights. Its scan is JAX's plain
+    sequential reference (``scan_impl="ref"``, the function of its Pallas
+    kernel, which ``tests/test_torch_tm.py`` and ``test_torch_model.py``
+    hold the port to), a third of the compile."""
     model = JMambaUnet(img_size=32, num_classes=4, drop_path_rate=0.0,
-                       scan_impl="bidir", **TOY)
+                       scan_impl="ref", **TOY)
     trainer = JTrainer(model, _cfg(JTrainConfig),
                        mesh=make_mesh(jax.devices()[:1]))
     init = _flat(trainer.state.params)
