@@ -327,11 +327,12 @@ exits non-zero; nothing is caught):
               mamba-130m shape (8 x 1024 x 1536, G = 1) and ViM stage 0
               (bs24, G = 4, dg 192, L 3136), fp32 and bf16; each timed
               with and without the new arguments (fp32).
-53. seq_parallel, tp_parallel, pipeline, data_parallel - one group of 2
-              ``gloo`` ranks sharing card 0 (correctness, not speed), and
-              a third process running the one-process references beside
-              them, after the card-vs-CPU parity phases (beside those, the
-              ranks slowed them by more than they took alone):
+53. seq_parallel, tp_parallel, pipeline, data_parallel,
+    data_parallel_methods - one group of 2 ``gloo`` ranks sharing card 0
+              (correctness, not speed), and a third process running the
+              one-process references, started side by side before the
+              card-vs-CPU parity phases (which print no times) and
+              collected after them:
               full-width ``ViM_seg`` (bs8 @ 224², fp32) on
               ``scan_impl="seq_sharded"`` and ``"tp_sharded"``, served
               and trained, against the one-process tm branch of the same
@@ -341,7 +342,17 @@ exits non-zero; nothing is caught):
               data-parallel steps of 2 x 12 rows of a bs24 bf16
               ``ViM_seg`` batch with drop-path 0.2 and of a ``unet`` (fp32,
               BatchNorm), losses and weights against the one-process
-              bs24 steps. The carry variants' launches are counted here.
+              bs24 steps; every multi-model trainer's 2 steps
+              (cross-teaching ``ViM_seg`` + ``unet`` at bs24 bf16 with 8
+              labeled; mean teacher, UAMT, Weak-Mamba-UNet's trio,
+              contrastive consistency plain and with mask recovery, mask
+              pretraining, MagicNet with and without mask recovery at a
+              global batch of 4 (2 labeled) at 224², the 3-D MagicNet at
+              96³ batch 4, MAD pretraining and fine-tuning): losses,
+              each leaf's distance over its update, the host state, the
+              replicas' digests and the scan launches per rank, with a
+              control (model 2's gradients unreduced) that must fail.
+              The carry variants' launches are counted here.
 54. utils - ``cli.train --cfg configs/vmamba_tiny.yaml --opts
               MODEL.DROP_PATH_RATE 0.1`` on phantoms (3 bf16 steps, 14
               state-saving launches each), the native augmentation built
@@ -4738,6 +4749,35 @@ DP_BF16_LOSS_TOL, DP_BF16_UPDATE_TOL = 2e-3, 5e-2
 DP_FP32_LOSS_TOL, DP_FP32_UPDATE_TOL = 1e-4, 5e-3
 DP_UPDATE_FLOOR = 1e-3
 UTILS_ITERS = 3        # [utils] train CLI steps
+# [data_parallel_methods]: every multi-model trainer's DPM_ITERS steps on
+# the PAR_RANKS ranks against its one-process steps, the models at the
+# CLI's widths (drop path 0.2, patch embeddings' biases drawn, the mask
+# models' position embeddings warm): cross-teaching at bs24 (8 labeled),
+# the others at a global batch of DPM_BATCH (DPM_LABELED labeled), 224²
+# (ViT_seg tiles only 224k), the 3-D MagicNet at MAGIC3D_PATCH³ with
+# MAGIC3D_BATCH. In bf16 (the CLI's --bf16), a trainer is held to its
+# one-process steps within a base limit plus DPM_SPREAD_SHARE x its
+# spread: how far the one-process steps move from themselves, taken again
+# in fp32 and DPM_ULP_TWINS times from start weights one ulp off (the
+# reference process takes them all; parallel.checks.train's twins). The
+# losses within DP_BF16_LOSS_TOL, each leaf within DPM_UPDATE_TOL of its
+# update (floored as update_errors floors it), the host state within
+# MAGIC_HIST_TOL of the pixels (MagicNet's histogram) or 1e-3 (CTAugment's
+# rates). The fp32 twin covers the bf16 roundings: the ranks' weight
+# gradients rounded over their rows where one process rounds them over
+# the whole batch move a leaf whose gradient cancels (unet's first
+# convolution before its BatchNorm) by up to a quarter of its update. The
+# ulp twins cover the fp32 islands that amplify rounding: the BatchNorms
+# over few rows of the mask and location heads, which moved MagicNet's
+# mask variant on MambaUnetMask (the train CLI's 2-D model, run here with
+# --mask_recovery) by 3.6x the limit that the fp32 twin alone sets. The
+# plain 2-D MagicNet runs in fp64 on magicnet_2D, held to the base limits
+# alone (DP_FP32_LOSS_TOL, DPM_UPDATE_TOL). A wrong gradient scale, a
+# dropped row or a missed reduction moves the well-conditioned leaves by
+# their whole update. The control leaves cross-teaching's model 2
+# gradients unreduced and must fail the limit
+DPM_ITERS, DPM_BATCH, DPM_LABELED = 2, 4, 2
+DPM_UPDATE_TOL, DPM_SPREAD_SHARE, DPM_ULP_TWINS = 5e-2, 3.0, 4
 
 
 def carry_args(torch, bsz, G, L, dg, dev, seed):
@@ -4902,21 +4942,130 @@ def dp_config(bf16):
 
 
 UNET_BUILDER = ("mamba_unet_torch.models.unet", "UNet", dict(num_classes=4))
+REGISTRY = "mamba_unet_torch.models.registry"
+
+
+def dpm_cases(np):
+    """[(name, job kwargs)] of ``[data_parallel_methods]``: each a bf16
+    or fp64 (``dtype``) ``parallel.checks.train`` job, its seeded global
+    batches included."""
+    from mamba_unet_torch.models.registry import size_kwargs
+
+    r = np.random.default_rng(16)
+
+    def model(name, seed, classes=4, patch=PATCH, **kw):
+        kw = dict(net_type=name, num_classes=classes, bias_seed=seed + 100,
+                  **size_kwargs(name, patch, CUBE_SIZE), **kw)
+        return ("mamba_unet_torch.parallel.checks", "warm_model", kw), None, \
+            seed
+
+    def batches(bsz, patch=PATCH, rank=2, classes=4, **extra):
+        shape = (bsz,) + (patch,) * rank
+        out = []
+        for _ in range(DPM_ITERS):
+            b = {"image": r.random(shape + (1,), np.float32),
+                 "label": r.integers(0, classes, shape)}
+            for key, kind in extra.items():
+                b[key] = (r.random(shape + (1,), np.float32)
+                          if kind == "image" else
+                          r.integers(0, classes, shape) if kind == "label"
+                          else np.eye(4, dtype=np.float32)[
+                              r.integers(0, 4, shape)] * 0.8 + 0.05)
+            out.append(b)
+        return out
+
+    def case(name, first, cls, members=None, bsz=DPM_BATCH, data=None,
+             config=None, **kw):
+        builder, weights, seed = first
+        cfg = dict(dp_config("dtype" not in kw), batch_size=bsz,
+                   **(config or {}))
+        return (name, dict(
+            builder=builder, weights=weights, seed=seed, config=cfg,
+            batches=data or batches(bsz),
+            method=(f"mamba_unet_torch.train.{cls[0]}", cls[1]),
+            members=members or {}, **kw))
+
+    semi = dict(labeled_bs=DPM_LABELED)
+    dist3d = np.arange(MAGIC3D_CLASSES, 0, -1, dtype=np.float64)
+    return [
+        case("cross_teaching", model("ViM_seg", 31),
+             ("methods", "CrossTeachingTrainer"), bsz=TRAIN_BATCH,
+             members={"model2": model("unet", 32)},
+             method_kw=dict(labeled_bs=SEMI_LABELED)),
+        case("mean_teacher", model("ViM_seg", 33),
+             ("methods", "MeanTeacherTrainer"),
+             method_kw=dict(semi, warmup_iters=0)),
+        case("uamt", model("unet", 34), ("methods", "UAMTTrainer"),
+             method_kw=semi),
+        case("weak_scribble", model("unet", 35),
+             ("weak", "WeakScribbleTrainer"),
+             members={"model2": model("ViT_seg", 36),
+                      "model3": model("ViM_seg", 37)},
+             data=batches(DPM_BATCH, classes=5)),
+        case("contrastive_consistency", model("ViM_seg", 38),
+             ("contrastive_cc", "ContrastiveConsistencyTrainer"),
+             members={"model2": model("ViM_seg", 39)},
+             data=batches(DPM_BATCH, image_weak="image",
+                          image_strong="image", label_aug="label"),
+             method_kw=semi),
+        case("contrastive_mask_recovery", model("MambaUnetMask", 40),
+             ("contrastive_cc", "ContrastiveConsistencyTrainer"),
+             members={"model2": model("MambaUnetMask", 41)},
+             data=batches(DPM_BATCH, image_weak="image",
+                          image_strong="image", label_aug="label"),
+             method_kw=dict(semi, mask_recovery=True,
+                            mask_cube_size=CUBE_SIZE)),
+        case("mask_pretrain", model("MambaUnetMask", 42),
+             ("mask_pretrain", "MaskPretrainTrainer"),
+             method_kw=dict(cube_size=CUBE_SIZE)),
+        case("magicnet", model("magicnet_2D", 43),
+             ("magicnet", "MagicNetTrainer"), class_dist=[4.0, 3, 2, 1],
+             dtype="float64",
+             method_kw=dict(semi, cube_size=CUBE_SIZE, blend_after=0)),
+        case("magicnet_mask_recovery", model("MambaUnetMask", 44),
+             ("magicnet", "MagicNetTrainer"), class_dist=[4.0, 3, 2, 1],
+             method_kw=dict(semi, cube_size=CUBE_SIZE, blend_after=0,
+                            mask_recovery=True)),
+        case("magicnet_3d",
+             (("mamba_unet_torch.models.registry", "net_factory",
+               dict(net_type="magicnet", num_classes=MAGIC3D_CLASSES,
+                    cube_size=MAGIC3D_CUBE, patch_size=MAGIC3D_PATCH)),
+              None, 45),
+             ("magicnet", "MagicNetTrainer"), bsz=MAGIC3D_BATCH,
+             data=batches(MAGIC3D_BATCH, MAGIC3D_PATCH, 3,
+                          MAGIC3D_CLASSES),
+             config=dict(num_classes=MAGIC3D_CLASSES,
+                         patch_size=(MAGIC3D_PATCH,) * 3),
+             class_dist=dist3d,
+             method_kw=dict(labeled_bs=MAGIC3D_LABELED,
+                            cube_size=MAGIC3D_CUBE, blend_after=0)),
+        case("mad_pretrain", model("unet", 46, in_chans=4),
+             ("mad", "MADPretrainTrainer"),
+             data=[dict(b, image=b.pop("mask_label"))
+                   for b in batches(DPM_BATCH, mask_label="onehot")]),
+        case("mad_finetune", model("ViM_seg", 47),
+             ("mad", "MADFineTuneTrainer"),
+             members={"mad_model": model("unet", 48, in_chans=4),
+                      "den_model": model("unet", 49, in_chans=4)},
+             data=batches(DPM_BATCH, mask_label="onehot")),
+    ]
 
 
 def start_parallel(np):
     """Start the ranks of ``[seq_parallel]``, ``[tp_parallel]``,
-    ``[pipeline]`` and ``[data_parallel]``: one group of PAR_RANKS gloo
-    ranks on card 0 runs every multi-rank job (``parallel.checks``), and
-    one more process runs the one-process references of the same weights
-    and inputs (the tm branch, the plain LM, the one-rank trainer steps).
-    Returns (the ranks, the reference, the start time);
+    ``[pipeline]``, ``[data_parallel]`` and ``[data_parallel_methods]``:
+    one group of PAR_RANKS gloo ranks on card 0 runs every multi-rank job
+    (``parallel.checks``), and one more process runs the one-process
+    references of the same weights and inputs (the tm branch, the plain
+    LM, the one-rank trainer steps), both started side by side. Returns
+    (the ranks, the reference, the start time, the methods' cases);
     :func:`parallel_phases` collects them."""
     from mamba_unet_torch.parallel.checks import run_jobs
     from mamba_unet_torch.parallel.launch import Ranks
 
     x, cot, ids, targets, batches = parallel_inputs(np)
     dp = ((vim_builder("auto", 0.2), True, 23), (UNET_BUILDER, False, 24))
+    cases = dpm_cases(np)
     jobs = [("model", dict(builder=vim_builder("seq_sharded"), x=x, cot=cot,
                            route="seq", seed=21, all_ranks=False)),
             ("model", dict(builder=vim_builder("tp_sharded"), x=x, cot=cot,
@@ -4928,28 +5077,48 @@ def start_parallel(np):
               for b, bf16, seed in dp),
             *(("train", dict(builder=b, config=dp_config(bf16),
                              batches=batches, seed=seed, unscaled_grads=True))
-              for b, bf16, seed in dp)]
+              for b, bf16, seed in dp),
+            *(("train", dict(kw, all_ranks=False)) for _, kw in cases),
+            ("train", dict(cases[0][1], all_ranks=False,
+                           unreduced=("model2",)))]
     reference = [("model", dict(builder=vim_builder("tm"), x=x, cot=cot,
                                 route="one", seed=21)),
                  ("lm", dict(builder=lm_builder(), ids=ids, targets=targets,
                              seed=22)),
                  *(("train", dict(builder=b, config=dp_config(bf16),
                                   batches=batches, seed=seed, start=True))
-                   for b, bf16, seed in dp)]
-    return (Ranks(PAR_RANKS, run_jobs, "cuda", jobs),
-            Ranks(1, run_jobs, "cuda", reference), time.perf_counter())
+                   for b, bf16, seed in dp),
+                 # a bf16 trainer's steps again, in fp32 and from start
+                 # weights one ulp off: their spread
+                 *(("train", dict(kw, start=True,
+                                  fp32_twin=kw["config"]["bf16"],
+                                  ulp_twins=DPM_ULP_TWINS
+                                  if kw["config"]["bf16"] else 0))
+                   for _, kw in cases)]
+    ranks = Ranks(PAR_RANKS, run_jobs, "cuda", jobs)
+    return (ranks, Ranks(1, run_jobs, "cuda", reference),
+            time.perf_counter(), cases)
 
 
 def parallel_phases(np, started):
     """Collect the processes that :func:`start_parallel` started and hold
     each job against its one-process reference. Returns the carry
     variants' launches in the ranks' runs."""
-    running, one, t0 = started
+    running, one, t0, cases = started
+    waited = time.perf_counter()
     ranks = running.result(timeout=900)
-    (want_model, want_lm, *want_dp), = one.result(timeout=900)
+    ranks_in = time.perf_counter()
+    (want_model, want_lm, *rest), = one.result(timeout=900)
+    want_dp, want_methods = rest[:2], rest[2:]
+    now = time.perf_counter()
+    # when the collection began, how long each group took to hand its
+    # results over, and each process's seconds of jobs
     log("parallel", ranks=PAR_RANKS, backend="gloo", device="cuda:0",
-        jobs=len(ranks[0]),
-        seconds_since_start=f"{time.perf_counter() - t0:.1f}")
+        jobs=len(ranks[0]), seconds_since_start=f"{now - t0:.1f}",
+        collected_after=f"{waited - t0:.1f}",
+        collect_seconds=f"{ranks_in - waited:.1f}/{now - ranks_in:.1f}",
+        job_seconds=[f"{sum(j['seconds'] for j in r):.1f}"
+                     for r in [*ranks, [want_model, want_lm, *rest]]])
     first = ranks[0]
     carry = {k: sum(r[j][key].get(f"{k}.carry", 0) for r in ranks
                     for j, key in ((0, "serve_launches"), (0, "launches"),
@@ -5019,7 +5188,7 @@ def parallel_phases(np, started):
             dtype="bf16" if bf16 else "float32", losses=got["losses"],
             one_process=want["losses"], loss_rel_err=f"{loss_err:.2e}",
             update_err=f"{u_err[0][0]:.3e}",
-            worst_leaves=[(k, f"{e:.2e}") for e, k in u_err[:3]],
+            worst_leaves=[(k, f"{e:.2e}") for e, _, _, k in u_err[:3]],
             tol=f"{loss_tol}/{u_tol}", replicas_equal=same,
             control_losses=control["losses"],
             control_loss_rel_err=f"{c_loss:.2e}",
@@ -5029,28 +5198,118 @@ def parallel_phases(np, started):
             raise AssertionError(f"data_parallel losses {got['losses']} vs "
                                  f"{want['losses']}")
         if not u_err[0][0] <= u_tol:
-            raise AssertionError(f"data_parallel: {u_err[0][1]} is "
+            raise AssertionError(f"data_parallel: {u_err[0][3]} is "
                                  f"{u_err[0][0]:.3e} of its update away")
         if not same:
             raise AssertionError("data_parallel: the ranks' weights differ")
         if c_err[0][0] <= u_tol:
             raise AssertionError("data_parallel: the unscaled control "
                                  "passes the weight check")
+    data_parallel_methods(np, ranks, want_methods, cases, 7)
     return carry
 
 
-def update_errors(np, state, want):
-    """[(error, leaf)], worst first: each floating leaf's largest distance
-    from the one-process step's weights over its largest update in that
-    step (``want``'s state minus its start), that update floored at
-    DP_UPDATE_FLOOR of the model's largest: a leaf whose gradient is
-    rounding noise (a convolution's bias before a BatchNorm) moves by
-    noise alone."""
-    moved = {k: float(np.abs(w - want["start"][k]).max())
-             for k, w in want["state"].items()}
+def _within(np, got, want, base, spread=0.0):
+    """(error, its limit) of ``got`` against ``want``: the largest
+    distance, and ``base`` plus DPM_SPREAD_SHARE x ``spread``."""
+    err = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    return float(err.max()), base + DPM_SPREAD_SHARE * spread
+
+
+def data_parallel_methods(np, ranks, wants, cases, first_job):
+    """``[data_parallel_methods]``: each multi-model trainer's steps on
+    the ranks (jobs from ``first_job`` on, the control last) against its
+    one-process steps, a bf16 trainer's within a base limit plus its
+    spread (``want["twin"]``, the one-process steps against their fp32
+    and ulp twins), an fp64 trainer's within the base limits: the losses,
+    each leaf (:func:`update_errors`), the host state (MagicNet's
+    histogram, CTAugment's rates); rank 1's weights bitwise rank 0's (their
+    digests), and each rank's scan launches. Every trainer is logged
+    before a failure is raised."""
+    kinds = ("selective_scan_bidir", "selective_scan_bidir_fwd_states",
+             "selective_scan_bidir_bwd")
+    failed = []
+    for i, ((name, kw), want) in enumerate(zip(cases, wants)):
+        job = first_job + i
+        got = ranks[0][job]
+        twin = want.get("twin")
+        loss_err, loss_tol = _within(
+            np, got["losses"], want["losses"],
+            (DP_BF16_LOSS_TOL if twin else DP_FP32_LOSS_TOL)
+            * max(abs(v) for v in want["losses"]),
+            twin["loss_spread"] if twin else 0.0)
+        errs = update_errors(np, got["state"], want, DPM_UPDATE_TOL,
+                             twin and twin["spread"])
+        ratio, err, update, leaf = errs[0]
+        same = all(r[job]["digests"] == got["digests"] for r in ranks[1:])
+        host_ok = set(got["host"]) == set(want["host"])
+        for k, w in want["host"].items():
+            base = (MAGIC_HIST_TOL * w.sum() if k == "hist"
+                    else 1e-3 * max(np.abs(w).max(), 1.0))
+            e, tol = _within(np, got["host"][k], w, base,
+                             twin["host_spread"][k] if twin else 0.0)
+            host_ok &= e <= tol
+        launched = [r[job]["launches"] for r in ranks]
+        log("data_parallel_methods", trainer=name, ranks=PAR_RANKS,
+            batch=kw["config"]["batch_size"],
+            labeled=kw.get("method_kw", {}).get("labeled_bs", "-"),
+            dtype="bf16" if twin else "float64", losses=got["losses"],
+            one_process=want["losses"],
+            one_process_fp32=twin and twin["losses"],
+            loss_err=f"{loss_err:.2e}", loss_tol=f"{loss_tol:.2e}",
+            limit_ratio=f"{ratio:.3f}", limit_leaf=leaf,
+            update_err=f"{err / update:.3e}",
+            leaf_spread=f"{twin['spread'][leaf] / update:.3e}" if twin
+            else "-",
+            tol=f"{DPM_UPDATE_TOL} of the update"
+                + (f" + {DPM_SPREAD_SHARE}x the spread (fp32 twin, "
+                   f"{DPM_ULP_TWINS} ulp twins)" if twin else ""),
+            replicas_equal=same, host_equal=host_ok,
+            launches_per_rank=["/".join(str(n[k]) for k in kinds)
+                               for n in launched],
+            seconds_per_rank=[f"{r[job]['seconds']:.1f}" for r in ranks],
+            one_process_seconds=f"{want['seconds']:.1f}")
+        if loss_err > loss_tol:
+            failed.append(f"{name}: losses {got['losses']} vs "
+                          f"{want['losses']}")
+        if ratio > 1.0:
+            failed.append(f"{name}: {leaf} is {err:.3e} away, "
+                          f"{ratio:.2f} of its limit")
+        if not (same and host_ok):
+            failed.append(f"{name}: the ranks' weights or host state "
+                          f"differ")
+        if want["launches"][kinds[1]] and min(n[kinds[1]]
+                                              for n in launched) == 0:
+            failed.append(f"{name}: a rank ran no scan kernel")
+    control = ranks[0][first_job + len(cases)]
+    c_err = update_errors(np, control["state"], wants[0], DPM_UPDATE_TOL,
+                          wants[0]["twin"]["spread"])
+    log("data_parallel_methods", trainer="cross_teaching",
+        control="model 2's gradients unreduced",
+        limit_ratio=f"{c_err[0][0]:.3f}", limit_leaf=c_err[0][3],
+        fails=c_err[0][0] > 1.0)
+    if c_err[0][0] <= 1.0:
+        failed.append("the unreduced control passes the update check")
+    if failed:
+        raise AssertionError("data_parallel_methods: " + "; ".join(failed))
+
+
+def update_errors(np, state, want, tol=1.0, spread=None):
+    """[(ratio, error, update, leaf)], worst first: each floating leaf's
+    largest distance from the one-process steps' weights (``error``)
+    over its limit, ``tol`` x its largest update in those steps
+    (``want``'s state minus its start) plus DPM_SPREAD_SHARE x its
+    ``spread``. The update is floored at DP_UPDATE_FLOOR of the model's
+    largest: a leaf whose gradient is rounding noise (a convolution's
+    bias before a BatchNorm) moves by noise alone."""
+    moved = want["moved"]
     floor = DP_UPDATE_FLOOR * max(moved.values())
-    out = [(float(np.abs(state[k] - w).max()) / max(moved[k], floor), k)
-           for k, w in want["state"].items()]
+    out = []
+    for k, w in want["state"].items():
+        err = float(np.abs(state[k] - w).max())
+        update = max(moved[k], floor)
+        limit = tol * update + DPM_SPREAD_SHARE * (spread or {}).get(k, 0.0)
+        out.append((err / limit, err, update, k))
     return sorted(out, reverse=True)
 
 
@@ -5498,9 +5757,12 @@ def main() -> int:
     phase_done("utils")
 
     # the steps card vs CPU: last, as their CPU backwards would share the
-    # host with a timed phase
+    # host with a timed phase; they print no times, so the gloo ranks of
+    # the parallel phases and their one-process reference run beside them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    started = start_parallel(np)
     weak_parity_phase(torch, dev)
     phase_done("weak_parity")
     cc_parity_phase(torch, dev)
@@ -5513,11 +5775,11 @@ def main() -> int:
     phase_done("zoo3d_parity")
     segmamba_parity_phase(torch, dev)
     phase_done("segmamba_parity")
-    torch.cuda.empty_cache()
-    carry_launches = parallel_phases(np, start_parallel(np))
+    carry_launches = parallel_phases(np, started)
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32_defaults
-    phase_done("seq_parallel, tp_parallel, pipeline, data_parallel")
+    phase_done("seq_parallel, tp_parallel, pipeline, data_parallel, "
+               "data_parallel_methods (collected)")
 
     serve_bound = sum(calls * scan_bound("fwd", SERVE_BATCH, L, dg, 4)[0]
                       for L, dg, calls in STAGES)

@@ -85,9 +85,12 @@ yaml config (``configs/*.yaml``, ``utils/config.py``) instead of
 ``--model``, with ``--opts KEY VALUE`` overrides (``--drop_path`` still
 overrides the config's rate). Launched by ``torchrun`` with more than one
 rank, the CLI joins a process group (``nccl``, one card per rank; ``gloo``
-with ``--device cpu``) and the fully supervised trainer runs data
-parallel over all ranks: each step's global batch is split over them
-(``train/trainer.py``); the multi-model methods refuse more than one rank.
+with ``--device cpu``) and every method runs data parallel over all
+ranks: each step's global batch is split over them, each block of it
+(the labeled and the unlabeled rows of a two-stream batch) evenly
+(``train/trainer.py``; a block that does not split raises), and rank 0
+validates and writes the checkpoints (the 3-D pipeline's final
+validation too).
 
     python -m mamba_unet_torch.cli.train --model ViM_seg \\
         --root_path ../data/ACDC --patch_size 224 224 --batch_size 24 \\
@@ -103,6 +106,9 @@ parallel over all ranks: each step's global batch is split over them
         --opts MODEL.DROP_PATH_RATE 0.1 --synthetic --patch_size 224 224
     torchrun --nproc_per_node 2 -m mamba_unet_torch.cli.train --model unet \\
         --synthetic --device cpu --patch_size 32 32 --batch_size 4
+    torchrun --nproc_per_node 2 -m mamba_unet_torch.cli.train \\
+        --method cross_teaching --model ViM_seg --model2 unet --bf16 \\
+        --patch_size 224 224 --batch_size 24 --labeled_bs 8
     python -m mamba_unet_torch.cli.train --method cross_teaching \\
         --model ViM_seg --model2 unet --bf16 --patch_size 224 224
     python -m mamba_unet_torch.cli.train --method weak_scribble \\
@@ -370,8 +376,9 @@ def _train_btcv(args, cfg, device) -> int:
     logging.info("done: %d iterations, best val dice %.4f",
                  result["iterations"], result["best_dice"])
     # the reference's end of run: the saved best model over the val
-    # volumes, the metric array beside the snapshot
-    trainer.final_validation(val_ds)
+    # volumes, the metric array beside the snapshot (rank 0's)
+    if trainer.is_main:
+        trainer.final_validation(val_ds)
     return 0
 
 

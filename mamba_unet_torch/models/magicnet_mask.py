@@ -67,7 +67,9 @@ class PosEmbedLayer(nn.Module):
                 b, -1)
         if mask is None:
             mask = torch.ones(b, self.n_ids, device=x.device)
-        pm = torch.cat([pos_embed.float(), mask.float()], dim=1)
+        # fp32 ids (fp64 beside an fp64 image)
+        pm = torch.cat([pos_embed, mask], dim=1).to(
+            torch.promote_types(x.dtype, torch.float32))
         h = leaky_relu(self.bn(self.fc1(pm)), 0.2)
         embed = self.fc2(h).reshape(b, self.patch_size, self.patch_size, 1)
         if self.patch_size != x.shape[1]:

@@ -17,6 +17,8 @@ from collections import OrderedDict
 import torch
 import torch.nn.functional as F
 
+from mamba_unet_torch.objectives.losses import batch_mean
+
 
 def _flatten_patches(feat: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) or (B, N, C) -> (B, N, C), L1-normalized along C (the
@@ -29,11 +31,12 @@ def _flatten_patches(feat: torch.Tensor) -> torch.Tensor:
 
 
 def con_loss(feat_q: torch.Tensor, feat_k: torch.Tensor,
-             temperature: float = 0.07) -> torch.Tensor:
+             temperature: float = 0.07, group=None) -> torch.Tensor:
     """Patch-NCE: each patch's positive is the same patch of ``feat_k``,
     its negatives the other patches of the same sample. The (B, N, N)
     negatives are the memory this loss needs (0.63 GB in fp32 at B = 16,
-    N = 56²)."""
+    N = 56²). With a ``group`` the mean over B·N is taken over its ranks'
+    rows of the global batch (the negatives stay within each sample)."""
     q = _flatten_patches(feat_q)
     k = _flatten_patches(feat_k).detach()
     n = q.shape[1]
@@ -42,7 +45,7 @@ def con_loss(feat_q: torch.Tensor, feat_k: torch.Tensor,
     eye = torch.eye(n, dtype=torch.bool, device=q.device)
     l_neg = l_neg.masked_fill(eye, float("-inf")).reshape(-1, n)
     logits = torch.cat([l_pos, l_neg], dim=1) / temperature
-    return -F.log_softmax(logits, dim=-1)[:, 0].mean()
+    return batch_mean(-F.log_softmax(logits, dim=-1)[:, 0], group)
 
 
 # the reference defines contrastive_loss_sup twice; the surviving

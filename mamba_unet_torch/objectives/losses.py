@@ -16,7 +16,9 @@ one-hots to zeros, as ``jax.nn.one_hot`` does. The supervised losses take
 an optional process ``group``: the batch is then this rank's rows of a
 global batch, and the mean of the cross-entropy and the Dice's per-class
 sums are taken over the global batch (a data-parallel step computes the
-one-process loss; Dice is not a mean of per-rank Dice).
+one-process loss; Dice is not a mean of per-rank Dice). So do
+``constra_loss`` and :func:`batch_mean`, the mean that the consistency
+terms take of an unreduced loss.
 """
 
 from __future__ import annotations
@@ -28,9 +30,15 @@ import torch
 import torch.nn.functional as F
 
 from mamba_unet_torch.nn.layers import at_least_fp32
-from mamba_unet_torch.parallel.comm import all_reduce
+from mamba_unet_torch.parallel.comm import all_reduce, group_size
 
 _SMOOTH = 1e-5
+
+
+def batch_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of every element of ``x``; with a ``group``, over its
+    ranks' ``x`` (each rank's rows of a global batch, of one shape)."""
+    return all_reduce(x.sum(), group) / (x.numel() * group_size(group))
 
 
 def _one_hot(labels: torch.Tensor, n_classes: int) -> torch.Tensor:
@@ -144,15 +152,16 @@ def entropy_loss(p: torch.Tensor, num_classes: Optional[int] = None
     return entropy_loss_map(p, num_classes).mean()
 
 
-def constra_loss(inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def constra_loss(inputs: torch.Tensor, targets: torch.Tensor,
+                 group=None) -> torch.Tensor:
     """Semi-Mamba-UNet's contrastive term: each model's (B, H, W, C) logits
     average-pooled to a per-sample channel vector, L2-normalised, then the
-    mean squared difference."""
+    mean squared difference (over ``group``'s global batch when given)."""
     a = inputs.float().mean(dim=(1, 2))
     b = targets.float().mean(dim=(1, 2))
     a = a / a.norm(dim=1, keepdim=True).clamp(min=1e-12)
     b = b / b.norm(dim=1, keepdim=True).clamp(min=1e-12)
-    return ((a - b) ** 2).mean()
+    return batch_mean((a - b) ** 2, group)
 
 
 # --- exported, called by no trainer -----------------------------------------

@@ -15,12 +15,14 @@ from typing import Optional
 
 import torch
 
+from mamba_unet_torch.nn.layers import at_least_fp32
 from mamba_unet_torch.objectives.cube import (
     get_patch_list,
     random_permutations,
     shuffle_within_sample,
     unmix_patches,
 )
+from mamba_unet_torch.objectives.losses import batch_mean
 
 
 def make_shuffled_input(image: torch.Tensor, cube_size: int,
@@ -56,6 +58,9 @@ def make_masked_input(image: torch.Tensor, cube_size: int,
     return unmix_patches(patches, nb), vis
 
 
-def recovery_mse(clean_embed: torch.Tensor, perturbed_embed: torch.Tensor
-                 ) -> torch.Tensor:
-    return ((clean_embed.float() - perturbed_embed.float()) ** 2).mean()
+def recovery_mse(clean_embed: torch.Tensor, perturbed_embed: torch.Tensor,
+                 group=None) -> torch.Tensor:
+    """The mean squared difference, in fp32 (fp64 for fp64 embeddings;
+    over ``group``'s global batch when given)."""
+    return batch_mean((at_least_fp32(clean_embed)
+                       - at_least_fp32(perturbed_embed)) ** 2, group)

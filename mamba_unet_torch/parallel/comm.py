@@ -28,15 +28,19 @@ all-to-all and no point-to-point on CUDA tensors).
 
 :class:`BatchShard` and :func:`batch_shard` tell the layers that draw
 random masks or compute batch statistics that their batch is this rank's
-rows of a global batch (data parallelism, ``train/trainer.py``).
+rows of a global batch (data parallelism, ``train/trainer.py``): its part
+of each block of the batch (a two-stream batch's labeled rows, then its
+unlabeled ones), so that every rank holds rows of every block and runs
+every pass. :func:`gather_rows` assembles the global batch from them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -215,22 +219,81 @@ def sum_replicated(x: torch.Tensor, group=None) -> torch.Tensor:
     return x if group is None else _SumReplicated.apply(x, group)
 
 
+def check_blocks(blocks: Sequence[int], count: int) -> None:
+    """Raise ``ValueError`` unless every block of ``blocks`` (row counts)
+    splits into ``count`` equal parts."""
+    for b in blocks:
+        if b % count:
+            raise ValueError(f"a block of {b} rows does not split over "
+                             f"{count} data ranks")
+
+
 class BatchShard(NamedTuple):
     """This rank's rows of a global batch: the ``index``-th of ``count``
-    equal row blocks, the sums over the batch taken over ``group``."""
+    equal parts of each of its ``blocks`` (the blocks' global row counts,
+    e.g. a two-stream batch's labeled and unlabeled rows; empty: the whole
+    batch is one block), the sums over the batch taken over ``group``.
+    Each rank's rows keep the blocks' order, so a block's local rows are
+    its global count over ``count``."""
     group: Optional[object]
     index: int
     count: int
+    blocks: Tuple[int, ...] = ()
+
+    def with_blocks(self, *blocks: int) -> "BatchShard":
+        """The same shard of a batch made of ``blocks``."""
+        return self._replace(blocks=tuple(int(b) for b in blocks))
+
+    def scaled(self, k: int) -> "BatchShard":
+        """The shard of a batch whose every row became ``k`` consecutive
+        rows (a sample's cubes)."""
+        return self._replace(blocks=tuple(k * b for b in self.blocks))
+
+    def _parts(self, n: int):
+        """(start, length) of this rank's part of each block of a global
+        batch of ``n`` rows."""
+        blocks = self.blocks or (n,)
+        if sum(blocks) != n:
+            raise ValueError(f"a batch of {n} rows is not made of the "
+                             f"blocks {blocks}")
+        check_blocks(blocks, self.count)
+        start = 0
+        for b in blocks:
+            part = b // self.count
+            yield start + self.index * part, part
+            start += b
 
     def rows(self, x):
         """This rank's rows of ``x`` (a tensor or an array), whose first
         axis is the global batch."""
-        n = x.shape[0]
-        if n % self.count:
-            raise ValueError(f"batch {n} does not split into {self.count} "
-                             f"ranks")
-        b = n // self.count
-        return x[self.index * b:(self.index + 1) * b]
+        parts = [x[s:s + n] for s, n in self._parts(x.shape[0])]
+        if len(parts) == 1:
+            return parts[0]
+        if isinstance(x, torch.Tensor):
+            return torch.cat(parts)
+        return np.concatenate(parts)
+
+
+def gather_rows(x: torch.Tensor, shard: Optional[BatchShard]
+                ) -> torch.Tensor:
+    """The global batch, on every rank, from each rank's rows ``x``
+    (:meth:`BatchShard.rows`' inverse). The backward sums each row's
+    gradient over the ranks and keeps this rank's rows: unlike
+    :func:`gather_out`, whose backward takes a gradient that every rank
+    holds whole, each rank's graph may reach any row (a cube shuffle
+    across the batch)."""
+    if shard is None or shard.count == 1:
+        return x
+    # (count, local rows, ...), gathered in at least fp32 (gloo's types)
+    wide = x.to(torch.promote_types(x.dtype, torch.float32))
+    stacked = all_gather_stack(wide, shard.group).to(x.dtype)
+    n = x.shape[0]
+    out, start = [], 0
+    for b in shard.blocks or (n * shard.count,):
+        part = b // shard.count
+        out.append(stacked[:, start:start + part].reshape(b, *x.shape[1:]))
+        start += part
+    return torch.cat(out)
 
 
 _BATCH_SHARD: contextvars.ContextVar = contextvars.ContextVar(

@@ -5,9 +5,14 @@ no forked CUDA or thread state), each pinned to one intra-op thread; each
 joins a process group at ``tcp://localhost:<a free port>`` and calls
 ``fn(rank, world, *args)``; the results come back in rank order. A rank's
 exception is raised here with its traceback. :class:`Ranks` starts them
-and returns at once, so that the caller works while they run. ``fn`` must be importable
-from a module that the ranks can import (its module is imported again in
-each rank), and its arguments and results picklable.
+side by side, in threads, and returns at once, so that the caller works
+while they start and run (a spawned child reads its pickled arguments
+only once it has imported torch, and ``start()`` waits for that). ``fn``
+must be importable from a module that the ranks can import (its module
+is imported again in each rank), and its arguments and results
+picklable. A rank hands its result over through a file in a temporary
+directory (``tempfile``'s, so ``TMPDIR``'s), not through the queue's
+pipe, which carries a few GB of arrays an order of magnitude slower.
 
 The group is ``gloo``: it runs the ranks on the CPU, or several ranks on
 one card (NCCL refuses two ranks on one device); the train CLI under
@@ -17,8 +22,12 @@ one card (NCCL refuses two ranks on one device); the train CLI under
 from __future__ import annotations
 
 import multiprocessing
+import os
+import pickle
 import queue
 import socket
+import tempfile
+import threading
 import traceback
 from typing import Any, Callable, List
 
@@ -34,7 +43,7 @@ def free_port() -> int:
 
 
 def _rank_main(rank: int, world: int, port: int, fn: Callable, args: tuple,
-               results) -> None:
+               results, spill: str) -> None:
     torch.set_num_threads(1)
     try:
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
@@ -43,7 +52,10 @@ def _rank_main(rank: int, world: int, port: int, fn: Callable, args: tuple,
             out = fn(rank, world, *args)
         finally:
             dist.destroy_process_group()
-        results.put((rank, True, out))
+        path = os.path.join(spill, f"rank{rank}.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(out, f, protocol=pickle.HIGHEST_PROTOCOL)
+        results.put((rank, True, path))
     except BaseException:  # reported to the parent, which raises
         results.put((rank, False, traceback.format_exc()))
 
@@ -56,22 +68,37 @@ class Ranks:
         ctx = multiprocessing.get_context("spawn")
         self.world, self.name = world, fn.__name__
         self._results = ctx.Queue()
+        self._spill = tempfile.TemporaryDirectory(prefix="ranks-")
         port = free_port()
         # daemons: a caller that fails while they run ends them as it exits
         self._procs = [ctx.Process(target=_rank_main,
                                    args=(r, world, port, fn, args,
-                                         self._results), daemon=True)
+                                         self._results, self._spill.name),
+                                   daemon=True)
                        for r in range(world)]
-        for p in self._procs:
-            p.start()
+        self._start_errors: List[str] = []
+        self._starting = [threading.Thread(target=self._start, args=(p,),
+                                           daemon=True)
+                          for p in self._procs]
+        for t in self._starting:
+            t.start()
+
+    def _start(self, proc) -> None:
+        try:
+            proc.start()
+        except BaseException:  # raised by result()
+            self._start_errors.append(traceback.format_exc())
 
     def result(self, timeout: float = 900.0) -> List[Any]:
-        """The ranks' results in rank order; raises if a rank fails or the
-        ranks do not finish within ``timeout`` seconds. Every rank process
-        has ended when it returns or raises."""
-        got, errors = {}, []
+        """The ranks' results in rank order; raises if a rank does not
+        start, fails or does not finish within ``timeout`` seconds. Every
+        rank process has ended when it returns or raises."""
+        got = {}
+        for t in self._starting:
+            t.join()
+        errors = [f"a rank's start:\n{e}" for e in self._start_errors]
         try:
-            for _ in range(self.world):  # drain before joining
+            for _ in range(0 if errors else self.world):  # drain, then join
                 try:
                     rank, ok, out = self._results.get(timeout=timeout)
                 except queue.Empty:
@@ -79,16 +106,21 @@ class Ranks:
                                        f"did not finish in {timeout} s"
                                        ) from None
                 if ok:
-                    got[rank] = out
+                    with open(out, "rb") as f:
+                        got[rank] = pickle.load(f)
+                    os.remove(out)
                 else:
                     errors.append(f"rank {rank}:\n{out}")
                     break
         finally:
             for p in self._procs:
+                if p.pid is None:  # never started
+                    continue
                 p.join(timeout=30 if not errors else 1)
                 if p.is_alive():
                     p.kill()
                     p.join()
+            self._spill.cleanup()
         if errors:
             raise RuntimeError(f"{self.name} failed on " + "\n".join(errors))
         return [got[r] for r in range(self.world)]

@@ -54,6 +54,15 @@ The draws: the four model passes on streams 0-3 of the step's seed (the
 JAX step's rngs[0..3]), the shuffle and mask draws on stream 4, the mix
 heads' drop-path on stream 5 (the same for the three passes, as JAX reuses
 one key).
+
+Over a data axis of S ranks each rank holds labeled_bs / S labeled and
+(B - labeled_bs) / S unlabeled rows of each view; the shuffle ids and the
+visibility mask are drawn for the global batch; every loss term's sums
+(the patch-NCE's mean over B·N and the recovery MSEs included) are taken
+over the ranks, and the two models' and the trained projectors' gradients
+summed in one all-reduce, so the projectors' EMA and the loss that
+CTAugment reads on the host are the same on every rank. The batch that
+``_after_step`` reads is the global batch that every rank is handed.
 """
 
 from __future__ import annotations
@@ -67,7 +76,6 @@ from torch import nn
 from torch.func import functional_call
 
 from mamba_unet_torch.models.small_nets import Projectors
-from mamba_unet_torch.nn.layers import set_generator
 from mamba_unet_torch.objectives import (
     cross_entropy_loss,
     dice_loss_from_labels,
@@ -79,6 +87,7 @@ from mamba_unet_torch.objectives.masked import (
     make_shuffled_input,
     recovery_mse,
 )
+from mamba_unet_torch.parallel.comm import batch_shard
 from mamba_unet_torch.train.methods import _main_head, rampup_weight
 from mamba_unet_torch.train.state import ema_update
 from mamba_unet_torch.train.trainer import (
@@ -101,14 +110,15 @@ def _minmax_normalize(soft: torch.Tensor) -> torch.Tensor:
     return (soft - mn) / mx.clamp_min(1e-12)
 
 
-def _ce_dice(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    return (cross_entropy_loss(logits, labels)
-            + dice_loss_from_labels(F.softmax(logits, -1), labels))
+def _ce_dice(logits: torch.Tensor, labels: torch.Tensor, group=None
+             ) -> torch.Tensor:
+    return (cross_entropy_loss(logits, labels, group=group)
+            + dice_loss_from_labels(F.softmax(logits, -1), labels,
+                                    group=group))
 
 
 class ContrastiveConsistencyTrainer(Trainer):
     supports_grad_accum = False
-    supports_data_parallel = False
 
     def __init__(self, model: nn.Module, config: TrainConfig,
                  model2: nn.Module, labeled_bs: int = 12,
@@ -138,17 +148,16 @@ class ContrastiveConsistencyTrainer(Trainer):
             raise ValueError(f"mask_recovery needs a model with "
                              f"forward_mix_pos_mask (MambaUnetMask), not "
                              f"{type(self.model).__name__}")
-        self.model2 = model2.to(self.device).train()
+        self.model2 = self._adopt(model2)
         self.optimizer2, self.scheduler2 = self.make_optimizer(
             self.model2.parameters())
-        set_generator(self.model2, self.generator)
         if projectors is None:
             projectors = tuple(
                 Projectors(config.num_classes, projector_ndf,
                            generator=torch.Generator().manual_seed(
                                config.seed + s))
                 for s in (2, 3))
-        self.p3, self.p4 = (p.to(self.device).train() for p in projectors)
+        self.p3, self.p4 = (self._adopt(p) for p in projectors)
         self.optimizer3, self.scheduler3 = self.make_optimizer(
             self.p3.parameters())
         self.optimizer4, self.scheduler4 = self.make_optimizer(
@@ -159,6 +168,9 @@ class ContrastiveConsistencyTrainer(Trainer):
         self.cta = self.cta_transform = None
         self._per_epoch = 1
         self._epoch_errors: List[float] = []
+
+    def _blocks(self):
+        return (self.labeled_bs, self.config.batch_size - self.labeled_bs)
 
     # --- members, checkpoints --------------------------------------------
     def _members(self):
@@ -208,14 +220,17 @@ class ContrastiveConsistencyTrainer(Trainer):
         return step
 
     # --- one step ---------------------------------------------------------
-    def _project(self, proj: nn.Module, x: torch.Tensor,
+    def _project(self, proj: nn.Module, x: torch.Tensor, rows: int,
                  params: Optional[Dict[str, torch.Tensor]] = None
                  ) -> torch.Tensor:
-        """Projector features of fp32 logits ``x`` in train mode, with
-        ``params`` (an EMA copy) in place of the projector's own when
-        given; the BatchNorm statistics are thrown away."""
+        """Projector features of fp32 logits ``x`` (this rank's rows of a
+        global batch of ``rows``) in train mode, with ``params`` (an EMA
+        copy) in place of the projector's own when given; the BatchNorm
+        statistics are thrown away."""
         buffers = {n: b.clone() for n, b in proj.named_buffers()}
-        return functional_call(proj, {**(params or {}), **buffers}, (x,))
+        with batch_shard(self._shard_of(rows)):
+            return functional_call(proj, {**(params or {}), **buffers},
+                                   (x,))
 
     def _mask_draws(self, image: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -230,35 +245,44 @@ class ContrastiveConsistencyTrainer(Trainer):
         return perms, vis
 
     def _mask_recovery_loss(self, weak: torch.Tensor) -> torch.Tensor:
-        """Model 1's shuffled + masked recovery MSE on the weak view."""
+        """Model 1's shuffled + masked recovery MSE on the weak view (the
+        global batch; each rank runs its rows)."""
         perms, vis = self._mask_draws(weak)
         shuffled, _ = make_shuffled_input(weak, self.mask_cube_size,
                                           perms=perms)
         masked, _ = make_masked_input(weak, self.mask_cube_size, MASKED_RATE,
                                       vis=vis)
+        blocks = (self.labeled_bs, weak.shape[0] - self.labeled_bs)
         outs = []
-        with self._autocast():
+        with self._autocast(), batch_shard(self._shard_of(*blocks)):
             for x, pos, mask in ((weak, None, None),
                                  (shuffled, perms.float(), None),
                                  (masked, None, vis)):
                 self._reseed(MIX_HEAD)
                 outs.append(call_discarding_stats(
-                    self.model, "forward_mix_pos_mask", x, pos, mask))
-        return (recovery_mse(outs[0], outs[1])
-                + recovery_mse(outs[0], outs[2]))
+                    self.model, "forward_mix_pos_mask",
+                    *(None if t is None else self._rows(t, *blocks)
+                      for t in (x, pos, mask))))
+        return (recovery_mse(outs[0], outs[1], self.group)
+                + recovery_mse(outs[0], outs[2], self.group))
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-        lb, dev = self.labeled_bs, self.device
-        weak = batch["image_weak"].to(dev, non_blocking=True).float()
-        strong = batch["image_strong"].to(dev, non_blocking=True).float()
-        label = batch["label_aug"].to(dev, non_blocking=True).long()
+        lb, dev, g = self.labeled_bs, self.device, self.group
+        weak_all = batch["image_weak"].to(dev, non_blocking=True).float()
+        nu = weak_all.shape[0] - lb
+        weak = self._rows(weak_all, lb, nu)
+        strong = self._rows(batch["image_strong"].to(
+            dev, non_blocking=True).float(), lb, nu)
+        label = self._rows(batch["label_aug"].to(
+            dev, non_blocking=True).long(), lb, nu)
+        rows, lb = lb, self._local(lb)  # the global and this rank's labeled
         nets = (self.model, self.model2, self.p3, self.p4)
         opts = self._members() + self._projectors()
         for net in nets:
             net.train()
         for _, opt, _ in opts:
             opt.zero_grad(set_to_none=True)
-        with self._autocast():
+        with self._autocast(), batch_shard(self._shard_of(rows, nu)):
             self._reseed(WEAK1)
             ow1 = _main_head(self.model(weak))
             self._reseed(STRONG1)
@@ -278,19 +302,20 @@ class ContrastiveConsistencyTrainer(Trainer):
                     return nrm * (nrm > self.conf_thresh)
 
                 pseudo = ((confident(sw1) + confident(sw2)) / 2.0).argmax(-1)
-            sup = (cross_entropy_loss(ow1[:lb], label[:lb])
-                   + dice_loss_from_labels(sw1[:lb], label[:lb])
-                   + cross_entropy_loss(ow2[:lb], label[:lb])
-                   + dice_loss_from_labels(sw2[:lb], label[:lb]))
-            unsup = (_ce_dice(os1[lb:], pseudo[lb:])
-                     + _ce_dice(os2[lb:], pseudo[lb:]))
-            contrast_l = con_loss(self._project(self.p3, ow1[:lb]),
-                                  self._project(self.p4, ow2[:lb]))
+            sup = (cross_entropy_loss(ow1[:lb], label[:lb], group=g)
+                   + dice_loss_from_labels(sw1[:lb], label[:lb], group=g)
+                   + cross_entropy_loss(ow2[:lb], label[:lb], group=g)
+                   + dice_loss_from_labels(sw2[:lb], label[:lb], group=g))
+            unsup = (_ce_dice(os1[lb:], pseudo[lb:], g)
+                     + _ce_dice(os2[lb:], pseudo[lb:], g))
+            contrast_l = con_loss(self._project(self.p3, ow1[:lb], rows),
+                                  self._project(self.p4, ow2[:lb], rows),
+                                  group=g)
             contrast_u = (
-                con_loss(self._project(self.p3, ow1[lb:], self.p1),
-                         self._project(self.p4, os2[lb:]))
-                + con_loss(self._project(self.p4, ow2[lb:], self.p2),
-                           self._project(self.p3, os1[lb:])))
+                con_loss(self._project(self.p3, ow1[lb:], nu, self.p1),
+                         self._project(self.p4, os2[lb:], nu), group=g)
+                + con_loss(self._project(self.p4, ow2[lb:], nu, self.p2),
+                           self._project(self.p3, os1[lb:], nu), group=g))
             w1 = rampup_weight(self.step, self.consistency1,
                                self.consistency_rampup)
             w2 = rampup_weight(self.step, self.consistency2,
@@ -300,11 +325,12 @@ class ContrastiveConsistencyTrainer(Trainer):
                 "loss_contrast_l": contrast_l.detach(),
                 "loss_contrast_u": contrast_u.detach()}
         if self.mask_recovery:
-            rec = self._mask_recovery_loss(weak)
+            rec = self._mask_recovery_loss(weak_all)
             total = total + self.mask_weight * rec
             logs["loss_mask_recovery"] = rec.detach()
         total.backward()
         zero_unreached_grads(*nets)
+        self._reduce_grads(*nets)
         for _, opt, sched in opts:
             opt.step()
             sched.step()

@@ -24,6 +24,12 @@ The fine-tuning is validated stacked, argmax(den(softmax(seg(x))))
 (``test_single_volume_stacked``); a new best saves the trio at one step as
 ``best``/``best2``/``best3`` (seg/mad/den), and the periodic checkpoint
 carries the three models, optimizers and schedules.
+
+Both run data parallel as the base step does: over a data axis of S
+ranks each rank holds B / S rows of the global batch (its corrupted
+labels drawn by every rank's loader for the whole batch), the three
+losses' sums are taken over the ranks and the three models' gradients
+summed in one all-reduce.
 """
 
 from __future__ import annotations
@@ -39,8 +45,8 @@ from mamba_unet_torch.eval.inference import (
     test_single_volume_mad,
     test_single_volume_stacked,
 )
-from mamba_unet_torch.nn.layers import set_generator
 from mamba_unet_torch.objectives import supervised_ce_dice
+from mamba_unet_torch.parallel.comm import batch_shard
 from mamba_unet_torch.train.methods import _main_head
 from mamba_unet_torch.train.trainer import (
     TrainConfig,
@@ -57,7 +63,6 @@ def _mean_dice(metrics) -> float:
 class MADPretrainTrainer(Trainer):
     """The base step on corrupted-label batches; validated on corrupted
     label slices (``transform.mask_label_only`` corrupts each one)."""
-    supports_data_parallel = False
 
     def __init__(self, model: nn.Module, config: TrainConfig,
                  transform=None, **kw):
@@ -85,7 +90,6 @@ class MADFineTuneTrainer(Trainer):
     """The stacked fine-tuning of a segmenter and two denoisers."""
 
     supports_grad_accum = False
-    supports_data_parallel = False
 
     def __init__(self, model: nn.Module, config: TrainConfig,
                  mad_model: nn.Module, den_model: nn.Module, **kw):
@@ -94,14 +98,12 @@ class MADFineTuneTrainer(Trainer):
         (the CLI seeds them with ``seed + 1`` and ``seed + 2``); ``kw`` goes
         to :class:`Trainer` (``make_optimizer``, ``device``)."""
         super().__init__(model, config, **kw)
-        self.mad_model = mad_model.to(self.device).train()
-        self.den_model = den_model.to(self.device).train()
+        self.mad_model = self._adopt(mad_model)
+        self.den_model = self._adopt(den_model)
         self.mad_optimizer, self.mad_scheduler = self.make_optimizer(
             self.mad_model.parameters())
         self.den_optimizer, self.den_scheduler = self.make_optimizer(
             self.den_model.parameters())
-        set_generator(self.mad_model, self.generator)
-        set_generator(self.den_model, self.generator)
 
     def _members(self) -> List[Tuple[nn.Module, Any, Any]]:
         return [(self.model, self.optimizer, self.scheduler),
@@ -146,30 +148,34 @@ class MADFineTuneTrainer(Trainer):
         return _main_head(model(x))
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-        dev = self.device
+        dev, g = self.device, self.group
         image = batch["image"].to(dev, non_blocking=True).float()
-        label = batch["label"].to(dev, non_blocking=True).long()
+        n = image.shape[0]
+        image = self._rows(image, n)
+        label = self._rows(batch["label"].to(dev, non_blocking=True).long(),
+                           n)
         mask_label = batch.get("mask_label")
+        if mask_label is not None:
+            mask_label = self._rows(mask_label.to(dev, non_blocking=True), n)
         members = self._members()
         for _, opt, _ in members:
             opt.zero_grad(set_to_none=True)
-        with self._autocast():
+        with self._autocast(), batch_shard(self._shard_of(n)):
             seg_out = self._forward(self.model, image, 0)
             seg_soft = F.softmax(seg_out.float(), dim=-1)
             # the mad input detaches the segmenter; the den input does not
             blend = seg_soft.detach()
             if mask_label is not None:
-                blend = F.softmax(
-                    (blend + mask_label.to(dev, non_blocking=True).float())
-                    / 2.0, dim=-1)
+                blend = F.softmax((blend + mask_label.float()) / 2.0, dim=-1)
             mad_out = self._forward(self.mad_model, blend, 1)
             den_out = self._forward(self.den_model, seg_soft, 2)
-            seg_loss = supervised_ce_dice(seg_out, label)
-            mad_loss = supervised_ce_dice(mad_out, label)
-            den_loss = supervised_ce_dice(den_out, label)
+            seg_loss = supervised_ce_dice(seg_out, label, g)
+            mad_loss = supervised_ce_dice(mad_out, label, g)
+            den_loss = supervised_ce_dice(den_out, label, g)
             total = seg_loss + mad_loss + den_loss
         total.backward()
         zero_unreached_grads(*(m for m, _, _ in members))
+        self._reduce_grads(*(m for m, _, _ in members))
         for _, opt, sched in members:
             opt.step()
             sched.step()

@@ -49,6 +49,17 @@ mix heads' drop path (2, the same for each pass, as JAX reuses one key),
 the shuffle ids (3) and the visibility mask (4) of the recovery inputs.
 The tests hand in JAX's draws through :meth:`MagicNetTrainer._draws`.
 
+Over a data axis of S ranks each rank holds labeled_bs / S labeled and
+(B - labeled_bs) / S unlabeled rows. The draws and the inputs built from
+them (the cube-shuffled, shuffled and masked images) are made from the
+global batch, which every rank holds, and each rank keeps its rows; the
+un-mixing of the cross-image embedding needs every rank's rows, so it
+runs on their gather (:func:`~mamba_unet_torch.parallel.comm.gather_rows`)
+and keeps this rank's; the cube passes' rows are each sample's cubes.
+Every loss term's sums are taken over the ranks, and the pseudo-label
+histogram is summed over them, so every rank blends with the same class
+distribution.
+
 Evaluation is the slice protocol for 2-D patches and sliding-window
 ``validation_all_case`` (stride max(cube_size // 2, 16)) for 3-D ones;
 :meth:`MagicNetTrainer.final_validation` evaluates the saved ``best``
@@ -81,6 +92,11 @@ from mamba_unet_torch.objectives.masked import (
     make_shuffled_input,
     recovery_mse,
 )
+from mamba_unet_torch.parallel.comm import (
+    all_reduce,
+    batch_shard,
+    gather_rows,
+)
 from mamba_unet_torch.train.methods import rampup_weight
 from mamba_unet_torch.train.state import ema_update
 from mamba_unet_torch.train.trainer import (
@@ -100,30 +116,33 @@ _SMOOTH = 1e-10
 
 
 def magic_dice(probs: torch.Tensor, target_onehot: torch.Tensor,
-               weight_map: Optional[torch.Tensor] = None) -> torch.Tensor:
+               weight_map: Optional[torch.Tensor] = None,
+               group=None) -> torch.Tensor:
     """MagicDiceLoss: per class 1 - (2 sum(p t) + s) / (sum(p²) + sum(t²)
     + s), s = 1e-10, the target weighted by ``weight_map`` when given,
-    averaged over the classes; fp32."""
+    averaged over the classes; fp32. With a ``group`` the per-class sums
+    are taken over its ranks' rows of the global batch."""
     t = at_least_fp32(target_onehot)
     if weight_map is not None:
         t = t * weight_map
     p = at_least_fp32(probs)
     dims = tuple(range(p.dim() - 1))
-    inter = 2 * (p * t).sum(dims) + _SMOOTH
-    union = (p * p).sum(dims) + (t * t).sum(dims) + _SMOOTH
+    pt, pp, tt = all_reduce(torch.stack([
+        (p * t).sum(dims), (p * p).sum(dims), (t * t).sum(dims)]), group)
+    inter = 2 * pt + _SMOOTH
+    union = pp + tt + _SMOOTH
     return (1.0 - inter / union).mean()
 
 
 def magic_dice_labels(probs: torch.Tensor, labels: torch.Tensor,
-                      weight_map: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      weight_map: Optional[torch.Tensor] = None,
+                      group=None) -> torch.Tensor:
     return magic_dice(probs, F.one_hot(labels.long(), probs.shape[-1]),
-                      weight_map)
+                      weight_map, group)
 
 
 class MagicNetTrainer(Trainer):
     supports_grad_accum = False
-    supports_data_parallel = False
 
     def __init__(self, model: nn.Module, config: TrainConfig,
                  labeled_bs: int = 12, cube_size: int = 32,
@@ -160,6 +179,9 @@ class MagicNetTrainer(Trainer):
         # the used pseudo-labels' histogram since the last refresh
         self._hist = torch.zeros(config.num_classes, dtype=torch.long,
                                  device=self.device)
+
+    def _blocks(self):
+        return (self.labeled_bs, self.config.batch_size - self.labeled_bs)
 
     # --- one step ---------------------------------------------------------
     def _draws(self, image: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -222,58 +244,72 @@ class MagicNetTrainer(Trainer):
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         lb, model, dev = self.labeled_bs, self.model, self.device
+        g = self.group
         image = at_least_fp32(batch["image"].to(dev, non_blocking=True))
         label = batch["label"].to(dev, non_blocking=True).long()
-        b = image.shape[0]
+        blocks = (lb, image.shape[0] - lb)
         nb = image.shape[1] // self.cube_size
         cubes = nb ** (image.dim() - 2)
         d = self._draws(image)
         class_dist = self.dist_logger.get_class_dist().astype(np.float32)
         use_blend = bool(self.step > self.blend_after
                          and class_dist.sum() > 0)
+        # the inputs built from the global batch, then this rank's rows
+        mixed = self._rows(apply_cube_permutation(image, d["part"], nb),
+                           *blocks)
+        if self.mask_recovery:
+            shuffled, _ = make_shuffled_input(image, self.cube_size,
+                                              perms=d["perms"])
+            masked, _ = make_masked_input(image, self.cube_size,
+                                          self.masked_rate, vis=d["vis"])
+            shuffled, masked, perms, vis = (
+                self._rows(t, *blocks)
+                for t in (shuffled, masked, d["perms"], d["vis"]))
+        teacher_in = self._rows(image[lb:] + d["noise"], blocks[1])
+        image, label = self._rows(image, *blocks), self._rows(label[:lb], lb)
+        lb, b = self._local(lb), image.shape[0]  # this rank's rows
+        shard = self._shard_of(*blocks)
         model.eval()  # deterministic passes; the grad mode is untouched
-        ema_out = self._teacher(image[lb:] + d["noise"])
+        ema_out = self._teacher(teacher_in)
         teacher_class = F.softmax(ema_out, -1).argmax(-1)
         self.optimizer.zero_grad(set_to_none=True)
-        with self._autocast():
+        with self._autocast(), batch_shard(shard):
             outputs, _ = model(image)
-            _, emb_mix = model(apply_cube_permutation(image, d["part"], nb))
-            out_unmix = model.forward_prediction_head(
-                apply_cube_permutation(emb_mix, d["rec"], nb))
+            _, emb_mix = model(mixed)
+            # un-mixing reaches every rank's rows: on their gather
+            out_unmix = model.forward_prediction_head(self._rows(
+                apply_cube_permutation(gather_rows(emb_mix, shard), d["rec"],
+                                       nb), *blocks))
             # every cube through the encoder, its location from the
             # bottleneck, and through the decoder alone
             patches = get_patch_list(image, self.cube_size)
             feats = model.forward_encoder(
                 patches.reshape(b * cubes, *patches.shape[2:]))
-            loc_logits = self._head("forward_location",
-                                    feats[-1].reshape(b * cubes, -1))
+            with batch_shard(None if shard is None else shard.scaled(cubes)):
+                loc_logits = self._head("forward_location",
+                                        feats[-1].reshape(b * cubes, -1))
             cube_preds, cube_embeds = model.forward_decoder(feats)
             pred_all_unmix = model.forward_prediction_head(unmix_patches(
                 cube_embeds.reshape(b, cubes, *cube_embeds.shape[1:]), nb))
             if self.mask_recovery:
-                shuffled, _ = make_shuffled_input(image, self.cube_size,
-                                                  perms=d["perms"])
-                masked, _ = make_masked_input(image, self.cube_size,
-                                              self.masked_rate, vis=d["vis"])
                 clean = self._head("forward_mix_pos_mask", image)
                 shuf = self._head("forward_mix_pos_mask", shuffled,
-                                  d["perms"].float())
-                mask = self._head("forward_mix_pos_mask", masked, None,
-                                  d["vis"])
+                                  perms.float())
+                mask = self._head("forward_mix_pos_mask", masked, None, vis)
         with torch.autocast(dev.type, enabled=False):
             outputs = at_least_fp32(outputs)
             out_unmix = at_least_fp32(out_unmix)
             soft = F.softmax(outputs, -1)
             soft_unmix = F.softmax(out_unmix, -1)
-            sup = (cross_entropy_loss(outputs[:lb], label[:lb])
-                   + magic_dice_labels(soft[:lb], label[:lb])
-                   + magic_dice_labels(soft_unmix[:lb], label[:lb])
+            sup = (cross_entropy_loss(outputs[:lb], label, group=g)
+                   + magic_dice_labels(soft[:lb], label, group=g)
+                   + magic_dice_labels(soft_unmix[:lb], label, group=g)
                    + magic_dice_labels(
                        F.softmax(at_least_fp32(pred_all_unmix), -1)[:lb],
-                       label[:lb]))
+                       label, group=g))
             loc = cross_entropy_loss(
                 at_least_fp32(loc_logits),
-                torch.arange(cubes, device=dev).repeat(b))
+                torch.arange(cubes, device=dev).repeat(b), group=g)
             if use_blend:
                 weight = self._blend_weight(class_dist, teacher_class)
                 cube_pl = unmix_patches(at_least_fp32(
@@ -283,23 +319,26 @@ class MagicNetTrainer(Trainer):
                 pseudo = F.softmax(blended, -1).argmax(-1)
             else:
                 pseudo = teacher_class
-            cons = magic_dice_labels(soft_unmix[lb:], pseudo)
+            cons = magic_dice_labels(soft_unmix[lb:], pseudo, group=g)
             w = rampup_weight(self.step * 150 // self.rampup_stride,
                               self.consistency, self.consistency_rampup)
             total = sup / 4.0 + 0.1 * loc + w * cons
             logs = {"loss_sup": sup.detach() / 4.0, "loss_loc": loc.detach(),
                     "loss_cons": cons.detach()}
             if self.mask_recovery:
-                recovery = (recovery_mse(clean, shuf)
-                            + recovery_mse(clean, mask)
-                            + recovery_mse(shuf, mask))
+                recovery = (recovery_mse(clean, shuf, g)
+                            + recovery_mse(clean, mask, g)
+                            + recovery_mse(shuf, mask, g))
                 total = total + recovery
                 logs["loss_recv"] = recovery.detach()
-        hist = torch.bincount(pseudo.reshape(-1),
-                              minlength=self.config.num_classes)
+        # the histogram of the global batch's pseudo-labels
+        hist = all_reduce(torch.bincount(pseudo.reshape(-1),
+                                         minlength=self.config.num_classes),
+                          g)
         self._hist += hist
         total.backward()
         zero_unreached_grads(model)
+        self._reduce_grads(model)
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1

@@ -23,6 +23,10 @@ conv) still decays, as in the JAX step. The shuffle ids draw from stream
 0 of the step's seed, the visibility mask from stream 1 and the three
 heads' drop-path from stream 2, the same for each head (the JAX step's
 r_shuf, r_mask and r_bn).
+
+Over a data axis of S ranks each rank holds B / S images and their
+cubes; the draws are made for the global batch, and the MSEs' and the
+location cross-entropy's sums taken over the ranks.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from mamba_unet_torch.objectives.masked import (
     make_shuffled_input,
     recovery_mse,
 )
+from mamba_unet_torch.parallel.comm import batch_shard
 from mamba_unet_torch.train.trainer import (
     TrainConfig,
     Trainer,
@@ -56,7 +61,6 @@ MASK_MODEL_METHODS = ("forward_mix_pos_mask", "forward_encoder",
 
 class MaskPretrainTrainer(Trainer):
     supports_grad_accum = False
-    supports_data_parallel = False
 
     def __init__(self, model: nn.Module, config: TrainConfig,
                  cube_size: int = 32, masked_rate: float = 0.25,
@@ -86,16 +90,20 @@ class MaskPretrainTrainer(Trainer):
         return perms, vis
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-        model = self.model
+        model, g = self.model, self.group
         image = batch["image"].to(self.device, non_blocking=True).float()
-        b = image.shape[0]
+        n = image.shape[0]
         perms, vis = self._draws(image)
         shuffled, _ = make_shuffled_input(image, self.cube_size, perms=perms)
         masked, _ = make_masked_input(image, self.cube_size,
                                       self.masked_rate, vis=vis)
+        image, shuffled, masked, perms, vis = (
+            self._rows(t, n) for t in (image, shuffled, masked, perms, vis))
+        b = image.shape[0]  # this rank's
+        shard = self._shard_of(n)
         model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        with self._autocast():
+        with self._autocast(), batch_shard(shard):
             # the location pass first: its eval-mode BatchNorm normalizes
             # with the running statistics from before the clean pass
             patches = get_patch_list(image, self.cube_size)
@@ -108,8 +116,10 @@ class MaskPretrainTrainer(Trainer):
             finally:
                 model.train()
             self._reseed(HEADS)
-            loc_logits = call_discarding_stats(
-                model, "forward_location", feats[-1].reshape(b * cubes, -1))
+            with batch_shard(None if shard is None else shard.scaled(cubes)):
+                loc_logits = call_discarding_stats(
+                    model, "forward_location",
+                    feats[-1].reshape(b * cubes, -1))
             self._reseed(HEADS)
             clean = model.forward_mix_pos_mask(image)
             self._reseed(HEADS)
@@ -118,14 +128,15 @@ class MaskPretrainTrainer(Trainer):
             self._reseed(HEADS)
             mask_out = call_discarding_stats(model, "forward_mix_pos_mask",
                                              masked, None, vis)
-        shuffled_loss = recovery_mse(clean, shuf_out)
-        mask_loss = recovery_mse(clean, mask_out)
+        shuffled_loss = recovery_mse(clean, shuf_out, g)
+        mask_loss = recovery_mse(clean, mask_out, g)
         loc = cross_entropy_loss(
             loc_logits.float(),
-            torch.arange(cubes, device=self.device).repeat(b))
+            torch.arange(cubes, device=self.device).repeat(b), group=g)
         total = shuffled_loss + mask_loss + self.loc_weight * loc
         total.backward()
         zero_unreached_grads(model)
+        self._reduce_grads(model)
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1

@@ -33,6 +33,12 @@ stream as the JAX step splits its key: the student's dropout (stream 0),
 the teacher's (1, the same for each of UAMT's passes, as JAX reuses one
 key) and the teacher noise (2); model 2 of cross-teaching draws from
 stream 1.
+
+Over a data axis of S ranks (:class:`Trainer`'s ``mesh``) each rank holds
+labeled_bs / S labeled and (B - labeled_bs) / S unlabeled rows of the
+global batch (both counts must split over S), draws the teacher noise
+for the whole unlabeled batch and keeps its rows, and takes every loss
+term's sums over the ranks: the step computes the one-process step.
 """
 
 from __future__ import annotations
@@ -45,13 +51,14 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
-from mamba_unet_torch.nn.layers import set_generator
 from mamba_unet_torch.objectives import (
+    batch_mean,
     constra_loss,
     dice_loss_from_labels,
     softmax_mse_loss,
     supervised_ce_dice,
 )
+from mamba_unet_torch.parallel.comm import all_reduce, batch_shard
 from mamba_unet_torch.train.state import ema_update
 from mamba_unet_torch.train.trainer import TrainConfig, Trainer
 
@@ -81,7 +88,6 @@ class MeanTeacherTrainer(Trainer):
     # unlabeled batch and sliced, and one EMA update follows the one
     # optimizer update; the Dice term becomes per-microbatch Dice
     supports_grad_accum = True
-    supports_data_parallel = False
 
     def __init__(self, model: nn.Module, config: TrainConfig,
                  labeled_bs: int = 8, consistency: float = 0.1,
@@ -101,6 +107,12 @@ class MeanTeacherTrainer(Trainer):
         self.ema = {n: p.detach().clone()
                     for n, p in self.model.named_parameters()}
 
+    def _blocks(self):
+        """A microbatch's labeled rows, then its unlabeled ones."""
+        k = self.config.grad_accum_steps
+        return (self.labeled_bs // k,
+                (self.config.batch_size - self.labeled_bs) // k)
+
     def _teacher_inputs(self, unlabeled: torch.Tensor) -> torch.Tensor:
         """The teacher's view: unlabeled + clip(0.1 N(0, 1), +-0.2), drawn
         from the trainer's generator."""
@@ -108,25 +120,29 @@ class MeanTeacherTrainer(Trainer):
                             generator=self.generator)
         return unlabeled + (0.1 * noise).clamp(-0.2, 0.2)
 
-    def _teacher(self, x: torch.Tensor, *substream: int) -> torch.Tensor:
-        """The EMA teacher's main-head logits for ``x``: no grad, train
+    def _teacher(self, x: torch.Tensor, rows: int, *substream: int
+                 ) -> torch.Tensor:
+        """The EMA teacher's main-head logits for ``x``, this rank's rows
+        of a global batch of ``rows`` unlabeled samples: no grad, train
         mode, the teacher's stream of the step's seed."""
         self._reseed(TEACHER, *substream)
         buffers = {n: b.clone() for n, b in self.model.named_buffers()}
-        with torch.no_grad():
+        with torch.no_grad(), batch_shard(self._shard_of(rows)):
             return _main_head(functional_call(self.model,
                                               (self.ema, buffers), (x,)))
 
     def _loss(self, image, label, ema_logits, n_labeled):
         """(total, logs) of one (micro)batch: ``image`` is ``n_labeled``
-        labeled samples then unlabeled ones, ``ema_logits`` the teacher's
-        logits of the unlabeled ones."""
+        labeled samples then unlabeled ones (this rank's), ``ema_logits``
+        the teacher's logits of the unlabeled ones."""
+        g = self.group
         logits = _main_head(self.model(image))
-        sup = supervised_ce_dice(logits[:n_labeled], label)
+        sup = supervised_ce_dice(logits[:n_labeled], label, g)
         if self.step < self.warmup_iters:
             cons = torch.zeros((), device=logits.device)
         else:
-            cons = softmax_mse_loss(logits[n_labeled:], ema_logits).mean()
+            cons = batch_mean(softmax_mse_loss(logits[n_labeled:],
+                                               ema_logits), g)
         w = rampup_weight(self.step, self.consistency,
                           self.consistency_rampup)
         total = sup + w * cons
@@ -161,14 +177,19 @@ class MeanTeacherTrainer(Trainer):
         for i in range(k):
             lab, unl = slice(i * mlb, (i + 1) * mlb), slice(i * mu,
                                                             (i + 1) * mu)
+            x_lab, y_lab = (self._rows(t[lab], mlb) for t in (image, label))
+            x_unl = self._rows(unlabeled[unl], mu)
             with self._autocast():
-                ema_logits = self._teacher(ema_in[unl], i)
+                ema_logits = self._teacher(self._rows(ema_in[unl], mu), mu,
+                                           i)
                 self._reseed(STUDENT, i)
-                total, mb_logs = self._loss(
-                    torch.cat([image[lab], unlabeled[unl]]), label[lab],
-                    ema_logits, mlb)
+                with batch_shard(self._shard_of(mlb, mu)):
+                    total, mb_logs = self._loss(torch.cat([x_lab, x_unl]),
+                                                y_lab, ema_logits,
+                                                x_lab.shape[0])
             (total / k).backward()
             logs.append(mb_logs)
+        self._reduce_grads(self.model)
         return self._finish_step(logs)
 
     def _periodic_tree(self) -> Dict[str, Any]:
@@ -187,15 +208,17 @@ class UAMTTrainer(MeanTeacherTrainer):
     T: int = 8
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-        lb, cfg = self.labeled_bs, self.config
+        lb, cfg, g = self.labeled_bs, self.config, self.group
         self.model.train()
         image, label = _batch(self, batch)
+        nu = image.shape[0] - lb
         self._reseed(NOISE)
-        views = [self._teacher_inputs(image[lb:]) for _ in range(self.T)]
+        views = [self._rows(self._teacher_inputs(image[lb:]), nu)
+                 for _ in range(self.T)]
         with self._autocast():
             # the consistency target sees the first MC pass's noise
-            ema_logits = self._teacher(views[0])
-            preds = sum(F.softmax(self._teacher(v).float(), dim=-1)
+            ema_logits = self._teacher(views[0], nu)
+            preds = sum(F.softmax(self._teacher(v, nu).float(), dim=-1)
                         for v in views) / self.T
         uncertainty = -(preds * torch.log(preds + 1e-6)).sum(-1,
                                                              keepdim=True)
@@ -204,14 +227,20 @@ class UAMTTrainer(MeanTeacherTrainer):
         mask = (uncertainty < (0.75 + 0.25 * ramp) * math.log(2.0)).float()
         self.optimizer.zero_grad(set_to_none=True)
         self._reseed(STUDENT)
-        with self._autocast():
-            logits = _main_head(self.model(image))
-            sup = supervised_ce_dice(logits[:lb], label[:lb])
-            dist = softmax_mse_loss(logits[lb:], ema_logits)
-            cons = (mask * dist).sum() / (2.0 * mask.sum() + 1e-16)
+        x, y = self._rows(image, lb, nu), self._rows(label[:lb], lb)
+        llb = self._local(lb)
+        with self._autocast(), batch_shard(self._shard_of(lb, nu)):
+            logits = _main_head(self.model(x))
+            sup = supervised_ce_dice(logits[:llb], y, g)
+            dist = softmax_mse_loss(logits[llb:], ema_logits)
+            # both sums over the global unlabeled batch
+            masked, kept = all_reduce(torch.stack(
+                [(mask * dist).sum(), mask.sum()]), g)
+            cons = masked / (2.0 * kept + 1e-16)
             total = sup + rampup_weight(self.step, self.consistency,
                                         self.consistency_rampup) * cons
         total.backward()
+        self._reduce_grads(self.model)
         return self._finish_step([{"loss_total": total.detach(),
                                    "loss_sup": sup.detach(),
                                    "loss_cons": cons.detach()}])
@@ -224,7 +253,6 @@ class CrossTeachingTrainer(Trainer):
     both models, both optimizers and schedules, and the step."""
 
     supports_grad_accum = False
-    supports_data_parallel = False
 
     def __init__(self, model: nn.Module, config: TrainConfig,
                  model2: nn.Module, labeled_bs: int = 8,
@@ -237,38 +265,44 @@ class CrossTeachingTrainer(Trainer):
         self.consistency = consistency
         self.consistency_rampup = consistency_rampup
         super().__init__(model, config, **kw)
-        self.model2 = model2.to(self.device).train()
+        self.model2 = self._adopt(model2)
         self.optimizer2, self.scheduler2 = self.make_optimizer(
             self.model2.parameters())
-        set_generator(self.model2, self.generator)
+
+    def _blocks(self):
+        return (self.labeled_bs, self.config.batch_size - self.labeled_bs)
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-        lb = self.labeled_bs
+        lb, g = self.labeled_bs, self.group
         self.model.train()
         self.model2.train()
         image, label = _batch(self, batch)
+        blocks = (lb, image.shape[0] - lb)
+        image, label = self._rows(image, *blocks), self._rows(label[:lb], lb)
+        lb = self._local(lb)
         self.optimizer.zero_grad(set_to_none=True)
         self.optimizer2.zero_grad(set_to_none=True)
-        with self._autocast():
+        with self._autocast(), batch_shard(self._shard_of(*blocks)):
             self._reseed(STUDENT)
             out1 = _main_head(self.model(image))
             self._reseed(TEACHER)
             out2 = _main_head(self.model2(image))
             soft1 = F.softmax(out1.float(), dim=-1)
             soft2 = F.softmax(out2.float(), dim=-1)
-            sup1 = supervised_ce_dice(out1[:lb], label[:lb])
-            sup2 = supervised_ce_dice(out2[:lb], label[:lb])
+            sup1 = supervised_ce_dice(out1[:lb], label, g)
+            sup2 = supervised_ce_dice(out2[:lb], label, g)
             pseudo1 = soft1[lb:].detach().argmax(-1)
             pseudo2 = soft2[lb:].detach().argmax(-1)
-            ps1 = dice_loss_from_labels(soft1[lb:], pseudo2)
-            ps2 = dice_loss_from_labels(soft2[lb:], pseudo1)
-            con = constra_loss(out1, out2)
+            ps1 = dice_loss_from_labels(soft1[lb:], pseudo2, group=g)
+            ps2 = dice_loss_from_labels(soft2[lb:], pseudo1, group=g)
+            con = constra_loss(out1, out2, g)
             w = rampup_weight(self.step, self.consistency,
                               self.consistency_rampup)
             m1 = sup1 + w * ps1 + 0.5 * con
             m2 = sup2 + w * ps2 + 0.5 * con
             total = m1 + m2
         total.backward()
+        self._reduce_grads(self.model, self.model2)
         for opt, sched in ((self.optimizer, self.scheduler),
                            (self.optimizer2, self.scheduler2)):
             opt.step()

@@ -46,8 +46,12 @@ collectives sum the gradients in their backward, so every rank's
 gradient is S times its share of the global loss's, and the sum over the
 ranks is divided by S once. The ranks start from rank 0's weights;
 validation, the scalar log and checkpoints run on rank 0 only. The
-multi-model trainers (``supports_data_parallel = False``) take a
-one-rank mesh only.
+multi-model trainers do the same for every member: a rank holds its part
+of each block of the batch (:meth:`Trainer._blocks`: a two-stream batch's
+labeled and unlabeled rows, so every rank runs every pass), draws what
+the step draws for the global batch and keeps its rows (:meth:`_rows`,
+:meth:`_shard_of`), takes every loss term over ``group``, and sums every
+trained member's gradients in one all-reduce (:meth:`_reduce_grads`).
 """
 
 from __future__ import annotations
@@ -65,7 +69,11 @@ from torch.func import functional_call
 from mamba_unet_torch.eval.inference import evaluate_slice_volumes
 from mamba_unet_torch.nn.layers import set_generator
 from mamba_unet_torch.objectives import supervised_ce_dice
-from mamba_unet_torch.parallel.comm import batch_shard
+from mamba_unet_torch.parallel.comm import (
+    BatchShard,
+    batch_shard,
+    check_blocks,
+)
 from mamba_unet_torch.parallel.mesh import (
     Mesh,
     batch_sharding,
@@ -174,8 +182,6 @@ class Trainer:
     # this False, so that grad_accum_steps > 1 raises instead of being
     # ignored
     supports_grad_accum: bool = True
-    # and this False, so that a data axis of more than one rank raises
-    supports_data_parallel: bool = True
 
     def __init__(self, model: nn.Module, config: TrainConfig,
                  make_optimizer: Optional[OptimizerFactory] = None,
@@ -185,15 +191,12 @@ class Trainer:
         ``config.max_iterations``. The model moves to ``device``, which is
         the card unless the caller asks for the CPU. ``mesh`` (default: all
         ranks of the process group on one ``data`` axis, one rank without
-        a process group) splits each batch over its ``data`` axis."""
+        a process group) splits each batch over its ``data`` axis; a block
+        of the batch (:meth:`_blocks`) that does not split over it raises
+        ``ValueError``."""
         cfg = self.config = config
         self.mesh = make_mesh() if mesh is None else mesh
         n_data = self.mesh.shape.get("data", 1)
-        if n_data > 1 and not self.supports_data_parallel:
-            raise NotImplementedError(
-                f"{type(self).__name__} takes a one-rank mesh: data "
-                f"parallelism for the multi-model trainers is ROADMAP.md "
-                f"queue 1, item 17b")
         self._shard = (None if n_data == 1
                        else batch_sharding(self.mesh, "data"))
         k = cfg.grad_accum_steps
@@ -203,9 +206,7 @@ class Trainer:
         if k < 1 or cfg.batch_size % k:
             raise ValueError(f"batch_size={cfg.batch_size} is not divisible "
                              f"by grad_accum_steps={k}")
-        if (cfg.batch_size // k) % n_data:
-            raise ValueError(f"a microbatch of {cfg.batch_size // k} rows "
-                             f"does not split over {n_data} data ranks")
+        check_blocks(self._blocks(), n_data)
         self.device = require_device(device)
         self.model = model.to(self.device).train()
         if self._shard is not None:
@@ -219,6 +220,45 @@ class Trainer:
         self.step = 0
         self.generator = torch.Generator(device=self.device)
         set_generator(self.model, self.generator)
+
+    def _blocks(self) -> Tuple[int, ...]:
+        """The global row counts of the blocks of the batch that one pass
+        of a step sees, each of which every data rank holds a part of:
+        here one microbatch."""
+        return (self.config.batch_size // self.config.grad_accum_steps,)
+
+    @property
+    def group(self):
+        """The process group of the data axis (None on one rank), over
+        which the loss terms take their sums."""
+        return None if self._shard is None else self._shard.group
+
+    def _shard_of(self, *blocks: int) -> Optional[BatchShard]:
+        """This rank's shard of a global batch made of ``blocks`` (global
+        row counts; none: one block), for ``batch_shard``; None on one
+        rank."""
+        return None if self._shard is None else self._shard.with_blocks(
+            *blocks)
+
+    def _rows(self, x, *blocks: int):
+        """This rank's rows of ``x``, whose first axis is a global batch
+        made of ``blocks``; ``x`` itself on one rank."""
+        shard = self._shard_of(*blocks)
+        return x if shard is None else shard.rows(x)
+
+    def _local(self, rows: int) -> int:
+        """This rank's rows of a block of ``rows`` global rows."""
+        return rows if self._shard is None else rows // self._shard.count
+
+    def _adopt(self, model: nn.Module) -> nn.Module:
+        """A further network of the trainer: on the device in train mode,
+        with rank 0's weights on every data rank, drawing from the
+        trainer's generator."""
+        model = model.to(self.device).train()
+        if self._shard is not None:
+            replicated(model, self.mesh, "data")
+        set_generator(model, self.generator)
+        return model
 
     def _reseed(self, *stream: int) -> None:
         """Reseed the generator from (seed, step, *stream)."""
@@ -240,8 +280,7 @@ class Trainer:
         image = batch["image"].to(self.device, non_blocking=True).float()
         label = batch["label"].to(self.device, non_blocking=True).long()
         k = cfg.grad_accum_steps
-        shard = self._shard
-        group = None if shard is None else shard.group
+        shard, group = self._shard, self.group
         self.optimizer.zero_grad(set_to_none=True)
         losses = []
         for img, lab in zip(image.chunk(k), label.chunk(k)):

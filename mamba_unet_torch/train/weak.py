@@ -21,6 +21,10 @@ periodic checkpoint carries the three models, optimizers and schedules and
 the step. The three train-mode forwards draw from the trainer's generator
 on streams 0, 1 and 2 of the step's seed, as the JAX step splits its key
 into r1, r2, r3; the mix weights on stream 3 (its r_mix).
+
+Over a data axis of S ranks each rank holds B / S rows; the pCE's
+scribbled-pixel count and the Dice's per-class sums are taken over the
+global batch, and the three models' gradients summed in one all-reduce.
 """
 
 from __future__ import annotations
@@ -31,11 +35,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mamba_unet_torch.nn.layers import set_generator
 from mamba_unet_torch.objectives import (
     cross_entropy_loss,
     dice_loss_from_labels,
 )
+from mamba_unet_torch.parallel.comm import batch_shard
 from mamba_unet_torch.train.methods import _batch, _main_head
 from mamba_unet_torch.train.trainer import TrainConfig, Trainer
 
@@ -46,7 +50,6 @@ class WeakScribbleTrainer(Trainer):
     """Three-network scribble-supervised trainer (Weak-Mamba-UNet)."""
 
     supports_grad_accum = False
-    supports_data_parallel = False
 
     def __init__(self, model: nn.Module, config: TrainConfig,
                  model2: nn.Module, model3: nn.Module,
@@ -60,14 +63,11 @@ class WeakScribbleTrainer(Trainer):
                              else ignore_index)
         self.pce_only = pce_only
         super().__init__(model, config, **kw)
-        self.model2 = model2.to(self.device).train()
-        self.model3 = model3.to(self.device).train()
+        self.model2, self.model3 = self._adopt(model2), self._adopt(model3)
         self.optimizer2, self.scheduler2 = self.make_optimizer(
             self.model2.parameters())
         self.optimizer3, self.scheduler3 = self.make_optimizer(
             self.model3.parameters())
-        set_generator(self.model2, self.generator)
-        set_generator(self.model3, self.generator)
 
     def _members(self) -> List[Tuple[nn.Module, Any, Any]]:
         return [(self.model, self.optimizer, self.scheduler),
@@ -91,11 +91,13 @@ class WeakScribbleTrainer(Trainer):
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         image, scribble = _batch(self, batch)
+        n, g = image.shape[0], self.group
+        image, scribble = self._rows(image, n), self._rows(scribble, n)
         mix = self._mix_weights()
         members = self._members()
         for _, opt, _ in members:
             opt.zero_grad(set_to_none=True)
-        with self._autocast():
+        with self._autocast(), batch_shard(self._shard_of(n)):
             outs = []
             for stream, (model, _, _) in enumerate(members):
                 model.train()
@@ -104,15 +106,18 @@ class WeakScribbleTrainer(Trainer):
             softs = [F.softmax(o.float(), dim=-1) for o in outs]
             pseudo = self._pseudo_labels(softs, mix)
             pces = [cross_entropy_loss(o, scribble,
-                                       ignore_index=self.ignore_index)
+                                       ignore_index=self.ignore_index,
+                                       group=g)
                     for o in outs]
             if self.pce_only:
                 dices = [torch.zeros((), device=self.device) for _ in softs]
             else:
-                dices = [dice_loss_from_labels(s, pseudo) for s in softs]
+                dices = [dice_loss_from_labels(s, pseudo, group=g)
+                         for s in softs]
             per_model = [p + d for p, d in zip(pces, dices)]
             total = per_model[0] + per_model[1] + per_model[2]
         total.backward()
+        self._reduce_grads(*(m for m, _, _ in members))
         for _, opt, sched in members:
             opt.step()
             sched.step()

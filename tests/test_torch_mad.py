@@ -365,9 +365,9 @@ def test_the_den_loss_reaches_the_segmenter_and_the_mad_loss_does_not(
     for keep, name in enumerate(("seg", "mad", "den")):
         calls = []
 
-        def one_loss(logits, label, keep=keep, calls=calls):
+        def one_loss(logits, label, group=None, keep=keep, calls=calls):
             calls.append(1)
-            return real(logits, label) * float(len(calls) - 1 == keep)
+            return real(logits, label, group) * float(len(calls) - 1 == keep)
 
         grads = {}
 

@@ -45,7 +45,6 @@ from mamba_unet_torch.parallel import (  # noqa: E402
 from mamba_unet_torch.parallel.checks import run_jobs  # noqa: E402
 from mamba_unet_torch.parallel.launch import free_port, run_ranks  # noqa: E402,E501
 from mamba_unet_torch.parallel.mesh import Mesh  # noqa: E402
-from mamba_unet_torch.train import methods as t_methods  # noqa: E402
 from mamba_unet_torch.train.trainer import TrainConfig, Trainer  # noqa: E402
 from mamba_unet_torch.utils.convert import params_from_jax  # noqa: E402
 from mamba_unet_torch.utils.convert_lm import params_from_jax_lm  # noqa: E402
@@ -492,14 +491,6 @@ def test_data_parallel_step_with_random_masks_matches_one_process(
                                           got["state"][k])
 
 
-def test_multi_model_trainers_take_one_rank_only():
-    two = Mesh(("data",), (2,), 0, {"data": None})
-    with pytest.raises(NotImplementedError, match="17b"):
-        t_methods.CrossTeachingTrainer(
-            TUNet(num_classes=4, ft_chns=FT), TrainConfig(**DP_CFG),
-            model2=TUNet(num_classes=4, ft_chns=FT), device="cpu", mesh=two)
-
-
 def test_mesh_without_a_process_group_is_one_rank():
     mesh = make_mesh(("data", "model"))
     assert mesh.shape == {"data": 1, "model": 1} and mesh.size == 1
@@ -514,16 +505,20 @@ def test_mesh_without_a_process_group_is_one_rank():
         make_mesh(("data",), (2,))
 
 
-def test_train_cli_under_torchrun_matches_one_process(tmp_path, caplog):
-    """``torchrun`` with 2 CPU ranks, 2 steps at 32²: the global batch
-    split over the ranks gives the one-process run's step-1 loss and the
-    Dice of its weights after step 2."""
+@pytest.mark.parametrize("method", [
+    [], ["--method", "cross_teaching", "--labeled_bs", "2"]])
+def test_train_cli_under_torchrun_matches_one_process(tmp_path, caplog,
+                                                      method):
+    """``torchrun`` with 2 CPU ranks, 2 steps at 32², fully supervised
+    and cross-teaching (a labeled and an unlabeled row per rank): the
+    global batch split over the ranks gives the one-process run's step-1
+    loss and the Dice of its weights (each model's) after step 2."""
     from mamba_unet_torch.cli import train as train_cli
 
     argv = ["--model", "unet", "--synthetic", "--device", "cpu",
             "--patch_size", "32", "32", "--batch_size", "4",
             "--max_iterations", "2", "--eval_every", "2",
-            "--synthetic_spec", "2", "4", "1", "0", "32"]
+            "--synthetic_spec", "2", "4", "1", "0", "32", *method]
     keep = (" loss ", "val mean dice")
 
     def lines(messages):
@@ -542,5 +537,6 @@ def test_train_cli_under_torchrun_matches_one_process(tmp_path, caplog):
         capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     two = lines(line.split(" ", 1)[1] for line in proc.stdout.splitlines())
-    # step 1's loss is logged by both ranks; rank 0 validates
-    assert len(one) == 2 and two == sorted(one + one[:1])
+    # step 1's loss is logged by both ranks; rank 0 validates each model
+    assert len(one) == (3 if method else 2)
+    assert two == sorted(one + [m for m in one if " loss " in m])
